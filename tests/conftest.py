@@ -62,3 +62,11 @@ def snr_db(ref, test):
     if p_err == 0:
         return np.inf
     return 10 * np.log10(p_sig / p_err)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device; the test skips itself where torch "
+        "sees none",
+    )
