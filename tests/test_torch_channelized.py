@@ -20,6 +20,11 @@ from webradio_tpu_torch import convert
 from webradio_tpu_torch.ops import tail_tm
 from webradio_tpu_torch.pipeline import channelized as tch
 
+# The first multi-threaded call into torch's CPU vector math in a process
+# can return reduced-accuracy values (~1.5e-4) on some threads' chunks; a
+# single-element call first initializes it.
+torch.sin(torch.zeros(1))
+
 BLOCK, C = 51_200, 128
 IFS = [int(f) for f in np.linspace(-900_000, 900_000, C)]
 MODES = [("AM", "FM", "USB", "LSB")[i % 4] for i in range(C)]

@@ -29,6 +29,11 @@ from webradio_tpu_torch.ops.trig import atan2
 
 T = torch.from_numpy
 
+# The first multi-threaded call into torch's CPU vector math in a process
+# can return reduced-accuracy values (~1.5e-4) on some threads' chunks; a
+# single-element call first initializes it.
+torch.sin(torch.zeros(1))
+
 
 def _np(x):
     return np.asarray(x)

@@ -31,8 +31,8 @@ from .nco import nco_mix_tm, nco_mix_tm_exact
 CHAN_TILE = 128
 #: rows per kernel chunk (nd must be a multiple)
 CHUNK_ROWS = 16
-#: default time-tile rows per CUDA block: a multiple of CHUNK_ROWS and at
-#: least 2K = 128 (the halo recompute starts 2K rows before the tile)
+#: time-tile rows per CUDA block: a multiple of CHUNK_ROWS and at least
+#: 2K = 128 (the halo recompute starts 2K rows before the tile)
 TILE_ROWS = 640
 #: the only tap count the kernel is built for (firdesign.FIR_LENGTH)
 KERNEL_TAPS = 64
@@ -46,29 +46,41 @@ def _split(ci_planes, cq_planes, packed):
     return ci_planes, cq_planes, ci_planes.shape[1]
 
 
-def fused_tail_audio_tm_ref(
-    ci_planes, cq_planes, phase0, phase_step, w_toep, audio_toep,
-    decimation, mode, chan_hist_i, chan_hist_q, demod_prev, audio_hist,
-    precision="highest", packed=False, fast=False, mode_set=None,
+def tail_after_mix_tm(
+    mi, mq, w_toep, audio_toep, decimation, mode, chan_hist_i, chan_hist_q,
+    demod_prev, audio_hist,
 ):
-    """Plain torch version of :func:`fused_tail_audio_tm` (same arguments,
-    same returns): the unfused chain mix -> Toeplitz FIR -> demod ->
-    decimating Toeplitz FIR, in true float32."""
-    xi, xq, c = _split(ci_planes, cq_planes, packed)
-    nd = xi.shape[0]
-    mix = nco_mix_tm_exact if fast else nco_mix_tm
-    mi, mq = mix(xi.float(), xq.float(), phase0, phase_step)
+    """The plain tail from mixed ``[nd, C]`` planes on: shaping FIR (both
+    planes through one banded matmul), demod, squelch power and decimating
+    audio FIR, in true float32. Returns what :func:`fused_tail_audio_tm`
+    returns."""
+    c = mi.shape[1]
     y2, h2 = fir_decimate_toeplitz_tm(
         torch.cat([mi, mq], dim=1), w_toep, 1,
         torch.cat([chan_hist_i, chan_hist_q], dim=1),
     )
     yi, yq = y2[:, :c], y2[:, c:]
     audio, new_prev = demodulate_tm(yi, yq, mode, demod_prev)
-    power = (yi * yi + yq * yq).sum(dim=0) * (1.0 / nd)
+    power = (yi * yi + yq * yq).sum(dim=0) * (1.0 / yi.shape[0])
     audio48, new_ahist = fir_decimate_toeplitz_tm(
         audio, audio_toep, decimation, audio_hist
     )
     return audio48, h2[:, :c], h2[:, c:], new_prev, new_ahist, power
+
+
+def fused_tail_audio_tm_ref(
+    ci_planes, cq_planes, phase0, phase_step, w_toep, audio_toep,
+    decimation, mode, chan_hist_i, chan_hist_q, demod_prev, audio_hist,
+    precision="highest", packed=False, fast=False, mode_set=None,
+):
+    """Plain torch version of :func:`fused_tail_audio_tm` (same arguments,
+    same returns): the exact LO mix, then :func:`tail_after_mix_tm`."""
+    xi, xq, _ = _split(ci_planes, cq_planes, packed)
+    mix = nco_mix_tm_exact if fast else nco_mix_tm
+    mi, mq = mix(xi.float(), xq.float(), phase0, phase_step)
+    return tail_after_mix_tm(mi, mq, w_toep, audio_toep, decimation, mode,
+                             chan_hist_i, chan_hist_q, demod_prev,
+                             audio_hist)
 
 
 def _check(name, x, dtype, shape, device):
@@ -174,7 +186,6 @@ def fused_tail_audio_tm(
     packed: bool = False,
     fast: bool = False,
     mode_set: tuple | None = None,
-    tile_rows: int = TILE_ROWS,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
            torch.Tensor, torch.Tensor]:
     """Residual NCO mix, shaping FIR, demod, squelch power and decimating
@@ -198,7 +209,6 @@ def fused_tail_audio_tm(
       fast: full-angle LO instead of the 16-bit table law.
       mode_set: accepted for signature parity; the kernel switches on
         ``mode`` per channel at run time.
-      tile_rows: rows per CUDA block (a multiple of 16, at least 2K).
 
     Returns ``(audio48 [nd // D, C], new_hist_i, new_hist_q,
     new_demod_prev, new_audio_hist, power [C])``.
@@ -212,7 +222,7 @@ def fused_tail_audio_tm(
             decimation, mode, chan_hist_i, chan_hist_q, demod_prev,
             audio_hist)
     if ci_planes.device.type == "cuda":
-        return _launch(*args, packed, fast, tile_rows)
+        return _launch(*args, packed, fast, TILE_ROWS)
     if ci_planes.device.type != "cpu":
         raise ValueError(f"no tail kernel for device {ci_planes.device}")
     return fused_tail_audio_tm_ref(*args, precision=precision,

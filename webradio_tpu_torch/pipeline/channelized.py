@@ -37,12 +37,12 @@ from ..ops.channelizer import (
     design_prototype,
     pfb_channelize_direct_tm,
 )
-from ..ops.demod import MODES, demodulate_tm
-from ..ops.fir import fir_decimate_toeplitz_tm, maybe_toeplitz_weights
+from ..ops.demod import MODES
+from ..ops.fir import maybe_toeplitz_weights
 from ..ops.firdesign import FIR_LENGTH, design_lowpass_fir_cached
 from ..ops.nco import nco_advance, nco_mix_tm, nco_mix_tm_fast, nco_phase_step
 from ..ops.spectrum import DEFAULT_FFT_SIZE, spectrum_accumulate, spectrum_db
-from ..ops.tail_tm import CHAN_TILE, fused_tail_audio_tm
+from ..ops.tail_tm import CHAN_TILE, fused_tail_audio_tm, tail_after_mix_tm
 from .frontend import squelch_scale
 from .state import _squelch_array
 
@@ -324,7 +324,6 @@ def _channelized_step(cfg, params, state, iq, time_major):
                             cfg.chan_frames)
     nd = iq.shape[-1] // cfg.num_bins
     d = cfg.audio_decim
-    c = cfg.num_channels
 
     use_tm = (
         params.chan_toep is not None
@@ -350,24 +349,17 @@ def _channelized_step(cfg, params, state, iq, time_major):
             state.demod_prev, state.audio_hist.T.contiguous(),
             precision=cfg.fir_precision, packed=True, fast=cfg.fast_nco,
         )
-        chan_hist = torch.stack([hist_i.T, hist_q.T])
     else:
         ci, cq, pfb_hist = pfb_channelize_direct_tm(
             iq, params.pfb_weights, cfg.num_bins, state.pfb_hist, split=True)
         mix_tm = nco_mix_tm_fast if cfg.fast_nco else nco_mix_tm
         mi, mq = mix_tm(ci, cq, state.nco_phase, params.residual_step)
-        # both planes through one banded matmul: stack on the channel axis
-        y2, h2 = fir_decimate_toeplitz_tm(
-            torch.cat([mi, mq], dim=1), params.chan_toep, 1,
-            torch.cat([state.chan_hist[0].T, state.chan_hist[1].T], dim=1),
+        audio, hist_i, hist_q, demod_prev, ahist, power = tail_after_mix_tm(
+            mi, mq, params.chan_toep, params.audio_toep, d, params.mode,
+            state.chan_hist[0].T, state.chan_hist[1].T, state.demod_prev,
+            state.audio_hist.T,
         )
-        audio_tm, demod_prev = demodulate_tm(
-            y2[:, :c], y2[:, c:], params.mode, state.demod_prev)
-        chan_hist = torch.stack([h2[:, :c].T, h2[:, c:].T])
-        pm = (y2 * y2).mean(dim=0)  # [2C] post-FIR plane power
-        power = pm[:c] + pm[c:]
-        audio, ahist = fir_decimate_toeplitz_tm(
-            audio_tm, params.audio_toep, d, state.audio_hist.T)
+    chan_hist = torch.stack([hist_i.T, hist_q.T])
     # squelch gate on the post-shaping-FIR (in-band) mean |y|^2
     scale = squelch_scale(power, params.af_gain, params.squelch)
     if time_major:
