@@ -292,3 +292,126 @@ def test_pfb_frames_and_direct_channelizer(bins, tpp, c):
         packed, same, _ = tch.pfb_channelize_direct_tm(
             T(x), T(w), bins, T(hist), split=False)
         assert packed is same and packed.shape == (n // bins, 2 * c)
+
+
+# ---- the time-minor forms of the per-channel fallback --------------------
+
+@pytest.mark.parametrize("broadcast", [False, True])
+def test_nco_mix_time_minor(broadcast):
+    rng = np.random.default_rng(20 + broadcast)
+    n, c = 2_560, 24
+    x = rng.uniform(-1, 1, (2, 1 if broadcast else c, n)).astype(np.float32)
+    p0 = rng.integers(0, 2**31, c).astype(np.uint32)
+    st = rng.integers(0, 2**32, c, dtype=np.uint64).astype(np.uint32)
+    ref = jnco.nco_mix(jnp.asarray(x), jnp.asarray(p0), jnp.asarray(st))
+    got = tnco.nco_mix(T(x), T(p0.astype(np.int64)), T(st.astype(np.int64)))
+    assert got.shape == (2, c, n)
+    # float32 sin and mix rounding on |x| < 1.5
+    np.testing.assert_allclose(got.numpy(), _np(ref), rtol=0, atol=1e-6)
+    # and it is the time-major mix transposed, bit for bit
+    if not broadcast:
+        gi, gq = tnco.nco_mix_tm(T(x[0].T.copy()), T(x[1].T.copy()),
+                                 T(p0.astype(np.int64)),
+                                 T(st.astype(np.int64)))
+        torch.testing.assert_close(got[0], gi.T, rtol=0, atol=0)
+        torch.testing.assert_close(got[1], gq.T, rtol=0, atol=0)
+
+
+def test_demodulate_time_minor_all_modes_carried_lag():
+    from webradio_tpu.ops.demod import demodulate as j_demodulate
+    from webradio_tpu_torch.ops.demod import demodulate
+
+    rng = np.random.default_rng(22)
+    n, c = 1_024, 32
+    mode = (np.arange(c) % len(MODES)).astype(np.int32)
+    prev = rng.standard_normal((2, c)).astype(np.float32)
+    jprev, tprev = jnp.asarray(prev), T(prev)
+    for _ in range(2):  # the FM lag crosses the block boundary
+        x = rng.standard_normal((2, c, n)).astype(np.float32)
+        ra, jprev = j_demodulate(jnp.asarray(x), jnp.asarray(mode), jprev)
+        ga, tprev = demodulate(T(x), T(mode), tprev)
+        assert ga.shape == (c, n)
+        # float32 law rounding (sqrt, the atan2 polynomial, i +- q)
+        np.testing.assert_allclose(ga.numpy(), _np(ra), rtol=0, atol=1e-6)
+        np.testing.assert_array_equal(tprev.numpy(), _np(jprev))
+        assert tprev.is_contiguous()
+
+
+@pytest.mark.parametrize("decimation", [1, 5])
+@pytest.mark.parametrize("shared", [True, False])
+def test_fir_decimate_carried_blocks(shared, decimation):
+    rng = np.random.default_rng(23 + decimation + shared)
+    c, n, k = 12, 2_560, 64
+    designs = [jfd.design_lowpass_fir(bw, 240_000) for bw in (12_500, 80_000)]
+    coeff = designs[1] if shared else np.stack(
+        [designs[i % 2] for i in range(c)])
+    hist = rng.uniform(-1, 1, (2, c, k - 1)).astype(np.float32)
+    jh, th = jnp.asarray(hist), T(hist)
+    for _ in range(2):
+        x = rng.uniform(-1, 1, (2, c, n)).astype(np.float32)
+        ry, jh = jops.fir_decimate(jnp.asarray(x), jnp.asarray(coeff),
+                                   decimation, jh)
+        gy, th = tfir.fir_decimate(T(x), T(coeff), decimation, th)
+        assert gy.shape == (2, c, n // decimation)
+        # 64-term float32 sums of |x| < 1 against unit-gain kernels, tap by
+        # tap in the same order
+        np.testing.assert_allclose(gy.numpy(), _np(ry), rtol=0, atol=2e-6)
+        np.testing.assert_array_equal(th.numpy(), _np(jh))
+        assert np.abs(_np(ry)).max() > 0.1
+    with pytest.raises(ValueError, match="multiple of the decimation"):
+        tfir.fir_decimate(T(x)[..., :-1], T(coeff), 5, th)
+
+
+@pytest.mark.parametrize("decimation,tile", [(1, 128), (5, 32)])
+def test_fir_decimate_toeplitz_time_minor_and_dispatch(decimation, tile):
+    rng = np.random.default_rng(25 + decimation)
+    c, n, k = 8, 5_120, 64
+    h = jfd.design_lowpass_fir(80_000 if decimation == 1 else 8_000, 240_000)
+    w = tfir.toeplitz_weights(h, decimation, tile)
+    rows = np.tile(h, (c, 1))
+    hist = rng.uniform(-1, 1, (c, k - 1)).astype(np.float32)
+    jh, th = jnp.asarray(hist), T(hist)
+    for _ in range(2):
+        x = rng.uniform(-1, 1, (c, n)).astype(np.float32)
+        ry, jh2 = jops.fir_decimate_toeplitz(jnp.asarray(x), jnp.asarray(w),
+                                             decimation, jh)
+        gy, th2 = tfir.fir_decimate_toeplitz(T(x), T(w), decimation, th)
+        np.testing.assert_allclose(gy.numpy(), _np(ry), rtol=0, atol=2e-6)
+        # the dispatcher takes this form when the shared weights fit...
+        dy, dh = tfir.fir_dispatch(T(x), T(rows), T(w), decimation, th)
+        torch.testing.assert_close(dy, gy, rtol=0, atol=0)
+        jy, _ = jops.fir_dispatch(jnp.asarray(x), jnp.asarray(rows),
+                                  jnp.asarray(w), decimation, jh)
+        np.testing.assert_allclose(dy.numpy(), _np(jy), rtol=0, atol=2e-6)
+        # ...and the per-channel form without them, or on a block that is
+        # not whole tiles; both forms agree to float32 rounding
+        py, ph = tfir.fir_dispatch(T(x), T(rows), None, decimation, th)
+        np.testing.assert_allclose(py.numpy(), gy.numpy(), rtol=0, atol=2e-6)
+        odd = n - 5 * 16
+        oy, _ = tfir.fir_dispatch(T(x[:, :odd]), T(rows), T(w), decimation,
+                                  th)
+        ey, _ = tfir.fir_decimate(T(x[:, :odd]), T(rows), decimation, th)
+        torch.testing.assert_close(oy, ey, rtol=0, atol=0)
+        np.testing.assert_array_equal(th2.numpy(), _np(jh2))
+        torch.testing.assert_close(dh, ph, rtol=0, atol=0)
+        jh, th = jh2, th2
+
+
+@pytest.mark.parametrize("bins,tpp,c", [(10, 16, 40), (8, 16, 24)])
+def test_pfb_channelize_direct_time_minor(bins, tpp, c):
+    rng = np.random.default_rng(28 + bins)
+    kp = bins * tpp
+    n = 512 * bins
+    proto = jch.design_prototype(2_400_000, bins, tpp)
+    w = jch.bin_weights_for_channels(proto, bins, rng.integers(0, bins, c))
+    hist = rng.uniform(-1, 1, (2, kp - 1)).astype(np.float32)
+    jh, th = jnp.asarray(hist), T(hist)
+    for _ in range(2):
+        x = rng.uniform(-1, 1, (2, n)).astype(np.float32)
+        ry, jh = jch.pfb_channelize_direct(jnp.asarray(x), jnp.asarray(w),
+                                           bins, jh)
+        gy, th = tch.pfb_channelize_direct(T(x), T(w), bins, th)
+        assert gy.shape == (2, c, n // bins) and gy.is_contiguous()
+        # float32 2*K_p-term sums of |x| < 1 against unit-gain weights
+        np.testing.assert_allclose(gy.numpy(), _np(ry), rtol=0, atol=1e-5)
+        np.testing.assert_array_equal(th.numpy(), _np(jh))

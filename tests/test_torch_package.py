@@ -1,6 +1,7 @@
-"""Package-level properties of the PyTorch port: it never imports JAX, the
-kernel build raises (never falls back) where nvcc is missing, and the
-chip smoke script refuses to run without a CUDA device."""
+"""Package-level properties of the PyTorch port: neither it nor the chip
+smoke script imports JAX or the JAX package, the kernel build raises (never
+falls back) where nvcc is missing, and the chip smoke script refuses to run
+without a CUDA device."""
 
 import os
 import pathlib
@@ -19,8 +20,10 @@ names = [m.name for m in pkgutil.walk_packages(
     webradio_tpu_torch.__path__, "webradio_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-import webradio_tpu.io.source  # the host I/O the port shares
-print(len(names), sorted(m for m in sys.modules if m.split(".")[0] == "jax"))
+import chip_smoke
+chip_smoke.tone_blocks(1)  # its sample source is the port's own
+print(len(names), sorted(m for m in sys.modules
+                         if m.split(".")[0] in ("jax", "webradio_tpu")))
 """
 
 
@@ -31,13 +34,27 @@ def _env():
 
 
 def test_port_imports_no_jax():
+    # after importing every module of the port and chip_smoke: no jax, and
+    # no webradio_tpu or webradio_tpu.* module
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                          env=_env(), capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    count, jax_modules = out.stdout.split(maxsplit=1)
-    assert int(count) >= 15  # every submodule was imported
-    assert jax_modules.strip() == "[]"
+    count, foreign = out.stdout.split(maxsplit=1)
+    assert int(count) >= 20  # every submodule was imported
+    assert foreign.strip() == "[]"
+
+
+def test_no_source_line_imports_the_jax_package():
+    files = [REPO / "chip_smoke.py",
+             *(REPO / "webradio_tpu_torch").rglob("*.py")]
+    assert len(files) > 20
+    for path in files:
+        for line in path.read_text().splitlines():
+            words = line.split()
+            if words[:1] in (["import"], ["from"]):
+                root = words[1].split(".")[0]
+                assert root not in ("jax", "webradio_tpu"), (path, line)
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -59,7 +76,14 @@ def test_build_is_keyed_by_the_sources(tmp_path):
     first = _build._digest([src])
     src.write_text("// two\n")
     assert _build._digest([src]) != first
-    assert all(p.is_file() for p in _build.SOURCES)
+    # a header the sources include is part of the key too
+    hdr = tmp_path / "k.cuh"
+    hdr.write_text("// a\n")
+    with_hdr = _build._digest([src], [hdr])
+    hdr.write_text("// b\n")
+    assert _build._digest([src], [hdr]) != with_hdr
+    assert all(p.is_file() for p in (*_build.SOURCES, *_build.HEADERS))
+    assert {p.name for p in _build.SOURCES} == {"tail_tm.cu", "tail.cu"}
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):

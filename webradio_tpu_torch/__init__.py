@@ -4,16 +4,22 @@ The JAX package (``webradio_tpu``) is the reference; this package mirrors
 its module paths so each counterpart sits at the same relative path:
 
 * ``ops``       — the DSP operators on torch tensors (FIR design, NCO mix,
-                  Toeplitz FIR, demodulators, spectrum, filterbank) and the
-                  hand-written Hopper kernel for the fused receiver tail
-                  (``ops/tail_tm.py`` over ``csrc/tail_tm.cu``).
-* ``pipeline``  — the channelized serving step and its double-buffered
-                  host wrapper (``ChannelizedPipeline``).
+                  direct and Toeplitz FIRs, demodulators, spectrum,
+                  filterbank) and the hand-written Hopper kernels for the
+                  four fused receiver tails (``ops/tail_tm.py`` over
+                  ``csrc/tail_tm.cu``, ``ops/tail.py`` over
+                  ``csrc/tail.cu``).
+* ``pipeline``  — every single-device branch of the channelized serving
+                  step, its control plane (slot scatter, capacity growth),
+                  the catch-up scan and the double-buffered host wrapper
+                  (``ChannelizedPipeline``).
+* ``io``        — the port's own sample sources and ingest ring (numpy).
 * ``convert``   — carry a JAX parameter or state pytree (as numpy arrays)
                   over to the port's tensors.
 
-The host I/O layer is shared: the port reads sample sources from
-``webradio_tpu.io``, which imports no JAX. Nothing here imports ``jax``.
+Nothing here imports ``jax`` or the JAX package. Entry points that place
+tensors take ``device=None`` for the CUDA device and raise where there is
+none; the tests pass ``device="cpu"``.
 
 Kernels run only on a CUDA device. A function with a kernel takes its plain
 torch version for tensors that lie on the CPU (the tests' path), and for a

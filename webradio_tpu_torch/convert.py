@@ -2,9 +2,13 @@
 
 Both functions take the ``webradio_tpu.pipeline.channelized`` NamedTuple
 with every field as a numpy array (``jax.tree.map(np.asarray, x)`` on the
-JAX side) and return the port's NamedTuple on ``device``. Layouts are the
-same; the uint32 NCO phase and step become int64 tensors holding the same
-value. Nothing here imports JAX: the inputs are duck-typed.
+JAX side) and return the port's NamedTuple on ``device`` (None: the CUDA
+device, and an error where there is none). Layouts are the same; the
+uint32 NCO phase and step become int64 tensors holding the same value.
+``chan_hist`` holds the mixed-domain tail, except under
+``cfg.use_pallas_tail``, where it holds the RAW pre-mix tail: as in the JAX
+package, a state is not carried across that flag. Nothing here imports
+JAX: the inputs are duck-typed.
 """
 
 from __future__ import annotations
@@ -12,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import require_cuda
 from .pipeline.channelized import ChannelizedParams, ChannelizedState
 
 _INT64_FIELDS = ("residual_step", "nco_phase")
@@ -30,11 +35,13 @@ def _tensor(name, a, device):
     return torch.from_numpy(np.array(a)).to(device)
 
 
-def params_from_numpy(p, device: torch.device | str = "cpu"
+def params_from_numpy(p, device: torch.device | str | None = None
                       ) -> ChannelizedParams:
     """The port's :class:`ChannelizedParams` from a JAX one of numpy
     arrays. The u8exact split weights are not ported (ROADMAP.md, the pfb
     tiers) and must be absent."""
+    if device is None:
+        device = require_cuda()
     if getattr(p, "pfb_weights_split", None) is not None:
         raise NotImplementedError(
             "pfb_weights_split (the u8exact tier) is not ported to "
@@ -47,10 +54,12 @@ def params_from_numpy(p, device: torch.device | str = "cpu"
     })
 
 
-def state_from_numpy(s, device: torch.device | str = "cpu"
+def state_from_numpy(s, device: torch.device | str | None = None
                      ) -> ChannelizedState:
     """The port's :class:`ChannelizedState` from a JAX one of numpy
     arrays."""
+    if device is None:
+        device = require_cuda()
     return ChannelizedState(**{
         f: _tensor(f, getattr(s, f), device)
         for f in ChannelizedState._fields

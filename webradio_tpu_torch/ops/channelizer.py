@@ -1,5 +1,6 @@
-"""Polyphase DFT-filterbank channelizer — port of the direct time-major
-path of ``webradio_tpu.ops.channelizer``.
+"""Polyphase DFT-filterbank channelizer — port of the direct paths of
+``webradio_tpu.ops.channelizer`` (time-major, and the time-minor
+``[2, C, nd]`` form of the per-channel fallback).
 
 For bin ``c`` of a ``D``-band filterbank with prototype ``h``,
 
@@ -141,3 +142,19 @@ def pfb_channelize_direct_tm(
     if not split:
         return y, y, new_history
     return y[:, :c], y[:, c:], new_history
+
+
+def pfb_channelize_direct(
+    x: torch.Tensor,
+    weights: torch.Tensor,
+    decimation: int,
+    history: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``[2, N] -> (chan [2, C, nd], new_history)``: the same product as
+    :func:`pfb_channelize_direct_tm`, transposed to the time-minor layout
+    (one contiguous copy) for the per-channel tail."""
+    y, _, new_history = pfb_channelize_direct_tm(
+        x, weights, decimation, history, split=False)
+    c = weights.shape[-1]
+    return y.reshape(y.shape[0], 2, c).permute(1, 2, 0).contiguous(), \
+        new_history

@@ -1,12 +1,15 @@
-"""Decimating FIR filtering — port of the time-major Toeplitz form of
-``webradio_tpu.ops.fir``.
+"""Decimating FIR filtering — port of ``webradio_tpu.ops.fir``.
 
 The reference evaluates a 64-tap direct-form FIR at every retained
 (decimated) output, carrying ``K - 1`` frames of history between blocks
-(src/dsp/lowpass.cxx:131-162). :func:`fir_decimate_toeplitz_tm` computes
-the same correlation as float32 matmuls against a banded (Toeplitz) weight
-matrix built on the host (:func:`toeplitz_weights`); the weight builders
-are numpy and bit-identical to the JAX package's.
+(src/dsp/lowpass.cxx:131-162). :func:`fir_decimate` is that loop as ``K``
+shifted multiply-adds, with shared or per-channel coefficients.
+:func:`fir_decimate_toeplitz_tm` (time-major) and
+:func:`fir_decimate_toeplitz` (time-minor) compute the same correlation as
+float32 matmuls against a banded (Toeplitz) weight matrix built on the host
+(:func:`toeplitz_weights`); the weight functions are numpy and bit-identical
+to the JAX package's. :func:`fir_dispatch` routes one call between the two
+forms.
 """
 
 from __future__ import annotations
@@ -67,6 +70,100 @@ def maybe_toeplitz_weights(
     return toeplitz_weights(rows[0], decimation, tile)
 
 
+def _check_block(n: int, decimation: int) -> None:
+    if n % decimation:
+        raise ValueError(
+            "block length must be a multiple of the decimation factor so the "
+            "decimation grid stays aligned across blocks"
+        )
+
+
+def fir_decimate(
+    x: torch.Tensor,
+    coeff: torch.Tensor,
+    decimation: int,
+    history: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Decimating FIR with explicit history carry, time-minor.
+
+    ``x [..., N]`` with ``N`` a multiple of ``decimation``; ``coeff [K]``
+    shared or ``[C, K]`` per-channel (broadcast against ``x``'s axis -2)
+    in design order; ``history [..., K-1]`` the previous block's input
+    tail. Returns ``(y [..., N // D], new_history = x[..., -(K-1):])``.
+
+    ``out[n] = sum_k coeff[K-1-k] * block[n*D + k]`` with ``block`` =
+    history ++ input (lowpass.cxx:151-159), accumulated tap by tap in the
+    JAX package's order; each tap reads one strided view of the extended
+    block.
+    """
+    d = int(decimation)
+    k = coeff.shape[-1]
+    n = x.shape[-1]
+    _check_block(n, d)
+    nd = n // d
+    xext = torch.cat([history, x], dim=-1)  # [..., N + K - 1]
+    kernel = coeff.flip(-1).to(torch.float32)
+    acc = torch.zeros(x.shape[:-1] + (nd,), dtype=torch.float32,
+                      device=x.device)
+    for tap in range(k):
+        wk = kernel[tap] if kernel.ndim == 1 else kernel[..., tap:tap + 1]
+        acc = acc + wk * xext[..., tap:tap + (nd - 1) * d + 1:d]
+    return acc, x[..., n - (k - 1):].contiguous()
+
+
+def fir_decimate_toeplitz(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    decimation: int,
+    history: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Time-minor Toeplitz FIR, the contract of :func:`fir_decimate` for
+    one shared kernel: ``x [..., N] -> y [..., N // D]`` as ``nb`` tiles
+    ``[..., nb, span] x [span, T]`` in true float32 (the leading ``stride``
+    columns of a tile and the ``span - stride`` halo columns from the next
+    tile are two matmuls, summed)."""
+    d = int(decimation)
+    span, t = w.shape
+    k = taps_of(w, d)
+    if history.shape[-1] != k - 1:
+        raise ValueError("history length does not match the kernel length")
+    n = x.shape[-1]
+    _check_block(n, d)
+    nd = n // d
+    if nd % t:
+        raise ValueError(f"output length {nd} not a multiple of tile {t}")
+    if k - 1 > t * d:
+        raise ValueError(
+            "tile too short: the overlap halo must fit in one neighbor "
+            f"tile (fir_length-1={k-1} > tile*decimation={t * d})"
+        )
+    nb = nd // t
+    stride = t * d
+    lead = x.shape[:-1]
+
+    xext = torch.cat([history, x], dim=-1)  # [..., N + K - 1]
+    xp = F.pad(xext, (0, stride + nb * stride - xext.shape[-1]))
+    a = xp[..., : nb * stride].reshape(lead + (nb, stride))
+    halo = span - stride
+    with full_fp32():
+        if halo > 0:
+            b = xp[..., stride : stride + nb * stride].reshape(
+                lead + (nb, stride))
+            y = a @ w[:stride] + b[..., :halo] @ w[stride:]
+        else:
+            y = a[..., :span] @ w
+    return y.reshape(lead + (nd,)), x[..., n - (k - 1):].contiguous()
+
+
+def fir_dispatch(x, coeff, toep, decimation, history):
+    """Route one time-minor FIR call: the Toeplitz form when the shared
+    weights exist and this block's output length is whole tiles, else the
+    per-channel multiply-add form."""
+    if toep is not None and (x.shape[-1] // decimation) % toep.shape[1] == 0:
+        return fir_decimate_toeplitz(x, toep, decimation, history)
+    return fir_decimate(x, coeff, decimation, history)
+
+
 def taps_of(w: torch.Tensor, decimation: int) -> int:
     """Kernel length ``K`` of a ``[span, T]`` banded weight matrix."""
     span, t = w.shape
@@ -92,11 +189,7 @@ def fir_decimate_toeplitz_tm(
     if history.shape[0] != k - 1:
         raise ValueError("history length does not match the kernel length")
     n = x.shape[0]
-    if n % d:
-        raise ValueError(
-            "block length must be a multiple of the decimation factor so the "
-            "decimation grid stays aligned across blocks"
-        )
+    _check_block(n, d)
     nd = n // d
     if nd % t:
         raise ValueError(f"output length {nd} not a multiple of tile {t}")

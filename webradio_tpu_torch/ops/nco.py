@@ -1,4 +1,5 @@
-"""Numerically-controlled oscillator (complex mixer), time-major.
+"""Numerically-controlled oscillator (complex mixer), time-major and
+time-minor.
 
 Port of ``webradio_tpu.ops.nco``. The reference NCO is a 31-bit integer
 phase accumulator whose top 16 bits index a 2^16-entry sine table
@@ -58,19 +59,36 @@ def _mix(i, q, s, c):
     return i * c + q * s, q * c - i * s
 
 
-def nco_mix_tm(
-    i: torch.Tensor, q: torch.Tensor, phase0: torch.Tensor,
-    phase_step: torch.Tensor,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Mix planes ``[N, C]`` with the conjugate LO at the reference's
-    16-bit table law: ``sin`` evaluated at the quantized angle
+def _table_sincos(phases: torch.Tensor):
+    """``sin``/``cos`` of integer phases at the reference's 16-bit table
+    law: ``sin`` evaluated at the quantized angle
     (downconverter.cxx:99-110)."""
-    phases = nco_phases_tm(i.shape[0], phase0, phase_step)
     sinidx = phases >> LOOKUP_SHIFT
     cosidx = (sinidx + (1 << LOOKUP_BITS) // 4) & LOOKUP_MASK
     s = torch.sin(sinidx.to(torch.float32) * ANGLE_SCALE)
     c = torch.sin(cosidx.to(torch.float32) * ANGLE_SCALE)
+    return s, c
+
+
+def nco_mix_tm(
+    i: torch.Tensor, q: torch.Tensor, phase0: torch.Tensor,
+    phase_step: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mix planes ``[N, C]`` with the conjugate LO at the table law."""
+    s, c = _table_sincos(nco_phases_tm(i.shape[0], phase0, phase_step))
     return _mix(i, q, s, c)
+
+
+def nco_mix(x: torch.Tensor, phase0: torch.Tensor,
+            phase_step: torch.Tensor) -> torch.Tensor:
+    """Time-minor twin of :func:`nco_mix_tm`: ``x [2, C, N]`` (or
+    ``[2, 1, N]``, broadcast over channels) mixed with the conjugate LO at
+    the table law, ``[2, C, N]`` out. ``phase0 [C]`` is the phase of the
+    first sample."""
+    idx = torch.arange(x.shape[-1], dtype=torch.int64, device=phase0.device)
+    phases = (phase0[:, None] + idx[None, :] * phase_step[:, None]) & PHASE_MASK
+    s, c = _table_sincos(phases)
+    return torch.stack(_mix(x[0], x[1], s, c))
 
 
 def _factored_sincos(n: int, phase0: torch.Tensor, phase_step: torch.Tensor):

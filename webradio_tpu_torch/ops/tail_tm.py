@@ -1,11 +1,14 @@
-"""Fused time-major receiver tail: mix + shaping FIR + demod + audio FIR.
+"""Fused time-major receiver tails: mix + shaping FIR + demod (+ audio FIR,
++ the filterbank product in front).
 
-Port of ``webradio_tpu.ops.pallas_tail_tm.fused_tail_audio_tm``. For CUDA
-tensors :func:`fused_tail_audio_tm` launches the hand-written Hopper kernel
-``csrc/tail_tm.cu`` (design notes at the top of that file); for tensors on
-the CPU it runs :func:`fused_tail_audio_tm_ref`, the plain torch version of
-the same function, which the CPU tests hold against the JAX package and
-``chip_smoke.py`` holds the kernel against on the card.
+Port of ``webradio_tpu.ops.pallas_tail_tm``: :func:`fused_tail_audio_tm`,
+:func:`fused_tail_tm` (no audio FIR: channel-rate audio) and
+:func:`fused_pfb_tail_audio_tm` (the filterbank product made inside the
+kernel from the im2col frames). For CUDA tensors each launches its
+hand-written Hopper kernel from ``csrc/tail_tm.cu`` (design notes at the
+top of that file); for tensors on the CPU it runs its ``*_ref``, the plain
+torch version of the same function, which the CPU tests hold against the
+JAX package and ``chip_smoke.py`` holds the kernel against on the card.
 
 Semantics are the JAX kernel's: the cross-block shaping-FIR state is the
 MIXED-domain input tail, the squelch power is the block-mean post-shaping
@@ -25,6 +28,7 @@ import torch
 from .demod import demodulate_tm
 from .fir import fir_decimate_toeplitz_tm, taps_of
 from .nco import nco_mix_tm, nco_mix_tm_exact
+from .precision import full_fp32
 
 #: channels per kernel tile; the JAX kernel's rule, kept so the same
 #: channel counts are accepted by both packages
@@ -32,7 +36,8 @@ CHAN_TILE = 128
 #: rows per kernel chunk (nd must be a multiple)
 CHUNK_ROWS = 16
 #: time-tile rows per CUDA block: a multiple of CHUNK_ROWS and at least
-#: 2K = 128 (the halo recompute starts 2K rows before the tile)
+#: 2K = 128 (the halo recompute starts 2K rows before the tile; K rows
+#: without the audio FIR)
 TILE_ROWS = 640
 #: the only tap count the kernel is built for (firdesign.FIR_LENGTH)
 KERNEL_TAPS = 64
@@ -46,14 +51,11 @@ def _split(ci_planes, cq_planes, packed):
     return ci_planes, cq_planes, ci_planes.shape[1]
 
 
-def tail_after_mix_tm(
-    mi, mq, w_toep, audio_toep, decimation, mode, chan_hist_i, chan_hist_q,
-    demod_prev, audio_hist,
-):
-    """The plain tail from mixed ``[nd, C]`` planes on: shaping FIR (both
-    planes through one banded matmul), demod, squelch power and decimating
-    audio FIR, in true float32. Returns what :func:`fused_tail_audio_tm`
-    returns."""
+def shape_demod_tm(mi, mq, w_toep, mode, chan_hist_i, chan_hist_q,
+                   demod_prev):
+    """The plain tail from mixed ``[nd, C]`` planes to channel-rate audio:
+    shaping FIR (both planes through one banded matmul), demod and squelch
+    power, in true float32. Returns what :func:`fused_tail_tm` returns."""
     c = mi.shape[1]
     y2, h2 = fir_decimate_toeplitz_tm(
         torch.cat([mi, mq], dim=1), w_toep, 1,
@@ -62,10 +64,27 @@ def tail_after_mix_tm(
     yi, yq = y2[:, :c], y2[:, c:]
     audio, new_prev = demodulate_tm(yi, yq, mode, demod_prev)
     power = (yi * yi + yq * yq).sum(dim=0) * (1.0 / yi.shape[0])
+    return audio, h2[:, :c], h2[:, c:], new_prev, power
+
+
+def tail_after_mix_tm(
+    mi, mq, w_toep, audio_toep, decimation, mode, chan_hist_i, chan_hist_q,
+    demod_prev, audio_hist,
+):
+    """:func:`shape_demod_tm` and the decimating audio FIR. Returns what
+    :func:`fused_tail_audio_tm` returns."""
+    audio, hist_i, hist_q, new_prev, power = shape_demod_tm(
+        mi, mq, w_toep, mode, chan_hist_i, chan_hist_q, demod_prev)
     audio48, new_ahist = fir_decimate_toeplitz_tm(
         audio, audio_toep, decimation, audio_hist
     )
-    return audio48, h2[:, :c], h2[:, c:], new_prev, new_ahist, power
+    return audio48, hist_i, hist_q, new_prev, new_ahist, power
+
+
+def _mixed(ci_planes, cq_planes, phase0, phase_step, packed, fast):
+    xi, xq, _ = _split(ci_planes, cq_planes, packed)
+    mix = nco_mix_tm_exact if fast else nco_mix_tm
+    return mix(xi.float(), xq.float(), phase0, phase_step)
 
 
 def fused_tail_audio_tm_ref(
@@ -75,12 +94,39 @@ def fused_tail_audio_tm_ref(
 ):
     """Plain torch version of :func:`fused_tail_audio_tm` (same arguments,
     same returns): the exact LO mix, then :func:`tail_after_mix_tm`."""
-    xi, xq, _ = _split(ci_planes, cq_planes, packed)
-    mix = nco_mix_tm_exact if fast else nco_mix_tm
-    mi, mq = mix(xi.float(), xq.float(), phase0, phase_step)
+    mi, mq = _mixed(ci_planes, cq_planes, phase0, phase_step, packed, fast)
     return tail_after_mix_tm(mi, mq, w_toep, audio_toep, decimation, mode,
                              chan_hist_i, chan_hist_q, demod_prev,
                              audio_hist)
+
+
+def fused_tail_tm_ref(
+    ci_planes, cq_planes, phase0, phase_step, w_toep, mode, chan_hist_i,
+    chan_hist_q, demod_prev, precision="highest", packed=False, fast=False,
+    mode_set=None,
+):
+    """Plain torch version of :func:`fused_tail_tm` (same arguments, same
+    returns): the exact LO mix, then :func:`shape_demod_tm`."""
+    mi, mq = _mixed(ci_planes, cq_planes, phase0, phase_step, packed, fast)
+    return shape_demod_tm(mi, mq, w_toep, mode, chan_hist_i, chan_hist_q,
+                          demod_prev)
+
+
+def fused_pfb_tail_audio_tm_ref(
+    frames, pfb_weights, phase0, phase_step, w_toep, audio_toep, decimation,
+    mode, chan_hist_i, chan_hist_q, demod_prev, audio_hist,
+    precision="highest", packed=True, fast=False, pfb_precision="highest",
+    mode_set=None,
+):
+    """Plain torch version of :func:`fused_pfb_tail_audio_tm` (same
+    arguments, same returns): the filterbank matmul in true float32, then
+    :func:`fused_tail_audio_tm_ref` on the packed product."""
+    with full_fp32():
+        y2 = frames @ pfb_weights
+    return fused_tail_audio_tm_ref(
+        y2, y2, phase0, phase_step, w_toep, audio_toep, decimation, mode,
+        chan_hist_i, chan_hist_q, demod_prev, audio_hist, packed=True,
+        fast=fast)
 
 
 def _check(name, x, dtype, shape, device):
@@ -95,67 +141,86 @@ def _check(name, x, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(ci_planes, cq_planes, phase0, phase_step, w_toep, audio_toep,
-            decimation, mode, chan_hist_i, chan_hist_q, demod_prev,
-            audio_hist, packed, fast, tile_rows):
-    from . import _build
+def _reversed_kernel(name, w, decimation, dev):
+    """Column 0 of a banded weight matrix: the reversed kernel."""
+    if w.device != dev or w.dtype != torch.float32:
+        raise ValueError(f"{name} must be float32 on {dev}")
+    k = taps_of(w, decimation)
+    if k != KERNEL_TAPS:
+        raise ValueError(f"the kernel is built for {KERNEL_TAPS}-tap "
+                         f"shaping and audio FIRs, {name} has {k}")
+    return w[:k, 0].contiguous()
 
-    dev = ci_planes.device
-    d = int(decimation)
-    nd = ci_planes.shape[0]
-    c = ci_planes.shape[1] // 2 if packed else ci_planes.shape[1]
-    k = taps_of(w_toep, 1)
+
+def _check_common(dev, nd, c, d, tile_rows, halo, phase0, phase_step, mode,
+                  chan_hist_i, chan_hist_q, demod_prev, audio_hist=None):
+    k = KERNEL_TAPS
     if c % CHAN_TILE:
         raise ValueError(f"channels {c} must be a multiple of {CHAN_TILE}")
-    if k != KERNEL_TAPS or taps_of(audio_toep, d) != k:
-        raise ValueError(f"the kernel is built for {KERNEL_TAPS}-tap "
-                         f"shaping and audio FIRs, got {k} and "
-                         f"{taps_of(audio_toep, d)}")
     if d < 1 or nd % d or nd % CHUNK_ROWS:
         raise ValueError(f"nd={nd} must be a multiple of the decimation "
                          f"{d} and of {CHUNK_ROWS}")
-    if tile_rows % CHUNK_ROWS or tile_rows < 2 * k:
+    if tile_rows % CHUNK_ROWS or tile_rows < halo:
         raise ValueError(f"tile_rows={tile_rows} must be a multiple of "
-                         f"{CHUNK_ROWS} and at least {2 * k}")
-    width = 2 * c if packed else c
-    _check("ci_planes", ci_planes, torch.float32, (nd, width), dev)
-    if not packed:
-        _check("cq_planes", cq_planes, torch.float32, (nd, c), dev)
-    for name, x, dt, shape in (
+                         f"{CHUNK_ROWS} and at least {halo}")
+    carries = [
         ("phase0", phase0, torch.int64, (c,)),
         ("phase_step", phase_step, torch.int64, (c,)),
         ("mode", mode, torch.int32, (c,)),
         ("chan_hist_i", chan_hist_i, torch.float32, (k - 1, c)),
         ("chan_hist_q", chan_hist_q, torch.float32, (k - 1, c)),
         ("demod_prev", demod_prev, torch.float32, (2, c)),
-        ("audio_hist", audio_hist, torch.float32, (k - 1, c)),
-    ):
+    ]
+    if audio_hist is not None:
+        carries.append(("audio_hist", audio_hist, torch.float32, (k - 1, c)))
+    for name, x, dt, shape in carries:
         _check(name, x, dt, shape, dev)
-    for name, w in (("w_toep", w_toep), ("audio_toep", audio_toep)):
-        if w.device != dev or w.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32 on {dev}")
 
-    # column 0 of a banded weight matrix holds the reversed kernel
-    h_shape = w_toep[:k, 0].contiguous()
-    h_audio = audio_toep[:k, 0].contiguous()
-    n_tiles = -(-nd // tile_rows)
-    empty = lambda *shape: torch.empty(shape, dtype=torch.float32,
-                                       device=dev)
-    audio48 = empty(nd // d, c)
-    hist_i, hist_q, ahist = empty(k - 1, c), empty(k - 1, c), empty(k - 1, c)
-    new_prev = empty(2, c)
-    power_part = empty(n_tiles, c)
-    power = empty(c)
+
+def _planes(ci_planes, cq_planes, packed):
+    """Check the product planes; returns ``(nd, c, xi ptr, xq ptr, row
+    stride in floats)``."""
+    dev = ci_planes.device
+    nd = ci_planes.shape[0]
+    c = ci_planes.shape[1] // 2 if packed else ci_planes.shape[1]
+    _check("ci_planes", ci_planes, torch.float32,
+           (nd, 2 * c if packed else c), dev)
     xi = ci_planes.data_ptr()
     if packed:
         # Q starts C floats (4 bytes each) into a row of 2C floats
-        xq, row_stride = xi + 4 * c, 2 * c
-    else:
-        xq, row_stride = cq_planes.data_ptr(), c
+        return nd, c, xi, xi + 4 * c, 2 * c
+    _check("cq_planes", cq_planes, torch.float32, (nd, c), dev)
+    return nd, c, xi, cq_planes.data_ptr(), c
+
+
+def _empty(dev, *shape):
+    return torch.empty(shape, dtype=torch.float32, device=dev)
+
+
+def _launch_audio(wrapper, entry, lead, dev, nd, c, phase0, phase_step,
+                  w_toep, audio_toep, decimation, mode, chan_hist_i,
+                  chan_hist_q, demod_prev, audio_hist, fast, tile_rows):
+    """Launch an audio-fused kernel through the library's ``entry`` and
+    count it on ``wrapper``; ``lead`` is the entry point's first three
+    arguments, the product planes or the frames and weights."""
+    from . import _build
+
+    d = int(decimation)
+    k = KERNEL_TAPS
+    h_shape = _reversed_kernel("w_toep", w_toep, 1, dev)
+    h_audio = _reversed_kernel("audio_toep", audio_toep, d, dev)
+    _check_common(dev, nd, c, d, tile_rows, 2 * k, phase0, phase_step, mode,
+                  chan_hist_i, chan_hist_q, demod_prev, audio_hist)
+    n_tiles = -(-nd // tile_rows)
+    audio48 = _empty(dev, nd // d, c)
+    hist_i, hist_q, ahist = (_empty(dev, k - 1, c) for _ in range(3))
+    new_prev = _empty(dev, 2, c)
+    power_part = _empty(dev, n_tiles, c)
+    power = _empty(dev, c)
 
     lib = _build.load_library()
-    code = lib.webradio_tail_tm_launch(
-        xi, xq, row_stride, phase0.data_ptr(), phase_step.data_ptr(),
+    code = getattr(lib, entry)(
+        *lead, phase0.data_ptr(), phase_step.data_ptr(),
         h_shape.data_ptr(), h_audio.data_ptr(), mode.data_ptr(),
         chan_hist_i.data_ptr(), chan_hist_q.data_ptr(),
         demod_prev.data_ptr(), audio_hist.data_ptr(), audio48.data_ptr(),
@@ -164,9 +229,80 @@ def _launch(ci_planes, cq_planes, phase0, phase_step, w_toep, audio_toep,
         nd, c, k, d, tile_rows, int(bool(fast)), dev.index,
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    _build.check(lib, code, "fused_tail_audio_tm kernel launch")
-    fused_tail_audio_tm.launches += 1
+    _build.check(lib, code, f"{wrapper.__name__} kernel launch")
+    wrapper.launches += 1
     return audio48, hist_i, hist_q, new_prev, ahist, power
+
+
+def _launch(ci_planes, cq_planes, phase0, phase_step, w_toep, audio_toep,
+            decimation, mode, chan_hist_i, chan_hist_q, demod_prev,
+            audio_hist, packed, fast, tile_rows):
+    nd, c, xi, xq, row_stride = _planes(ci_planes, cq_planes, packed)
+    return _launch_audio(
+        fused_tail_audio_tm, "webradio_tail_tm_launch",
+        (xi, xq, row_stride), ci_planes.device, nd, c,
+        phase0, phase_step, w_toep, audio_toep, decimation, mode,
+        chan_hist_i, chan_hist_q, demod_prev, audio_hist, fast, tile_rows)
+
+
+def _launch_pfb(frames, pfb_weights, phase0, phase_step, w_toep, audio_toep,
+                decimation, mode, chan_hist_i, chan_hist_q, demod_prev,
+                audio_hist, fast, tile_rows):
+    dev = frames.device
+    nd, kp2 = frames.shape
+    c = pfb_weights.shape[-1] // 2
+    _check("frames", frames, torch.float32, (nd, kp2), dev)
+    _check("pfb_weights", pfb_weights, torch.float32, (kp2, 2 * c), dev)
+    return _launch_audio(
+        fused_pfb_tail_audio_tm, "webradio_pfb_tail_tm_launch",
+        (frames.data_ptr(), pfb_weights.data_ptr(), kp2), dev, nd, c,
+        phase0, phase_step, w_toep, audio_toep, decimation, mode,
+        chan_hist_i, chan_hist_q, demod_prev, audio_hist, fast, tile_rows)
+
+
+def _launch_chanrate(ci_planes, cq_planes, phase0, phase_step, w_toep, mode,
+                     chan_hist_i, chan_hist_q, demod_prev, packed, fast,
+                     tile_rows):
+    from . import _build
+
+    dev = ci_planes.device
+    k = KERNEL_TAPS
+    nd, c, xi, xq, row_stride = _planes(ci_planes, cq_planes, packed)
+    h_shape = _reversed_kernel("w_toep", w_toep, 1, dev)
+    _check_common(dev, nd, c, 1, tile_rows, k, phase0, phase_step, mode,
+                  chan_hist_i, chan_hist_q, demod_prev)
+    n_tiles = -(-nd // tile_rows)
+    audio = _empty(dev, nd, c)
+    hist_i, hist_q = _empty(dev, k - 1, c), _empty(dev, k - 1, c)
+    new_prev = _empty(dev, 2, c)
+    power_part = _empty(dev, n_tiles, c)
+    power = _empty(dev, c)
+
+    lib = _build.load_library()
+    code = lib.webradio_tail_tm_chanrate_launch(
+        xi, xq, row_stride, phase0.data_ptr(), phase_step.data_ptr(),
+        h_shape.data_ptr(), mode.data_ptr(), chan_hist_i.data_ptr(),
+        chan_hist_q.data_ptr(), demod_prev.data_ptr(), audio.data_ptr(),
+        hist_i.data_ptr(), hist_q.data_ptr(), new_prev.data_ptr(),
+        power_part.data_ptr(), power.data_ptr(),
+        nd, c, k, tile_rows, int(bool(fast)), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(lib, code, "fused_tail_tm kernel launch")
+    fused_tail_tm.launches += 1
+    return audio, hist_i, hist_q, new_prev, power
+
+
+def _route(x: torch.Tensor, precision: str) -> bool:
+    """True for the kernel (CUDA tensors), False for the plain version (CPU
+    tensors); any other device raises."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}")
+    if x.device.type == "cuda":
+        return True
+    if x.device.type != "cpu":
+        raise ValueError(f"no tail kernel for device {x.device}")
+    return False
 
 
 def fused_tail_audio_tm(
@@ -216,17 +352,107 @@ def fused_tail_audio_tm(
     CUDA tensors go to the kernel (``fused_tail_audio_tm.launches`` counts
     each launch); CPU tensors to :func:`fused_tail_audio_tm_ref`.
     """
-    if precision not in PRECISIONS:
-        raise ValueError(f"precision must be one of {PRECISIONS}")
     args = (ci_planes, cq_planes, phase0, phase_step, w_toep, audio_toep,
             decimation, mode, chan_hist_i, chan_hist_q, demod_prev,
             audio_hist)
-    if ci_planes.device.type == "cuda":
+    if _route(ci_planes, precision):
         return _launch(*args, packed, fast, TILE_ROWS)
-    if ci_planes.device.type != "cpu":
-        raise ValueError(f"no tail kernel for device {ci_planes.device}")
     return fused_tail_audio_tm_ref(*args, precision=precision,
                                    packed=packed, fast=fast)
 
 
+def fused_tail_tm(
+    ci_planes: torch.Tensor,
+    cq_planes: torch.Tensor,
+    phase0: torch.Tensor,
+    phase_step: torch.Tensor,
+    w_toep: torch.Tensor,
+    mode: torch.Tensor,
+    chan_hist_i: torch.Tensor,
+    chan_hist_q: torch.Tensor,
+    demod_prev: torch.Tensor,
+    precision: str = "highest",
+    packed: bool = False,
+    fast: bool = False,
+    mode_set: tuple | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+           torch.Tensor]:
+    """:func:`fused_tail_audio_tm` without the audio FIR: residual NCO mix,
+    shaping FIR, demod and squelch power, with the demodulated audio
+    written at the channel rate. Port of
+    ``webradio_tpu.ops.pallas_tail_tm.fused_tail_tm``; the arguments are
+    those of :func:`fused_tail_audio_tm` less ``audio_toep``,
+    ``decimation`` and ``audio_hist``.
+
+    Returns ``(audio [nd, C], new_hist_i, new_hist_q, new_demod_prev,
+    power [C])``.
+
+    CUDA tensors go to the kernel (``fused_tail_tm.launches`` counts each
+    launch); CPU tensors to :func:`fused_tail_tm_ref`.
+    """
+    args = (ci_planes, cq_planes, phase0, phase_step, w_toep, mode,
+            chan_hist_i, chan_hist_q, demod_prev)
+    if _route(ci_planes, precision):
+        return _launch_chanrate(*args, packed, fast, TILE_ROWS)
+    return fused_tail_tm_ref(*args, precision=precision, packed=packed,
+                             fast=fast)
+
+
+def fused_pfb_tail_audio_tm(
+    frames: torch.Tensor,
+    pfb_weights: torch.Tensor,
+    phase0: torch.Tensor,
+    phase_step: torch.Tensor,
+    w_toep: torch.Tensor,
+    audio_toep: torch.Tensor,
+    decimation: int,
+    mode: torch.Tensor,
+    chan_hist_i: torch.Tensor,
+    chan_hist_q: torch.Tensor,
+    demod_prev: torch.Tensor,
+    audio_hist: torch.Tensor,
+    precision: str = "highest",
+    packed: bool = True,
+    fast: bool = False,
+    pfb_precision: str = "highest",
+    mode_set: tuple | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+           torch.Tensor, torch.Tensor]:
+    """:func:`fused_tail_audio_tm` with the polyphase filterbank product
+    made inside the kernel, so the packed ``[nd, 2C]`` product never
+    reaches device memory. Port of
+    ``webradio_tpu.ops.pallas_tail_tm.fused_pfb_tail_audio_tm``.
+
+    Args in place of the product planes:
+      frames: ``[nd, 2 K_p]`` float32 im2col frames
+        (``ops.channelizer.pfb_frames_tm``).
+      pfb_weights: ``[2 K_p, 2 C]`` float32 packed filterbank weights
+        (``bin_weights_for_channels`` reshaped): columns ``[:C]`` make
+        mixed I, ``[C:]`` mixed Q.
+      pfb_precision: only "highest" (true float32) is ported.
+      packed: accepted for signature parity; frames are packed by nature.
+
+    Returns what :func:`fused_tail_audio_tm` returns.
+
+    CUDA tensors go to the kernel (``fused_pfb_tail_audio_tm.launches``
+    counts each launch); CPU tensors to
+    :func:`fused_pfb_tail_audio_tm_ref`.
+    """
+    if pfb_precision != "highest":
+        raise NotImplementedError(
+            f"pfb_precision={pfb_precision!r} is not ported to "
+            "webradio_tpu_torch yet (ROADMAP.md: the pfb tiers)")
+    if pfb_weights.shape[0] != frames.shape[1]:
+        raise ValueError("frames/weights contraction mismatch")
+    args = (frames, pfb_weights, phase0, phase_step, w_toep, audio_toep,
+            decimation, mode, chan_hist_i, chan_hist_q, demod_prev,
+            audio_hist)
+    if _route(frames, precision):
+        return _launch_pfb(*args, fast, TILE_ROWS)
+    return fused_pfb_tail_audio_tm_ref(*args, precision=precision,
+                                       fast=fast)
+
+
 fused_tail_audio_tm.launches = 0
+fused_tail_tm.launches = 0
+fused_pfb_tail_audio_tm.launches = 0

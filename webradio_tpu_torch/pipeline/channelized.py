@@ -7,19 +7,25 @@ server's block pump runs once per block from 16 receivers up:
   2. filterbank: im2col frames and one ``[nd, 2K_p] x [2K_p, 2C]`` float32
      matmul to the packed ``[nd, 2C]`` product (``ops.channelizer``);
   3. receiver tail: residual NCO mix, 64-tap shaping FIR, demod, squelch
-     power and the decimating audio FIR — the Hopper kernel
-     (``ops.tail_tm.fused_tail_audio_tm``) when the same configuration
-     selects the Pallas kernel in the JAX package, else the plain torch
-     chain (the JAX package's XLA-form branch);
+     power and the decimating audio FIR. Every branch of the JAX step on
+     one device is here, with a Hopper kernel wherever the same
+     configuration selects a Pallas kernel in the JAX package:
+     ``ops.tail_tm.fused_tail_audio_tm`` on the packed product (the main
+     path), ``ops.tail_tm.fused_pfb_tail_audio_tm`` on the im2col frames
+     (``tail_kernel="pallas_pfb"``), ``ops.tail_tm.fused_tail_tm`` plus the
+     Toeplitz audio FIR where the audio decimation admits no audio time
+     tile (``audio_rate=9_600``), the plain time-major chain below the
+     "auto" threshold, and for slots whose bandwidths differ the
+     per-channel fallback, plain or through ``ops.tail.fused_receiver_tail``
+     (``use_pallas_tail=True``);
   4. squelch and gain scale.
 
 Layouts are the JAX package's, so states and parameters carry over
-(``webradio_tpu_torch.convert``). Left out of this slice, each raising
-NotImplementedError that names its ROADMAP.md item: the per-channel FIR
-fallback (slots with differing bandwidths), ``use_pallas_tail``,
-``tail_kernel="pallas_pfb"``, every ``pfb_precision`` but "highest",
-the channel-rate-audio kernel branch, ``process_host_many`` /
-``scan_serving``, ``scatter_params_slots`` and ``grow_channelized_state``.
+(``webradio_tpu_torch.convert``). The control plane is here too:
+``scatter_params_slots``, ``grow_channelized_state`` and the catch-up path
+``ChannelizedPipeline.process_host_many``. Still left out, raising
+NotImplementedError that names its ROADMAP.md item: every
+``pfb_precision`` but "highest" (and with it ``pfb_weights_split``).
 """
 
 from __future__ import annotations
@@ -30,19 +36,40 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from .. import require_cuda
 from ..ops.channelizer import (
     assign_bins,
     bin_weights_for_channels,
     design_prototype,
+    pfb_channelize_direct,
     pfb_channelize_direct_tm,
+    pfb_frames_tm,
 )
-from ..ops.demod import MODES
-from ..ops.fir import maybe_toeplitz_weights
+from ..ops.demod import MODES, demodulate
+from ..ops.fir import (
+    fir_decimate_toeplitz_tm,
+    fir_dispatch,
+    maybe_toeplitz_weights,
+)
 from ..ops.firdesign import FIR_LENGTH, design_lowpass_fir_cached
-from ..ops.nco import nco_advance, nco_mix_tm, nco_mix_tm_fast, nco_phase_step
+from ..ops.nco import (
+    nco_advance,
+    nco_mix,
+    nco_mix_tm,
+    nco_mix_tm_fast,
+    nco_phase_step,
+)
 from ..ops.spectrum import DEFAULT_FFT_SIZE, spectrum_accumulate, spectrum_db
-from ..ops.tail_tm import CHAN_TILE, fused_tail_audio_tm, tail_after_mix_tm
+from ..ops.tail import fused_receiver_tail
+from ..ops.tail_tm import (
+    CHAN_TILE,
+    fused_pfb_tail_audio_tm,
+    fused_tail_audio_tm,
+    fused_tail_tm,
+    tail_after_mix_tm,
+)
 from .frontend import squelch_scale
 from .state import _squelch_array
 
@@ -62,7 +89,11 @@ class ChannelizedConfig:
     ``fir_precision`` accepts all four names; the port computes each as
     float32 (hx5, hx4 and high are TPU MXU pass counts). ``tail_kernel``
     "auto" takes the kernel from :data:`PALLAS_TM_AUTO_THRESHOLD` channels,
-    "pallas" always, "xla" never.
+    "pallas" always, "xla" never; "pallas_pfb" is "pallas" with the
+    filterbank product made inside the kernel. ``use_pallas_tail`` takes
+    the per-channel (time-minor) branch through its kernel; ``chan_hist``
+    then carries the RAW pre-mix tail, so a state is not carried across
+    that flag.
     """
 
     sample_rate: int = 2_400_000
@@ -116,12 +147,6 @@ class ChannelizedConfig:
             )
         if self.fir_design not in ("reference", "sinc"):
             raise ValueError("fir_design must be 'reference' or 'sinc'")
-        if self.use_pallas_tail:
-            raise _not_ported("use_pallas_tail (the legacy time-minor tail)",
-                              "TPU kernel #4 fused_receiver_tail")
-        if self.tail_kernel == "pallas_pfb":
-            raise _not_ported("tail_kernel='pallas_pfb'",
-                              "TPU kernel #3 fused_pfb_tail_audio_tm")
         if self.pfb_precision != "highest":
             raise _not_ported(f"pfb_precision={self.pfb_precision!r}",
                               "the pfb tiers")
@@ -169,7 +194,9 @@ class ChannelizedParams(NamedTuple):
 class ChannelizedState(NamedTuple):
     pfb_hist: torch.Tensor  # [2, K_p - 1] float32
     nco_phase: torch.Tensor  # [C] int64 holding uint32 (residual)
-    chan_hist: torch.Tensor  # [2, C, K - 1] float32, mixed-domain tail
+    #: [2, C, K - 1] float32: the mixed-domain tail, or the RAW selected-bin
+    #: tail under cfg.use_pallas_tail
+    chan_hist: torch.Tensor
     demod_prev: torch.Tensor  # [2, C] float32
     audio_hist: torch.Tensor  # [C, K - 1] float32
 
@@ -183,11 +210,14 @@ def make_channelized_params(
     af_gain_db=0,
     squelch_db=None,
     actual_sample_rate=None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> ChannelizedParams:
-    """Build parameters on ``device`` from per-receiver control values
-    (scalars or length-``num_channels`` sequences); the host-side design
-    is the JAX package's, value for value."""
+    """Build parameters on ``device`` (None: the CUDA device, and an error
+    where there is none) from per-receiver control values (scalars or
+    length-``num_channels`` sequences); the host-side design is the JAX
+    package's, value for value."""
+    if device is None:
+        device = require_cuda()
     c = cfg.num_channels
 
     def expand(v):
@@ -245,15 +275,35 @@ def make_channelized_params(
     )
 
 
-def scatter_params_slots(params, idx, sub):
-    """Incremental control write of a few slots (not ported yet)."""
-    raise _not_ported("scatter_params_slots",
-                      "process_host_many, grow and scatter")
+def scatter_params_slots(params: ChannelizedParams, idx,
+                         sub: ChannelizedParams) -> ChannelizedParams:
+    """Apply a control write for a FEW slots without re-shipping the whole
+    parameter set: only the dirty slots' columns travel to the device
+    (``sub`` is :func:`make_channelized_params` at width ``len(idx)``, on
+    any device) and an indexed assignment updates the resident tensors.
+
+    Unlike the JAX function this writes IN PLACE (the filterbank weights
+    are the largest resident tensor; no second copy is made) and returns
+    ``params`` itself. The shared Toeplitz matrices are left as they are:
+    the fast path only applies while every channel still shares the FIR
+    kernels, which the caller checks.
+    """
+    dev = params.pfb_weights.device
+    idx = torch.as_tensor(idx, dtype=torch.int64, device=dev)
+    params.pfb_weights[:, :, idx] = sub.pfb_weights.to(dev)
+    for name in ("residual_step", "chan_coeff", "audio_coeff", "mode",
+                 "af_gain", "squelch"):
+        getattr(params, name)[idx] = getattr(sub, name).to(dev)
+    return params
 
 
 def init_channelized_state(
-    cfg: ChannelizedConfig, device: torch.device | str = "cpu"
+    cfg: ChannelizedConfig, device: torch.device | str | None = None
 ) -> ChannelizedState:
+    """Zero state on ``device`` (None: the CUDA device, and an error where
+    there is none)."""
+    if device is None:
+        device = require_cuda()
     c, k, kp = cfg.num_channels, cfg.fir_length, cfg.proto_taps
     z = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=device)
     return ChannelizedState(
@@ -265,10 +315,24 @@ def init_channelized_state(
     )
 
 
-def grow_channelized_state(state, new_channels):
-    """Carry state across a capacity growth (not ported yet)."""
-    raise _not_ported("grow_channelized_state",
-                      "process_host_many, grow and scatter")
+def grow_channelized_state(state: ChannelizedState,
+                           new_channels: int) -> ChannelizedState:
+    """Carry state across a capacity growth: the shared filterbank history
+    is width-independent; per-channel carries pad with init zeros. Valid
+    across the plain and kernel time-major tails (both carry the MIXED
+    FIR tail, so a width-driven "auto" flip keeps the carry meaningful)."""
+    pad = new_channels - int(state.nco_phase.shape[0])
+    if pad < 0:
+        raise ValueError("capacity can only grow")
+    if pad == 0:
+        return state
+    return ChannelizedState(
+        pfb_hist=state.pfb_hist,
+        nco_phase=F.pad(state.nco_phase, (0, pad)),
+        chan_hist=F.pad(state.chan_hist, (0, 0, 0, pad)),
+        demod_prev=F.pad(state.demod_prev, (0, pad)),
+        audio_hist=F.pad(state.audio_hist, (0, 0, 0, pad)),
+    )
 
 
 def mode_set_of(modes) -> tuple[int, ...]:
@@ -284,13 +348,14 @@ def mode_set_of(modes) -> tuple[int, ...]:
 #: package's value, kept so the same configurations select the kernel in
 #: both packages (the H100 crossover is not measured yet)
 PALLAS_TM_AUTO_THRESHOLD = 512
-#: the JAX kernels' time tile; nd must be a multiple for the kernel branch
-#: (the selection rule is mirrored, the CUDA kernel itself tiles freely)
+#: the JAX kernels' time tile; nd must be a multiple for any time-major
+#: kernel branch, the channel-rate-audio kernel included (the selection
+#: rule is mirrored, the CUDA kernels themselves tile freely)
 SELECT_TIME_TILE = 1024
 
 
 def _use_kernel_tm(cfg: ChannelizedConfig, nd: int, params) -> bool:
-    """Whether the fused tail kernel applies (the JAX package's
+    """Whether a fused time-major tail kernel applies (the JAX package's
     ``_use_pallas_tm`` rule)."""
     if cfg.tail_kernel == "xla":
         return False
@@ -305,9 +370,10 @@ def _use_kernel_tm(cfg: ChannelizedConfig, nd: int, params) -> bool:
 
 
 def _audio_time_tile(nd: int, d: int, fir_tile: int) -> int:
-    """The JAX audio kernel's time tile (largest multiple of
-    ``lcm(fir_tile, d)`` <= 2048 dividing ``nd``; 0 if none). Without one
-    the JAX package takes its channel-rate-audio kernel instead."""
+    """The JAX audio kernels' time tile (largest multiple of
+    ``lcm(fir_tile, d)`` <= 2048 dividing ``nd``; 0 if none). A 0 sends
+    the step to the channel-rate-audio kernel ``fused_tail_tm`` followed
+    by the Toeplitz audio FIR, also under ``tail_kernel="pallas_pfb"``."""
     base = fir_tile * d // math.gcd(fir_tile, d)
     best = 0
     m = base
@@ -319,61 +385,126 @@ def _audio_time_tile(nd: int, d: int, fir_tile: int) -> int:
 
 
 def _channelized_step(cfg, params, state, iq, time_major):
+    if params.pfb_weights_split is not None:
+        raise _not_ported("pfb_weights_split (the u8exact tier)",
+                          "the pfb tiers")
     spectra = spectrum_accumulate(iq, cfg.fft_size)
     nco_phase = nco_advance(state.nco_phase, params.residual_step,
                             cfg.chan_frames)
     nd = iq.shape[-1] // cfg.num_bins
     d = cfg.audio_decim
+    c = cfg.num_channels
 
+    # ---- preferred path: the time-major tail on the filterbank product
     use_tm = (
-        params.chan_toep is not None
+        not cfg.use_pallas_tail
+        and params.chan_toep is not None
         and params.audio_toep is not None
         and nd % params.chan_toep.shape[1] == 0
         and (nd // d) % params.audio_toep.shape[1] == 0
     )
-    if not use_tm:
-        raise _not_ported(
-            "the per-channel FIR fallback (slots whose bandwidths differ)",
-            "the per-channel fallback branch")
-    if _use_kernel_tm(cfg, nd, params):
-        if not _audio_time_tile(nd, d, params.chan_toep.shape[1]):
-            raise _not_ported("the channel-rate-audio tail kernel",
-                              "TPU kernel #2 fused_tail_tm")
-        y2, _, pfb_hist = pfb_channelize_direct_tm(
-            iq, params.pfb_weights, cfg.num_bins, state.pfb_hist, split=False)
-        audio, hist_i, hist_q, demod_prev, ahist, power = fused_tail_audio_tm(
-            y2, y2, state.nco_phase, params.residual_step,
-            params.chan_toep, params.audio_toep, d, params.mode,
-            state.chan_hist[0].T.contiguous(),
-            state.chan_hist[1].T.contiguous(),
-            state.demod_prev, state.audio_hist.T.contiguous(),
-            precision=cfg.fir_precision, packed=True, fast=cfg.fast_nco,
+    if use_tm:
+        if _use_kernel_tm(cfg, nd, params):
+            has_tile = _audio_time_tile(nd, d, params.chan_toep.shape[1])
+            lo = (state.nco_phase, params.residual_step)
+            carries = (state.chan_hist[0].T.contiguous(),
+                       state.chan_hist[1].T.contiguous(), state.demod_prev)
+            if cfg.tail_kernel == "pallas_pfb" and has_tile:
+                # the filterbank product is made inside the kernel from
+                # the im2col frames and never reaches device memory
+                frames, pfb_hist = pfb_frames_tm(
+                    iq, cfg.proto_taps, cfg.num_bins, state.pfb_hist)
+                audio, hist_i, hist_q, demod_prev, ahist, power = (
+                    fused_pfb_tail_audio_tm(
+                        frames,
+                        params.pfb_weights.reshape(2 * cfg.proto_taps, 2 * c),
+                        *lo, params.chan_toep, params.audio_toep, d,
+                        params.mode, *carries,
+                        state.audio_hist.T.contiguous(),
+                        precision=cfg.fir_precision, fast=cfg.fast_nco,
+                        pfb_precision=cfg.pfb_precision,
+                    ))
+            else:
+                y2, _, pfb_hist = pfb_channelize_direct_tm(
+                    iq, params.pfb_weights, cfg.num_bins, state.pfb_hist,
+                    split=False)
+                if has_tile:
+                    audio, hist_i, hist_q, demod_prev, ahist, power = (
+                        fused_tail_audio_tm(
+                            y2, y2, *lo, params.chan_toep, params.audio_toep,
+                            d, params.mode, *carries,
+                            state.audio_hist.T.contiguous(),
+                            precision=cfg.fir_precision, packed=True,
+                            fast=cfg.fast_nco,
+                        ))
+                else:
+                    # no audio time tile: channel-rate audio from the
+                    # kernel, then the Toeplitz audio FIR
+                    audio_tm, hist_i, hist_q, demod_prev, power = (
+                        fused_tail_tm(
+                            y2, y2, *lo, params.chan_toep, params.mode,
+                            *carries, precision=cfg.fir_precision,
+                            packed=True, fast=cfg.fast_nco,
+                        ))
+                    audio, ahist = fir_decimate_toeplitz_tm(
+                        audio_tm, params.audio_toep, d, state.audio_hist.T)
+        else:
+            ci, cq, pfb_hist = pfb_channelize_direct_tm(
+                iq, params.pfb_weights, cfg.num_bins, state.pfb_hist,
+                split=True)
+            mix_tm = nco_mix_tm_fast if cfg.fast_nco else nco_mix_tm
+            mi, mq = mix_tm(ci, cq, state.nco_phase, params.residual_step)
+            audio, hist_i, hist_q, demod_prev, ahist, power = (
+                tail_after_mix_tm(
+                    mi, mq, params.chan_toep, params.audio_toep, d,
+                    params.mode, state.chan_hist[0].T, state.chan_hist[1].T,
+                    state.demod_prev, state.audio_hist.T,
+                ))
+        # squelch gate on the post-shaping-FIR (in-band) mean |y|^2
+        scale = squelch_scale(power, params.af_gain, params.squelch)
+        if time_major:
+            audio = audio * scale[None, :]  # stays [audio_frames, C]
+        else:
+            audio = audio.T * scale[:, None]  # [C, audio_frames]
+        return ChannelizedState(
+            pfb_hist=pfb_hist,
+            nco_phase=nco_phase,
+            chan_hist=torch.stack([hist_i.T, hist_q.T]),
+            demod_prev=demod_prev,
+            audio_hist=ahist.T,
+        ), audio, spectra
+
+    # ---- per-channel fallback (slots whose bandwidths differ, or
+    # use_pallas_tail): time-minor planes [2, C, nd], channel-major carries
+    chan_in, pfb_hist = pfb_channelize_direct(
+        iq, params.pfb_weights, cfg.num_bins, state.pfb_hist)
+    if cfg.use_pallas_tail:
+        # chan_hist carries the RAW selected-bin tail in this mode
+        audio_if, chan_hist, demod_prev, power = fused_receiver_tail(
+            chan_in, state.nco_phase, params.residual_step,
+            params.chan_coeff, params.mode, state.chan_hist.contiguous(),
+            state.demod_prev.contiguous(),
         )
     else:
-        ci, cq, pfb_hist = pfb_channelize_direct_tm(
-            iq, params.pfb_weights, cfg.num_bins, state.pfb_hist, split=True)
-        mix_tm = nco_mix_tm_fast if cfg.fast_nco else nco_mix_tm
-        mi, mq = mix_tm(ci, cq, state.nco_phase, params.residual_step)
-        audio, hist_i, hist_q, demod_prev, ahist, power = tail_after_mix_tm(
-            mi, mq, params.chan_toep, params.audio_toep, d, params.mode,
-            state.chan_hist[0].T, state.chan_hist[1].T, state.demod_prev,
-            state.audio_hist.T,
-        )
-    chan_hist = torch.stack([hist_i.T, hist_q.T])
-    # squelch gate on the post-shaping-FIR (in-band) mean |y|^2
-    scale = squelch_scale(power, params.af_gain, params.squelch)
+        mixed = nco_mix(chan_in, state.nco_phase, params.residual_step)
+        shaped, chan_hist = fir_dispatch(
+            mixed, params.chan_coeff, params.chan_toep, 1, state.chan_hist)
+        audio_if, demod_prev = demodulate(shaped, params.mode,
+                                          state.demod_prev)
+        power = (shaped[0] ** 2 + shaped[1] ** 2).mean(dim=-1)  # [C]
+    audio, audio_hist = fir_dispatch(
+        audio_if, params.audio_coeff, params.audio_toep, d, state.audio_hist)
+    audio = audio * squelch_scale(power, params.af_gain,
+                                  params.squelch)[:, None]
     if time_major:
-        audio = audio * scale[None, :]  # stays [audio_frames, C]
-    else:
-        audio = audio.T * scale[:, None]  # [C, audio_frames]
-    new_state = ChannelizedState(
+        audio = audio.T  # the serving layout, one small transpose
+    return ChannelizedState(
         pfb_hist=pfb_hist,
         nco_phase=nco_phase,
         chan_hist=chan_hist,
         demod_prev=demod_prev,
-        audio_hist=ahist.T,
-    )
-    return new_state, audio, spectra
+        audio_hist=audio_hist,
+    ), audio, spectra
 
 
 def channelized_step(
@@ -411,11 +542,13 @@ class ChannelizedPipeline:
 
     :meth:`process_host` copies a ``[2, N]`` float32 numpy block through a
     pinned staging buffer to the device without blocking, runs the serving
-    step on the current CUDA stream and returns the PREVIOUS block's
+    step on the current CUDA stream and returns the PREVIOUS call's
     ``(audio [audio_frames, C], latest_db [fft_size])`` as device tensors
-    (None on the first call); :meth:`flush` returns the last block. Two
-    staging buffers alternate, and a buffer is refilled only after the
-    copy that last read it has finished.
+    (None on the first call); :meth:`flush` returns the last one.
+    :meth:`process_host_many` does the same for a backlog ``[k, 2, N]``
+    (audio ``[k, C, audio_frames]``). Two staging buffers per input shape
+    alternate, and a buffer is refilled only after the copy that last read
+    it has finished.
 
     PyTorch compiles nothing, so there is no mode-set warm: a parameter
     change, including a new demod law, takes effect at the next block.
@@ -430,48 +563,64 @@ class ChannelizedPipeline:
         self.device = params.pfb_weights.device
         self.state = init_channelized_state(cfg, self.device)
         self._pending = None
-        self._staging: list[torch.Tensor] = []
-        self._copied: list[torch.cuda.Event | None] = [None, None]
-        self._slot = 0
+        #: per input shape: [two pinned buffers, their last copies' events,
+        #: the slot to fill next]
+        self._staging: dict[tuple, list] = {}
 
     def update_params(self, params: ChannelizedParams) -> None:
         self.params = params
 
-    def update_params_slots(self, idx, sub, mode_set) -> None:
-        scatter_params_slots(self.params, idx, sub)
+    def update_params_slots(self, idx, sub: ChannelizedParams,
+                            mode_set: tuple | None = None) -> None:
+        """Incremental control write: a device-side scatter of the dirty
+        slots' columns (:func:`scatter_params_slots`). ``mode_set`` is
+        accepted for signature parity (see :func:`mode_set_of`)."""
+        self.params = scatter_params_slots(self.params, idx, sub)
 
     def _to_device(self, iq_planes: np.ndarray) -> torch.Tensor:
         host = np.ascontiguousarray(iq_planes, dtype=np.float32)
         if self.device.type != "cuda":
             return torch.from_numpy(host).to(self.device)
-        if not self._staging:
-            self._staging = [torch.empty(host.shape, dtype=torch.float32,
-                                         pin_memory=True) for _ in range(2)]
-        slot = self._slot
-        self._slot ^= 1
-        if self._copied[slot] is not None:
-            self._copied[slot].synchronize()  # its last copy has finished
-        buf = self._staging[slot]
-        buf.numpy()[...] = host
+        stage = self._staging.get(host.shape)
+        if stage is None:
+            stage = self._staging[host.shape] = [
+                [torch.empty(host.shape, dtype=torch.float32,
+                             pin_memory=True) for _ in range(2)],
+                [None, None], 0]
+        bufs, copied, slot = stage
+        stage[2] = slot ^ 1
+        if copied[slot] is not None:
+            copied[slot].synchronize()  # its last copy has finished
+        bufs[slot].numpy()[...] = host
         iq = torch.empty(host.shape, dtype=torch.float32, device=self.device)
-        iq.copy_(buf, non_blocking=True)
+        iq.copy_(bufs[slot], non_blocking=True)
         event = torch.cuda.Event()
         event.record()
-        self._copied[slot] = event
+        copied[slot] = event
         return iq
+
+    def _swap_pending(self, audio, latest_db):
+        result = self._pending
+        self._pending = (audio, latest_db)
+        return result
 
     def process_host(self, iq_planes: np.ndarray):
         iq = self._to_device(iq_planes)
         self.state, audio, latest_db = channelized_step_serving(
             self.cfg, self.params, self.state, iq)
-        result = self._pending
-        self._pending = (audio, latest_db)
-        return result
+        return self._swap_pending(audio, latest_db)
 
     def process_host_many(self, blocks: np.ndarray):
-        """Catch-up path over a backlog of blocks (not ported yet)."""
-        raise _not_ported("process_host_many / scan_serving",
-                          "process_host_many, grow and scatter")
+        """Catch-up path: a ``[k, 2, block_frames]`` backlog goes to the
+        device as ONE pinned copy and through
+        :func:`..stream.scan_serving`. Same double-buffered contract as
+        :meth:`process_host`; the previous result handed back may hold
+        audio ``[audio_frames, C]`` or ``[k, C, audio_frames]``."""
+        from .stream import scan_serving
+
+        self.state, audio, latest_db = scan_serving(
+            self.cfg, self.params, self.state, self._to_device(blocks))
+        return self._swap_pending(audio, latest_db)
 
     def flush(self):
         result = self._pending
