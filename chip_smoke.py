@@ -61,9 +61,9 @@ BOUNDS = {"audio48": 1e-5, "hist_i": 1e-6, "hist_q": 1e-6,
           "demod_prev": 1e-6, "audio_hist": 1e-5}
 POWER_RTOL = 1e-5
 # fused_pfb_tail_audio_tm makes the 320-term filterbank product itself, one
-# FMA chain per output, where the plain version's matmul sums in another
-# order: the products differ by float32 rounding of a 320-term sum at unit
-# level, so the mixed carries and the FM lag get 2e-6
+# FMA chain per output, where the plain version's matmul may sum in another
+# order: the products then differ by float32 rounding of a 320-term sum at
+# unit level, so the mixed carries and the FM lag get 2e-6
 PFB_BOUNDS = dict(BOUNDS, hist_i=2e-6, hist_q=2e-6, demod_prev=2e-6)
 # the serving step with the kernel against the same step with the plain tail
 STEP_AUDIO_BOUND = 1e-5
@@ -538,6 +538,20 @@ def phase_pfb_vs_plain(dev, results, kernels):
     kernels["fused_pfb_tail_audio_tm"] = worst.record(
         min(ms, ms2), plain_ms, tail_flops(nd, c, k, d, 2 * kp),
         io_bytes(args, got))
+    # the in-kernel filterbank product's time, estimated by difference to
+    # kernel #1 on the same shape (not a measurement of the product alone:
+    # kernel #3 keeps two blocks an SM where #1 keeps three), and the
+    # float32 rate that time would mean for [nd, 2K_p] x [2K_p, 2C], with
+    # the halo rows of every time tile but the first made again
+    from webradio_tpu_torch.ops.tail_tm import KERNEL_TAPS, tile_rows_for
+
+    product_ms = min(ms, ms2) - results["tail_kernel_ms"]
+    rows = nd + (-(-nd // tile_rows_for(nd, c)) - 1) * 2 * KERNEL_TAPS
+    tflops = 2.0 * rows * 2 * kp * 2 * c / (1e-3 * product_ms) / 1e12
+    results["pfb_product_by_difference_ms"] = product_ms
+    results["pfb_product_by_difference_tflops"] = tflops
+    log(f"  in-kernel filterbank product, by difference (kernel #3 less "
+        f"kernel #1): {product_ms:.4f} ms, {tflops:.1f} TFLOP/s float32")
 
 
 def phase_legacy_vs_plain(dev, results, kernels):
@@ -738,6 +752,9 @@ def phase_other_paths(dev, results, kernels, main):
     hear_tones("c_", cfg_c, audio_c, slot_controls(c)[1], results)
     with plain_tails():
         ref, _, _ = run_pipeline(cfg_c, main_params, blocks_c)
+    # the fused filterbank's product is one FMA chain per output; where the
+    # matmul sums in that order too its audio is the main path's exactly,
+    # and it is held to the audio bound either way
     against("(c) kernel step vs plain-tail step", audio_c, ref, main_params,
             results, "c_step_vs_plain")
     against("(c) fused filterbank vs the main path's packed kernel",

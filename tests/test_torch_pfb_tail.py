@@ -194,3 +194,94 @@ def test_pfb_kernel_matches_plain_version_on_card(cuda_device, fast,
         np.testing.assert_allclose(g[5], r[5], rtol=1e-5, atol=0)
         carry, ref_carry = got[1:5], ref[1:5]
         phase = _advance(phase, s["step"], ND)
+
+
+def _edge_case(seed, nd, c, dev):
+    """Frames, weights and carries of any height and width for the tiling's
+    edge cases (``nd`` a multiple of 320: whole product groups of 64 rows
+    and whole audio samples)."""
+    rng = np.random.default_rng(seed)
+    u = lambda *shape: T(rng.uniform(-0.5, 0.5, shape).astype(
+        np.float32)).to(dev)
+    proto = channelizer.design_prototype(2_400_000, BINS, TAPS)
+    ifs = np.linspace(-900_000, 900_000, c).astype(np.int64)
+    bin_idx, _ = channelizer.assign_bins(ifs, 2_400_000, BINS)
+    weights = T(channelizer.bin_weights_for_channels(
+        proto, BINS, bin_idx).reshape(2 * KP, 2 * c)).to(dev)
+    src = ToneSource(carriers=CARRIERS, noise=0.5, seed=seed)
+    src.sample_rate, src.block_frames, src.realtime = (
+        2_400_000, nd * BINS, False)
+    z = src.read_block()
+    iq = T(np.stack([z.real, z.imag]).astype(np.float32)).to(dev)
+    frames, _ = channelizer.pfb_frames_tm(iq, KP, BINS, u(2, KP - 1))
+    w = T(fir.toeplitz_weights(
+        firdesign.design_lowpass_fir(80_000, 240_000), 1, 64)).to(dev)
+    wa = T(fir.toeplitz_weights(
+        firdesign.design_lowpass_fir(8_000, 240_000), D, 32)).to(dev)
+    mode = T((np.arange(c) % 4).astype(np.int32)).to(dev)
+    common = (frames, weights, T(rng.integers(0, 2**31, c)).to(dev),
+              T(rng.integers(0, 2**32, c)).to(dev), w, wa, D, mode)
+    return common, (u(K - 1, c), u(K - 1, c), u(2, c), u(K - 1, c))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nd,c,tile_rows", [
+    (320, 128, 640),       # one tile, five product groups
+    (320, 128, 128),       # ragged last tile (128, 128, 64): one group
+    (2_560, 128, 1_024),   # ragged last tile of 512 rows
+    (320, 16_384, 128),    # the wide grid: 256 channel groups on grid.y
+])
+def test_pfb_kernel_tile_edges_on_card(cuda_device, nd, c, tile_rows):
+    common, carry = _edge_case(nd + c, nd, c, cuda_device)
+    got = tail_tm._launch_pfb(*common, *carry, True, tile_rows)
+    torch.cuda.synchronize()
+    ref = tail_tm.fused_pfb_tail_audio_tm_ref(*common, *carry, fast=True)
+    g, r = ([a.cpu().numpy() for a in x] for x in (got, ref))
+    fm = common[7].cpu().numpy() == 1
+    # behind the audio FIR an FM branch-cut flip (two float32 roundings on
+    # opposite sides of the cut) moves an output by at most two audio taps,
+    # on at most 1e-4 of the FM samples; every other slot holds the bound
+    err = np.abs(g[0] - r[0])
+    assert err[:, ~fm].max() <= 1e-5
+    flipped = int((err[:, fm] > 1e-5).sum())
+    assert flipped <= 1e-4 * err[:, fm].size, flipped
+    assert err[:, fm].max() <= 2 * float(common[5][:K, 0].abs().max()) + 1e-5
+    for i in (1, 2, 3):
+        np.testing.assert_allclose(g[i], r[i], rtol=0, atol=2e-6)
+    # raw demod rows: a flip is a whole turn and is removed; the FM angle is
+    # ill-conditioned where consecutive shaped samples are near zero, so at
+    # most 1e-4 of the FM samples may pass the bound, none 1e-3
+    err = g[4] - r[4]
+    err[:, fm] -= np.round(err[:, fm])
+    err = np.abs(err)
+    assert err[:, ~fm].max() <= 1e-5
+    assert (err[:, fm] > 1e-5).sum() <= 1e-4 * err[:, fm].size
+    assert err[:, fm].max() <= 1e-3
+    np.testing.assert_allclose(g[5], r[5], rtol=1e-5, atol=0)
+    assert np.abs(r[0]).max() > 1e-2
+
+
+@pytest.mark.cuda
+def test_pfb_kernel_refuses_what_its_tiling_does_not_take(cuda_device):
+    common, carry = _edge_case(9, 320, 128, cuda_device)
+    frames, weights = common[:2]
+    before = tail_tm.fused_pfb_tail_audio_tm.launches
+    with pytest.raises(ValueError, match="tile_rows"):
+        tail_tm._launch_pfb(*common, *carry, True, 144)  # not whole groups
+    with pytest.raises(ValueError, match="tile_rows"):
+        tail_tm._launch_pfb(*common, *carry, True, 64)  # below the halo
+    with pytest.raises(ValueError, match="multiple of the decimation"):
+        tail_tm._launch_pfb(frames[:160].contiguous(), *common[1:], *carry,
+                            True, 640)  # 160 rows: not whole groups of 64
+    with pytest.raises(ValueError, match="multiple of 16"):
+        tail_tm._launch_pfb(frames[:, :312].contiguous(),
+                            weights[:312].contiguous(), *common[2:], *carry,
+                            True, 640)
+    shifted = torch.empty(frames.numel() + 1, device=frames.device)[1:]
+    shifted = shifted.view_as(frames).copy_(frames)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tail_tm._launch_pfb(shifted, *common[1:], *carry, True, 640)
+    narrow, narrow_carry = _edge_case(10, 320, 64, cuda_device)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        tail_tm._launch_pfb(*narrow, *narrow_carry, True, 640)
+    assert tail_tm.fused_pfb_tail_audio_tm.launches == before

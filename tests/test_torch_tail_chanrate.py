@@ -177,3 +177,65 @@ def test_chanrate_kernel_matches_plain_version_on_card(cuda_device, fast,
         phase = _advance(phase, s["step"], ND)
     with pytest.raises(ValueError, match="tile_rows"):
         tail_tm._launch_chanrate(prod, prod, *common, *carry, True, fast, 48)
+
+
+def _edge_case(seed, nd, c, dev):
+    """Inputs of any height and width for the tiling's edge cases; the
+    banded weights use a 64-row tile so the plain version takes any
+    multiple of 64 rows (the kernel reads only the reversed kernel)."""
+    rng = np.random.default_rng(seed)
+    u = lambda *shape: T(rng.uniform(-0.5, 0.5, shape).astype(
+        np.float32)).to(dev)
+    w = T(fir.toeplitz_weights(
+        firdesign.design_lowpass_fir(80_000, 240_000), 1, 64)).to(dev)
+    phase = T(rng.integers(0, 2**31, c)).to(dev)
+    step = T(rng.integers(0, 2**32, c)).to(dev)
+    mode = T((np.arange(c) % 4).astype(np.int32)).to(dev)
+    return u(nd, 2 * c), (phase, step, w, mode), (u(K - 1, c), u(K - 1, c),
+                                                  u(2, c))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nd,c,tile_rows", [
+    (64, 128, 64),         # one chunk group: a single tile of four chunks
+    (192, 128, 640),       # one tile taller than the block
+    (2_048, 128, 720),     # ragged last tile (720, 720, 608)
+    (2_048, 128, 1_936),   # last tile of 112 rows: shorter than two halos
+    (256, 16_384, 64),     # the wide grid: 256 channel groups, K-row tiles
+])
+def test_chanrate_kernel_tile_edges_on_card(cuda_device, nd, c, tile_rows):
+    prod, common, carry = _edge_case(nd + c, nd, c, cuda_device)
+    got = tail_tm._launch_chanrate(prod, prod, *common, *carry, True, True,
+                                   tile_rows)
+    torch.cuda.synchronize()
+    ref = tail_tm.fused_tail_tm_ref(prod, prod, *common, *carry, packed=True,
+                                    fast=True)
+    _assert_raw_audio(got[0].cpu().numpy(), ref[0].cpu().numpy(),
+                      common[3].cpu().numpy())
+    for g, r in zip(got[1:4], ref[1:4]):
+        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(), rtol=0,
+                                   atol=1e-6)
+    np.testing.assert_allclose(got[4].cpu().numpy(), ref[4].cpu().numpy(),
+                               rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+def test_chanrate_kernel_refuses_what_its_tiling_does_not_take(cuda_device):
+    prod, common, carry = _edge_case(5, 256, 128, cuda_device)
+    launch = lambda p, cm, cr, rows: tail_tm._launch_chanrate(
+        p, p, *cm, *cr, True, True, rows)
+    with pytest.raises(ValueError, match="tile_rows"):
+        launch(prod, common, carry, 72)  # not whole chunks
+    with pytest.raises(ValueError, match="tile_rows"):
+        launch(prod, common, carry, 48)  # shorter than the halo
+    with pytest.raises(ValueError, match="multiple of the decimation"):
+        launch(prod[:248].contiguous(), common, carry, 640)
+    narrow = _edge_case(6, 256, 64, cuda_device)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        launch(*narrow, 640)  # a block takes 64, the wrapper whole 128s
+    before = tail_tm.fused_tail_tm.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        launch(prod, common, (carry[0].T.contiguous().T, *carry[1:]), 640)
+    assert tail_tm.fused_tail_tm.launches == before  # nothing was launched
+    assert tail_tm.tile_rows_for(25_600, 1_024) == tail_tm.TILE_ROWS
+    assert tail_tm.tile_rows_for(10_240, 16_384) == 4 * tail_tm.TILE_ROWS

@@ -141,3 +141,30 @@ def nco_mix_tm_exact(
     s = torch.sin(ang).to(torch.float32)
     c = torch.cos(ang).to(torch.float32)
     return _mix(i, q, s, c)
+
+
+def nco_mix_tm_rotated(
+    i: torch.Tensor, q: torch.Tensor, phase0: torch.Tensor,
+    phase_step: torch.Tensor, rows: int = 8,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain emulation of the CUDA tail kernels' ``fast`` LO: the exact
+    phasor (:func:`nco_mix_tm_exact`'s) at every ``rows``-th sample, rotated
+    in float32 by the exact phasors of ``0..rows-1`` steps for the samples
+    between. At most three float32 roundings (~2e-7) from the exact law on
+    each of sin and cos. ``N`` must be a multiple of ``rows``."""
+    n = i.shape[0]
+    if n % rows:
+        raise ValueError(f"{n} rows is not a multiple of {rows}")
+    scale = 2.0 * math.pi / (1 << PHASE_BITS)
+
+    def phasor(phases):
+        ang = phases.to(torch.float64) * scale
+        return torch.sin(ang).to(torch.float32), torch.cos(ang).to(
+            torch.float32)
+
+    s0, c0 = phasor(nco_phases_tm(n, phase0, phase_step)[::rows])  # [n/r, C]
+    rs, rc = phasor(nco_phases_tm(rows, torch.zeros_like(phase0),
+                                  phase_step))  # [rows, C]
+    s = s0[:, None, :] * rc[None] + c0[:, None, :] * rs[None]
+    c = c0[:, None, :] * rc[None] - s0[:, None, :] * rs[None]
+    return _mix(i, q, s.reshape(n, -1), c.reshape(n, -1))

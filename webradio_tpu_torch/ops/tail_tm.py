@@ -14,11 +14,18 @@ Semantics are the JAX kernel's: the cross-block shaping-FIR state is the
 MIXED-domain input tail, the squelch power is the block-mean post-shaping
 FIR ``|y|^2``, and the FM law keeps the reference's ``atan2(ii, qq)``
 order. Two LO laws: ``fast=False`` is the reference's 16-bit table law;
-``fast=True`` evaluates the full 31-bit angle per sample (the TPU kernel's
-factored phasor approximates that same angle).
+``fast=True`` is the full 31-bit angle per sample (the TPU kernel's
+factored phasor approximates that same angle; the CUDA kernels take it
+exactly for every eighth row and rotate by the exact phasors of one to seven
+steps, ~2e-7 from it).
 
-Every ``precision`` tier is computed in float32 here: "hx5", "hx4" and
-"high" name TPU MXU pass counts and have no Hopper meaning yet.
+Every ``precision`` tier is computed to float32 accuracy here: "hx5", "hx4"
+and "high" name TPU MXU pass counts and have no Hopper meaning yet. The
+kernels make the shaping FIR on the tensor cores as a three-term TF32 split
+(``ops.precision.matmul_tf32x3`` is its plain emulation,
+``ops.nco.nco_mix_tm_rotated`` that of the ``fast`` LO) and the filterbank
+product as float32 FMA chains in tap order; the plain versions stay true
+float32.
 """
 
 from __future__ import annotations
@@ -31,17 +38,38 @@ from .nco import nco_mix_tm, nco_mix_tm_exact
 from .precision import full_fp32
 
 #: channels per kernel tile; the JAX kernel's rule, kept so the same
-#: channel counts are accepted by both packages
+#: channel counts are accepted by both packages (a CUDA block takes 64)
 CHAN_TILE = 128
-#: rows per kernel chunk (nd must be a multiple)
+#: rows per kernel chunk, one tensor-core tile (nd must be a multiple)
 CHUNK_ROWS = 16
-#: time-tile rows per CUDA block: a multiple of CHUNK_ROWS and at least
-#: 2K = 128 (the halo recompute starts 2K rows before the tile; K rows
-#: without the audio FIR)
+#: rows per in-kernel filterbank product (the fused-filterbank kernel's nd
+#: and time tile must be multiples)
+PFB_GROUP_ROWS = 64
+#: taps per staged slice of that product (2 K_p must be a multiple)
+PFB_SLICE_TAPS = 16
+#: time-tile rows per CUDA block: a multiple of CHUNK_ROWS (of
+#: PFB_GROUP_ROWS for the fused filterbank) and at least 2K = 128 (the halo
+#: recompute starts 2K rows before the tile; K rows without the audio FIR).
+#: Taller tiles recompute less halo; 640 keeps the card's SMs filled at
+#: 1,024 channels (see :func:`tile_rows_for`)
 TILE_ROWS = 640
+#: blocks from which a taller tile still fills the card (132 SMs, up to
+#: three resident blocks each) over a few waves
+MIN_BLOCKS = 1024
 #: the only tap count the kernel is built for (firdesign.FIR_LENGTH)
 KERNEL_TAPS = 64
 PRECISIONS = ("highest", "hx5", "hx4", "high")
+
+
+def tile_rows_for(nd: int, channels: int) -> int:
+    """Time-tile height of the two audio-fused kernels: 2,560 rows where
+    that still gives MIN_BLOCKS blocks (one per 64 channels and tile), else
+    TILE_ROWS. Wide configurations have blocks to spare and save the halo
+    recompute (20% of the rows at 640, 5% at 2,560)."""
+    rows = 4 * TILE_ROWS
+    if (channels // 64) * -(-nd // rows) >= MIN_BLOCKS:
+        return rows
+    return TILE_ROWS
 
 
 def _split(ci_planes, cq_planes, packed):
@@ -153,16 +181,17 @@ def _reversed_kernel(name, w, decimation, dev):
 
 
 def _check_common(dev, nd, c, d, tile_rows, halo, phase0, phase_step, mode,
-                  chan_hist_i, chan_hist_q, demod_prev, audio_hist=None):
+                  chan_hist_i, chan_hist_q, demod_prev, audio_hist=None,
+                  rows=CHUNK_ROWS):
     k = KERNEL_TAPS
     if c % CHAN_TILE:
         raise ValueError(f"channels {c} must be a multiple of {CHAN_TILE}")
-    if d < 1 or nd % d or nd % CHUNK_ROWS:
+    if d < 1 or nd % d or nd % rows:
         raise ValueError(f"nd={nd} must be a multiple of the decimation "
-                         f"{d} and of {CHUNK_ROWS}")
-    if tile_rows % CHUNK_ROWS or tile_rows < halo:
+                         f"{d} and of {rows}")
+    if tile_rows % rows or tile_rows < halo:
         raise ValueError(f"tile_rows={tile_rows} must be a multiple of "
-                         f"{CHUNK_ROWS} and at least {halo}")
+                         f"{rows} and at least {halo}")
     carries = [
         ("phase0", phase0, torch.int64, (c,)),
         ("phase_step", phase_step, torch.int64, (c,)),
@@ -199,10 +228,12 @@ def _empty(dev, *shape):
 
 def _launch_audio(wrapper, entry, lead, dev, nd, c, phase0, phase_step,
                   w_toep, audio_toep, decimation, mode, chan_hist_i,
-                  chan_hist_q, demod_prev, audio_hist, fast, tile_rows):
+                  chan_hist_q, demod_prev, audio_hist, fast, tile_rows,
+                  rows=CHUNK_ROWS):
     """Launch an audio-fused kernel through the library's ``entry`` and
     count it on ``wrapper``; ``lead`` is the entry point's first three
-    arguments, the product planes or the frames and weights."""
+    arguments, the product planes or the frames and weights; ``rows`` is
+    the row granule of ``nd`` and ``tile_rows``."""
     from . import _build
 
     d = int(decimation)
@@ -210,7 +241,7 @@ def _launch_audio(wrapper, entry, lead, dev, nd, c, phase0, phase_step,
     h_shape = _reversed_kernel("w_toep", w_toep, 1, dev)
     h_audio = _reversed_kernel("audio_toep", audio_toep, d, dev)
     _check_common(dev, nd, c, d, tile_rows, 2 * k, phase0, phase_step, mode,
-                  chan_hist_i, chan_hist_q, demod_prev, audio_hist)
+                  chan_hist_i, chan_hist_q, demod_prev, audio_hist, rows)
     n_tiles = -(-nd // tile_rows)
     audio48 = _empty(dev, nd // d, c)
     hist_i, hist_q, ahist = (_empty(dev, k - 1, c) for _ in range(3))
@@ -253,11 +284,17 @@ def _launch_pfb(frames, pfb_weights, phase0, phase_step, w_toep, audio_toep,
     c = pfb_weights.shape[-1] // 2
     _check("frames", frames, torch.float32, (nd, kp2), dev)
     _check("pfb_weights", pfb_weights, torch.float32, (kp2, 2 * c), dev)
+    if kp2 % PFB_SLICE_TAPS:
+        raise ValueError(f"the frames' width {kp2} must be a multiple of "
+                         f"{PFB_SLICE_TAPS}")
+    if frames.data_ptr() % 16 or pfb_weights.data_ptr() % 16:
+        raise ValueError("frames and pfb_weights must be 16-byte aligned")
     return _launch_audio(
         fused_pfb_tail_audio_tm, "webradio_pfb_tail_tm_launch",
         (frames.data_ptr(), pfb_weights.data_ptr(), kp2), dev, nd, c,
         phase0, phase_step, w_toep, audio_toep, decimation, mode,
-        chan_hist_i, chan_hist_q, demod_prev, audio_hist, fast, tile_rows)
+        chan_hist_i, chan_hist_q, demod_prev, audio_hist, fast, tile_rows,
+        rows=PFB_GROUP_ROWS)
 
 
 def _launch_chanrate(ci_planes, cq_planes, phase0, phase_step, w_toep, mode,
@@ -341,7 +378,8 @@ def fused_tail_audio_tm(
       chan_hist_i / chan_hist_q: ``[K-1, C]`` mixed-domain input tails.
       demod_prev: ``[2, C]`` previous shaped sample (FM lag).
       audio_hist: ``[K-1, C]`` demod-audio tail for the audio FIR.
-      precision: a ``ChannelizedConfig.fir_precision`` name; all are fp32.
+      precision: a ``ChannelizedConfig.fir_precision`` name; all hold
+        float32 accuracy.
       fast: full-angle LO instead of the 16-bit table law.
       mode_set: accepted for signature parity; the kernel switches on
         ``mode`` per channel at run time.
@@ -356,7 +394,9 @@ def fused_tail_audio_tm(
             decimation, mode, chan_hist_i, chan_hist_q, demod_prev,
             audio_hist)
     if _route(ci_planes, precision):
-        return _launch(*args, packed, fast, TILE_ROWS)
+        nd, width = ci_planes.shape
+        return _launch(*args, packed, fast,
+                       tile_rows_for(nd, width // 2 if packed else width))
     return fused_tail_audio_tm_ref(*args, precision=precision,
                                    packed=packed, fast=fast)
 
@@ -429,7 +469,8 @@ def fused_pfb_tail_audio_tm(
       pfb_weights: ``[2 K_p, 2 C]`` float32 packed filterbank weights
         (``bin_weights_for_channels`` reshaped): columns ``[:C]`` make
         mixed I, ``[C:]`` mixed Q.
-      pfb_precision: only "highest" (true float32) is ported.
+      pfb_precision: only "highest" (float32 accuracy: true float32 in
+        the plain version, float32 FMA chains in the kernel) is ported.
       packed: accepted for signature parity; frames are packed by nature.
 
     Returns what :func:`fused_tail_audio_tm` returns.
@@ -448,7 +489,9 @@ def fused_pfb_tail_audio_tm(
             decimation, mode, chan_hist_i, chan_hist_q, demod_prev,
             audio_hist)
     if _route(frames, precision):
-        return _launch_pfb(*args, fast, TILE_ROWS)
+        return _launch_pfb(
+            *args, fast,
+            tile_rows_for(frames.shape[0], pfb_weights.shape[1] // 2))
     return fused_pfb_tail_audio_tm_ref(*args, precision=precision,
                                        fast=fast)
 
