@@ -196,7 +196,7 @@ def test_pfb_kernel_matches_plain_version_on_card(cuda_device, fast,
         phase = _advance(phase, s["step"], ND)
 
 
-def _edge_case(seed, nd, c, dev):
+def _edge_case(seed, nd, c, dev, d=D):
     """Frames, weights and carries of any height and width for the tiling's
     edge cases (``nd`` a multiple of 320: whole product groups of 64 rows
     and whole audio samples)."""
@@ -217,22 +217,23 @@ def _edge_case(seed, nd, c, dev):
     w = T(fir.toeplitz_weights(
         firdesign.design_lowpass_fir(80_000, 240_000), 1, 64)).to(dev)
     wa = T(fir.toeplitz_weights(
-        firdesign.design_lowpass_fir(8_000, 240_000), D, 32)).to(dev)
+        firdesign.design_lowpass_fir(8_000, 240_000), d, 32)).to(dev)
     mode = T((np.arange(c) % 4).astype(np.int32)).to(dev)
     common = (frames, weights, T(rng.integers(0, 2**31, c)).to(dev),
-              T(rng.integers(0, 2**32, c)).to(dev), w, wa, D, mode)
+              T(rng.integers(0, 2**32, c)).to(dev), w, wa, d, mode)
     return common, (u(K - 1, c), u(K - 1, c), u(2, c), u(K - 1, c))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nd,c,tile_rows", [
-    (320, 128, 640),       # one tile, five product groups
-    (320, 128, 128),       # ragged last tile (128, 128, 64): one group
-    (2_560, 128, 1_024),   # ragged last tile of 512 rows
-    (320, 16_384, 128),    # the wide grid: 256 channel groups on grid.y
+@pytest.mark.parametrize("nd,c,tile_rows,d", [
+    (320, 128, 640, D),       # one tile, five product groups
+    (320, 128, 128, D),       # ragged last tile (128, 128, 64): one group
+    (2_560, 128, 1_024, D),   # ragged last tile of 512 rows
+    (320, 16_384, 128, D),    # the wide grid: 256 channel groups on grid.y
+    (1_280, 128, 256, 10),    # a decimation whose audio FIR is the loop
 ])
-def test_pfb_kernel_tile_edges_on_card(cuda_device, nd, c, tile_rows):
-    common, carry = _edge_case(nd + c, nd, c, cuda_device)
+def test_pfb_kernel_tile_edges_on_card(cuda_device, nd, c, tile_rows, d):
+    common, carry = _edge_case(nd + c + d - D, nd, c, cuda_device, d)
     got = tail_tm._launch_pfb(*common, *carry, True, tile_rows)
     torch.cuda.synchronize()
     ref = tail_tm.fused_pfb_tail_audio_tm_ref(*common, *carry, fast=True)

@@ -32,7 +32,7 @@ T = torch.from_numpy
 torch.sin(torch.zeros(1))
 
 
-def _setup(seed):
+def _setup(seed, C=C):
     rng = np.random.default_rng(seed)
     u = lambda *shape: rng.uniform(-0.5, 0.5, shape).astype(np.float32)
     designs = [firdesign.design_lowpass_fir(bw, 240_000)
@@ -139,3 +139,39 @@ def test_legacy_kernel_matches_plain_version_on_card(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         tail.fused_receiver_tail(x.transpose(1, 2).contiguous().transpose(
             1, 2), *common[1:], *carry)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [8, 1_024])
+@pytest.mark.parametrize("nd", [1_024, 2_048, 10_240])
+def test_legacy_kernel_shapes_and_chunk_edges_on_card(cuda_device, nd, c):
+    """The wrapper's smallest and the path's widths, one to ten chunks: a
+    thread's first output takes its FM lag from its neighbour, a chunk's
+    first from the output before the chunk, a block's first from the
+    carried state, and the last shaped sample is carried on."""
+    s = _setup(101 + nd // 1_024 + c, c)
+    dev = cuda_device
+    carry = ref_carry = tuple(T(a).to(dev) for a in s["carry"])
+    phase = s["phase0"]
+    fm = s["mode"] == 1
+    for _ in range(2):
+        x = T(s["u"](2, c, nd)).to(dev)
+        common = (x, T(phase.astype(np.int64)).to(dev),
+                  T(s["step"].astype(np.int64)).to(dev),
+                  T(s["coeff"]).to(dev), T(s["mode"]).to(dev))
+        got = tail.fused_receiver_tail(*common, *carry)
+        torch.cuda.synchronize()
+        ref = tail.fused_receiver_tail_ref(*common, *ref_carry)
+        got_np = [g.cpu().numpy() for g in got]
+        ref_np = [r.cpu().numpy() for r in ref]
+        _assert_outputs([a.copy() for a in got_np], ref_np, s["mode"])
+        # FM samples whose lag crosses a thread, chunk or block edge (a
+        # wrong lag is an error of a tenth of a turn and more)
+        for stride in (8, 1_024):
+            err = got_np[0][fm, 0::stride] - ref_np[0][fm, 0::stride]
+            err -= np.round(err)
+            assert np.abs(err).max() <= 1e-3
+            assert np.median(np.abs(err)) <= 1e-6
+        assert np.abs(ref_np[2]).max() > 1e-3  # the carried lag is not zero
+        carry, ref_carry = got[1:3], ref[1:3]
+        phase = _advance(phase, s["step"], nd)

@@ -3,19 +3,26 @@ against the JAX package on the CPU.
 
 The CUDA kernels make the shaping FIR as a three-term TF32 product
 (``a_lo b_hi + a_hi b_lo + a_hi b_hi``, float32 sums), their ``fast`` LO is
-exact every eighth row and rotated between, and the fused-filterbank
-kernel's product is a float32 FMA chain per output, which is what a float32
-matmul computes. No CUDA kernel runs here, so these tests run the plain
-emulations of that arithmetic, ``ops.precision.matmul_tf32x3`` (the shaping
-FIR as 16-row tiles of the banded Toeplitz matrix times an 80-row window)
-and ``ops.nco.nco_mix_tm_rotated``, and feed them through the rest of the
-plain tail. The result must stay within the stated bounds of the
-JAX functions ``fused_tail_tm`` and ``fused_pfb_tail_audio_tm`` (Pallas in
-interpret mode, filterbank at ``Precision.HIGHEST``): audio 1e-5, mixed
-carries and FM lag 1e-6 (2e-6 behind the in-kernel filterbank product),
-power rtol 1e-5, raw FM rows by the rule of
+exact on the first two rows of every 16 and rotated between, the decimating
+audio FIR at decimation 5 is a banded three-term product too (8 outputs per
+40 rows, window 104 rows), and the fused-filterbank kernel's product is a
+float32 FMA chain per output, which is what a float32 matmul computes. No
+CUDA kernel runs here, so these tests run the plain emulations of that
+arithmetic, ``ops.precision.matmul_tf32x3`` (the shaping FIR as 16-row
+tiles of the banded Toeplitz matrix times an 80-row window),
+``ops.fir.fir_decimate_banded_tf32x3_tm`` and
+``ops.nco.nco_mix_tm_rotated``, and feed them through the rest of the plain
+tail. The result must stay within the stated bounds of the JAX functions
+``fused_tail_tm``, ``fused_tail_audio_tm`` and ``fused_pfb_tail_audio_tm``
+(Pallas in interpret mode, filterbank at ``Precision.HIGHEST``): audio
+1e-5, mixed carries and FM lag 1e-6 (2e-6 behind the in-kernel filterbank
+product), power rtol 1e-5, raw FM rows by the rule of
 ``tests/test_torch_tail_chanrate.py``. Two carried blocks, one demod law per
 case, both LO laws.
+
+A kernel warp orders its 16 channels by demod law
+(``ops.tail_tm.law_sorted_columns`` is that rule in Python); section (4)
+pins the rule down.
 
 The kernels keep no second copy of the filterbank weights: the packed
 ``[2 K_p, 2 C]`` operand is a view of ``params.pfb_weights`` and is split
@@ -262,9 +269,9 @@ def test_kernel_arithmetic_holds_the_fused_pfb_bounds(law, fast):
         mi, mq = _mixed_as_kernel(y2, *lo, fast)
         demod_rows, hist_i, hist_q, prev, power = _shape_demod_emulated(
             mi, mq, T(w), T(mode), *t_carry[:3])
-        # the kernel's audio FIR is a float32 FMA chain, as the plain one
-        a48, ahist = fir.fir_decimate_toeplitz_tm(demod_rows, T(wa), D,
-                                                  t_carry[3])
+        # the kernel's audio FIR at D=5: the banded three-term product
+        a48, ahist = fir.fir_decimate_banded_tf32x3_tm(
+            demod_rows, T(wa)[:K, 0], D, t_carry[3])
         np.testing.assert_allclose(a48.numpy(), ref[0], rtol=0, atol=1e-5)
         np.testing.assert_allclose(hist_i.numpy(), ref[1], rtol=0, atol=2e-6)
         np.testing.assert_allclose(hist_q.numpy(), ref[2], rtol=0, atol=2e-6)
@@ -337,3 +344,154 @@ def test_weight_operand_after_a_capacity_growth(grown):
     assert torch.equal(op[:, grown:grown + C], narrow[:, C:])
     assert grown % tail_tm.CHAN_TILE == 0
     assert tail_tm.tile_rows_for(cfg.chan_frames, grown) == tail_tm.TILE_ROWS
+
+
+# ---- (4) the audio FIR on the tensor cores, and the warp's column order
+
+def _audio_weights():
+    w = fir.toeplitz_weights(firdesign.design_lowpass_fir(80_000, 240_000),
+                             1, 128)
+    wa = fir.toeplitz_weights(firdesign.design_lowpass_fir(8_000, 240_000),
+                              D, 32)
+    return w, wa
+
+
+@pytest.mark.parametrize("fast", [True, False])
+@pytest.mark.parametrize("law", LAWS)
+def test_banded_tf32x3_audio_fir_holds_the_audio_bounds(law, fast):
+    """The whole of kernel #1's arithmetic (rotated LO, banded three-term
+    shaping FIR, demod, banded three-term audio FIR at D=5) against the JAX
+    ``fused_tail_audio_tm``: audio 1e-5 at an audio peak above 1e-2."""
+    import jax.numpy as jnp
+    from webradio_tpu.ops.pallas_tail_tm import fused_tail_audio_tm as j_tail
+
+    nd = 2_560
+    rng = np.random.default_rng(300 + 2 * LAWS.index(law) + fast)
+    u = lambda *s: rng.uniform(-0.5, 0.5, s).astype(np.float32)
+    w, wa = _audio_weights()
+    mode = np.full(C, LAWS.index(law), np.int32)
+    fm = mode == 1
+    phase, step = _lo(rng)
+    carry = (u(K - 1, C), u(K - 1, C), u(2, C), u(K - 1, C))
+    j_carry = tuple(jnp.asarray(a) for a in carry)
+    t_carry = tuple(T(a) for a in carry)
+    peak = 0.0
+    for _ in range(2):  # every carry crosses the block boundary
+        prod = u(nd, 2 * C)
+        ref = j_tail(jnp.asarray(prod), jnp.asarray(prod), jnp.asarray(phase),
+                     jnp.asarray(step), jnp.asarray(w), jnp.asarray(wa), D,
+                     jnp.asarray(mode), *j_carry, packed=True, fast=fast)
+        ref = [np.asarray(a) for a in ref]
+        lo = (T(phase.astype(np.int64)), T(step.astype(np.int64)))
+        mi, mq = _mixed_as_kernel(T(prod), *lo, fast)
+        demod_rows, hist_i, hist_q, prev, power = _shape_demod_emulated(
+            mi, mq, T(w), T(mode), *t_carry[:3])
+        a48, ahist = fir.fir_decimate_banded_tf32x3_tm(
+            demod_rows, T(wa)[:K, 0], D, t_carry[3])
+        assert a48.shape == (nd // D, C)
+        np.testing.assert_allclose(a48.numpy(), ref[0], rtol=0, atol=1e-5)
+        np.testing.assert_allclose(hist_i.numpy(), ref[1], rtol=0, atol=1e-6)
+        np.testing.assert_allclose(hist_q.numpy(), ref[2], rtol=0, atol=1e-6)
+        np.testing.assert_allclose(prev.numpy(), ref[3], rtol=0, atol=1e-6)
+        _assert_raw(ahist.numpy().copy(), ref[4], fm)
+        np.testing.assert_allclose(power.numpy(), ref[5], rtol=1e-5, atol=0)
+        peak = max(peak, float(np.abs(ref[0]).max()))
+        j_carry = tuple(jnp.asarray(a) for a in ref[1:5])
+        t_carry = (hist_i, hist_q, prev, ahist)
+        phase = _advance(phase, step, nd)
+    assert peak > 1e-2  # a silent FIR would pass every bound above
+
+
+@pytest.mark.parametrize("d,outputs", [(5, 8), (5, 16), (4, 8), (1, 16)])
+def test_banded_audio_fir_emulation_matches_the_toeplitz_fir(d, outputs):
+    """The emulation computes the decimating FIR of the plain version, to
+    float32 rounding, whatever the tile; its band spans ``(outputs - 1) d +
+    K`` rows behind one padding column (139 at 16 outputs and D=5)."""
+    rng = np.random.default_rng(31 + d + outputs)
+    n = 4 * d * 16
+    x = T(rng.uniform(-1, 1, (n, 8)).astype(np.float32))
+    hist = T(rng.uniform(-1, 1, (K - 1, 8)).astype(np.float32))
+    wa = T(fir.toeplitz_weights(
+        firdesign.design_lowpass_fir(8_000, 240_000), d, 64))
+    want, want_hist = fir.fir_decimate_toeplitz_tm(x, wa, d, hist)
+    got, got_hist = fir.fir_decimate_banded_tf32x3_tm(x, wa[:K, 0], d, hist,
+                                                     outputs=outputs)
+    assert got.shape == (n // d, 8) and float(want.abs().max()) > 0.1
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-6)
+    assert torch.equal(got_hist, want_hist)
+    with pytest.raises(ValueError, match="group"):
+        fir.fir_decimate_banded_tf32x3_tm(x[:-d], wa[:K, 0], d, hist,
+                                          outputs=outputs)
+    with pytest.raises(ValueError, match="history"):
+        fir.fir_decimate_banded_tf32x3_tm(x, wa[:K, 0], d, hist[1:],
+                                          outputs=outputs)
+
+
+def _classes(mode, cols):
+    return [[mode[cols[4 * t + cc]] for t in range(4)] for cc in range(4)]
+
+
+@pytest.mark.parametrize("mode", [
+    [0] * 16, [1] * 16, [3] * 16,               # one law on every slot
+    [0, 1, 2, 3] * 4, [1, 1, 0, 2] * 4,         # period 4
+])
+def test_column_order_is_the_identity_where_the_classes_are_uniform(mode):
+    cols = tail_tm.law_sorted_columns(mode)
+    assert cols == list(range(16))
+    assert all(len(set(c)) == 1 for c in _classes(mode, cols))
+
+
+@pytest.mark.parametrize("mode", [
+    [0] * 4 + [1] * 4 + [2] * 4 + [3] * 4,      # sorted already
+    [3] * 4 + [2] * 4 + [1] * 4 + [0] * 4,
+    [1, 0] * 8, [0] * 12 + [1] * 4, [1] * 4 + [0] * 12,
+    [0, 1, 2, 3, 3, 2, 1, 0] * 2, [2, 2, 1, 1] * 2 + [0] * 8,
+])
+def test_column_order_makes_every_class_share_a_law(mode):
+    """Law counts that are multiples of four: every column class (the four
+    columns one kernel instruction demodulates) comes out uniform."""
+    cols = tail_tm.law_sorted_columns(mode)
+    assert sorted(cols) == list(range(16))
+    assert all(len(set(c)) == 1 for c in _classes(mode, cols))
+
+
+def test_column_order_is_a_stable_permutation_for_any_mode():
+    from hypothesis import given, settings, strategies as st
+
+    @settings(max_examples=300, deadline=None, database=None,
+              derandomize=True)
+    @given(st.lists(st.integers(-2, 7), min_size=16, max_size=16))
+    def check(mode):
+        cols = tail_tm.law_sorted_columns(mode)
+        assert sorted(cols) == list(range(16))  # a permutation
+        assert cols == tail_tm.law_sorted_columns(list(mode))  # a function
+        key = [m if 0 <= m <= 3 else 3 for m in mode]
+        if all(key[j] == key[j % 4] for j in range(16)):
+            assert cols == list(range(16))
+            return
+        # the kernel's form of the rule: a channel's sorted position is the
+        # count of channels of lower laws plus that of earlier ones of its
+        # own (two population counts of warp ballots)
+        by_col = [None] * 16
+        for j in range(16):
+            pos = (sum(k < key[j] for k in key)
+                   + sum(key[i] == key[j] for i in range(j)))
+            by_col[4 * (pos % 4) + pos // 4] = j
+        assert by_col == cols
+        # dealt back in class order the channels are sorted by law, and
+        # channels of one law keep their order (stable)
+        dealt = [cols[4 * t + cc] for cc in range(4) for t in range(4)]
+        assert [key[j] for j in dealt] == sorted(key)
+        for a, b in zip(dealt, dealt[1:]):
+            assert key[a] < key[b] or a < b
+        # a class mixes laws only where one law's run ends inside it: never
+        # when every law's count is a multiple of 4
+        mixed = sum(len(set(key[j] for j in dealt[4 * cc:4 * cc + 4])) > 1
+                    for cc in range(4))
+        assert mixed <= len(set(key)) - 1
+        if all(key.count(law) % 4 == 0 for law in range(4)):
+            assert mixed == 0
+
+    check()
+    with pytest.raises(ValueError, match="16 channels"):
+        tail_tm.law_sorted_columns([0] * 8)

@@ -178,3 +178,134 @@ def test_kernel_separate_planes_and_input_checks_on_card(cuda_device):
                                     cq[:, :64].contiguous(), *args, *carry)
     with pytest.raises(ValueError, match="tile_rows"):
         tail_tm._launch(ci, cq, *args, *carry, False, True, 120)
+
+
+def _card_args(s, dev, d, mode):
+    # a tile of 64 outputs holds the K-1 row halo at every decimation
+    wa = fir.toeplitz_weights(firdesign.design_lowpass_fir(8_000, 240_000),
+                              d, 64)
+    return (T(s["phase0"].astype(np.int64)).to(dev),
+            T(s["step"].astype(np.int64)).to(dev), T(s["w"]).to(dev),
+            T(wa).to(dev), d, T(np.asarray(mode, np.int32)).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_rows", [128, 640])
+@pytest.mark.parametrize("d", [5, 10, 2, 1])
+def test_kernel_at_other_decimations_on_card(cuda_device, d, tile_rows):
+    """Decimation 5 runs the audio FIR on the tensor cores, every other one
+    the float32 loop; both hold the same bounds, two carried blocks."""
+    s = _setup(41 + d)
+    dev = cuda_device
+    common = _card_args(s, dev, d, s["mode"])
+    carry = ref_carry = tuple(T(a).to(dev) for a in s["carry"])
+    for _ in range(2):
+        prod = T(s["u"](ND, 2 * C)).to(dev)
+        got = tail_tm._launch(prod, prod, *common, *carry, True, True,
+                              tile_rows)
+        torch.cuda.synchronize()
+        ref = tail_tm.fused_tail_audio_tm_ref(prod, prod, *common,
+                                              *ref_carry, packed=True,
+                                              fast=True)
+        assert got[0].shape == (ND // d, C)
+        assert float(ref[0].abs().max()) > 1e-2
+        for g, r, atol in zip(got, ref, (1e-5, 1e-6, 1e-6, 1e-6, 1e-5)):
+            np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
+                                       rtol=0, atol=atol)
+        np.testing.assert_allclose(got[5].cpu().numpy(),
+                                   ref[5].cpu().numpy(), rtol=1e-5, atol=0)
+        carry, ref_carry = got[1:5], ref[1:5]
+        common = (common[0] + ND * common[1] & 0x7FFFFFFF, *common[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fast", [True, False])
+def test_kernel_with_mixed_laws_in_a_warp_on_card(cuda_device, fast):
+    """Random laws: the warps' column orders are no identity and their
+    column classes mix laws."""
+    s = _setup(51 + fast)
+    dev = cuda_device
+    mode = s["rng"].integers(0, 4, C)
+    assert any(tail_tm.law_sorted_columns(mode[i:i + 16]) != list(range(16))
+               for i in range(0, C, 16))
+    common = _card_args(s, dev, D, mode)
+    carry = ref_carry = tuple(T(a).to(dev) for a in s["carry"])
+    for _ in range(2):
+        prod = T(s["u"](ND, 2 * C)).to(dev)
+        got = tail_tm._launch(prod, prod, *common, *carry, True, fast, 640)
+        torch.cuda.synchronize()
+        ref = tail_tm.fused_tail_audio_tm_ref(prod, prod, *common,
+                                              *ref_carry, packed=True,
+                                              fast=fast)
+        for g, r, atol in zip(got, ref, (1e-5, 1e-6, 1e-6, 1e-6, 1e-5)):
+            np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
+                                       rtol=0, atol=atol)
+        np.testing.assert_allclose(got[5].cpu().numpy(),
+                                   ref[5].cpu().numpy(), rtol=1e-5, atol=0)
+        carry, ref_carry = got[1:5], ref[1:5]
+        common = (common[0] + ND * common[1] & 0x7FFFFFFF, *common[1:])
+
+
+@pytest.mark.cuda
+def test_power_and_carries_do_not_depend_on_the_laws_on_card(cuda_device):
+    """The power, the mixed carries and the FM lag are sums and samples
+    from before the demod law: whatever laws the slots hold, and so wherever
+    the column order puts a channel, they come out bit for bit the same, in
+    the same order of summation; and a slot's audio does not depend on the
+    laws beside it."""
+    s = _setup(61)
+    dev = cuda_device
+    prod = T(s["u"](ND, 2 * C)).to(dev)
+    carry = tuple(T(a).to(dev) for a in s["carry"])
+    cycling = np.arange(C) % 4
+    runs = {}
+    for name, mode in [("cycling", cycling), ("am", np.zeros(C)),
+                       ("fm", np.ones(C)), ("lsb", np.full(C, 3)),
+                       ("random", s["rng"].integers(0, 4, C))]:
+        runs[name] = (mode, tail_tm.fused_tail_audio_tm(
+            prod, prod, *_card_args(s, dev, D, mode), *carry, packed=True,
+            fast=True))
+    torch.cuda.synchronize()
+    _, base = runs["cycling"]
+    assert float(base[5].min()) > 0
+    for name, (mode, got) in runs.items():
+        for i in (1, 2, 3, 5):  # hist_i, hist_q, demod_prev, power
+            assert torch.equal(got[i], base[i]), (name, i)
+        for other, (mode2, got2) in runs.items():
+            same = T(mode == mode2).to(dev)
+            assert torch.equal(got[0][:, same], got2[0][:, same])
+            assert torch.equal(got[4][:, same], got2[4][:, same])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nd,tile_rows", [(80, 640), (240, 128), (400, 128)])
+def test_kernel_short_blocks_on_card(cuda_device, nd, tile_rows):
+    """Blocks of a few chunks: the first audio groups read the carried demod
+    tail, the last one is cut by the block's end, and with 128-row tiles a
+    tile's halo is the whole tile before it and the last tile is ragged."""
+    s = _setup(71 + nd)
+    dev = cuda_device
+    w = fir.toeplitz_weights(firdesign.design_lowpass_fir(80_000, 240_000),
+                             1, 80)
+    wa = fir.toeplitz_weights(firdesign.design_lowpass_fir(8_000, 240_000),
+                              D, 16)
+    common = (T(s["phase0"].astype(np.int64)).to(dev),
+              T(s["step"].astype(np.int64)).to(dev), T(w).to(dev),
+              T(wa).to(dev), D, T(s["mode"]).to(dev))
+    carry = ref_carry = tuple(T(a).to(dev) for a in s["carry"])
+    for _ in range(3):
+        prod = T(s["u"](nd, 2 * C)).to(dev)
+        got = tail_tm._launch(prod, prod, *common, *carry, True, True,
+                              tile_rows)
+        torch.cuda.synchronize()
+        ref = tail_tm.fused_tail_audio_tm_ref(prod, prod, *common,
+                                              *ref_carry, packed=True,
+                                              fast=True)
+        assert got[0].shape == (nd // D, C)
+        for g, r, atol in zip(got, ref, (1e-5, 1e-6, 1e-6, 1e-6, 1e-5)):
+            np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
+                                       rtol=0, atol=atol)
+        np.testing.assert_allclose(got[5].cpu().numpy(),
+                                   ref[5].cpu().numpy(), rtol=1e-5, atol=0)
+        carry, ref_carry = got[1:5], ref[1:5]
+        common = (common[0] + nd * common[1] & 0x7FFFFFFF, *common[1:])

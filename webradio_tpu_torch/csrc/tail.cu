@@ -9,38 +9,57 @@
 // The Pallas kernel walks 8-channel tiles and loops over 1,024-lane chunks
 // in order; here every (time chunk, channel) pair is an independent block.
 //
-// Design: a block of NTHREADS threads owns one channel and one chunk of
-// TCH samples, threads along time so that every global read and the audio
-// store are coalesced. The chunk and a K-sample left halo of the raw input
-// (from raw_hist for the first chunk, from the block's own input after it)
-// are mixed into shared memory; the phase of sample n is
-// (phase0 + uint32(n) * step) mod 2^31 with n negative for history samples,
-// the uint32 wrap doing the rest. Each thread then runs the 64-tap MAC for
-// the outputs t, t + NTHREADS, ... of the chunk plus the one before it (the
-// FM lag of the chunk's first sample), with the channel's reversed
-// coefficients in registers and the mixed samples read conflict-free from
-// shared memory. The shaped samples go back to shared memory, the demod
-// reads each with its left neighbour, and the chunk's |y|^2 is reduced in a
-// fixed order (warp shuffles, then the warps' sums in order) to one partial
-// sum per (chunk, channel); a second kernel adds the chunks in order, so
-// the squelch gate repeats from run to run. The block of the last chunk
-// writes the FM carry; the new raw history is a slice of the input, taken
-// by the caller.
+// Design: a block owns one channel and one chunk of TCH samples. All its
+// threads mix the chunk and a K-sample left halo of the raw input (from
+// raw_hist for the first chunk, from the block's own input after it) into
+// shared memory, threads along time so the global reads are coalesced; the
+// phase of sample n is (phase0 + uint32(n) * step) mod 2^31 with n negative
+// for history samples, the uint32 wrap doing the rest. The shaping FIR is a
+// register sliding window: a thread makes R = 8 consecutive outputs. It
+// walks the 72 mixed samples under them once, 16 bytes a load, and feeds
+// each sample from its register to the (up to) eight accumulators it
+// belongs to; the channel's reversed coefficients pass through registers
+// the same way (the unrolled window needs each for eight steps in a row, so
+// the compiler keeps about nine alive, ~60 registers a thread in all): 36
+// shared-memory loads for 1,024 FMAs. Every output is still one FMA
+// chain in tap order, so the shaped samples and the audio are what a plain
+// tap loop gives, bit for bit. The chunk is stored with bit 2 of the sample
+// index XORed by bit 5, which spreads a quarter warp's 16-byte loads (32
+// bytes apart from thread to thread) over all 32 banks wherever the window
+// stands. The demod runs on the registers; the FM lag of a thread's first
+// output is its left neighbour's last, passed through shared memory, and
+// the one output before the chunk (the lag of the chunk's first sample) is
+// made by the first lane of an extra warp, or taken from the carried state
+// in the first chunk. A thread stores its 8 audio samples as two 16-byte
+// words. The chunk's |y|^2 is reduced in a fixed order (a thread's outputs
+// in order, warp shuffles, then the warps' sums in order) to one partial sum
+// per (chunk, channel); a second kernel adds the chunks in order, so the
+// squelch gate repeats from run to run. The block of the last chunk writes
+// the FM carry; the new raw history is a slice of the input, taken by the
+// caller.
 //
 // What bounds it on the H100: at C=1,024 and nd=10,240 it reads 84 MB and
 // writes 42 MB (38 us at 3.35 TB/s) and does 2 * 2K FLOPs per sample for the
 // FIR plus two sinf and a demod (about 2.9 GFLOP, 43 us at 67 TFLOP/s): the
-// operations bind, narrowly. This design issues one shared-memory read per
-// FMA, so shared-memory bandwidth, not the FMA pipe, sets its time; a
-// register sliding window over consecutive outputs is the later lever.
+// operations bind, narrowly. With one load per 28 FMAs the FIR is FMA
+// instructions and little else, and the kernel is bound by warp issue
+// slots: a thread issues ~1,400 instructions for its window, ~800 for its
+// seven samples of the mix (the table law's two sinf per sample, ~40 each)
+// and ~100-400 for the demod, which is ~110 us of issue at C=1,024 against
+// 40 us for the FMAs alone. A table of the 2^16 sines made once per card by
+// the same sinf (bit-equal) was slower: its gathers miss L1.
 
 #include "tail_common.cuh"
 
 namespace {
 
-constexpr int NTHREADS = 256;
-constexpr int TCH = 1024;  // samples per block
-constexpr int NWARPS = NTHREADS / 32;
+constexpr int TCH = 1024;         // samples per block
+constexpr int R = 8;              // consecutive outputs per thread
+constexpr int NWIN = TCH / R;     // threads that run a window
+constexpr int NTHREADS = NWIN + 32;  // and the warp of the output before
+
+// index of mixed sample l in the chunk's shared-memory planes
+__device__ __forceinline__ int swz4(int l) { return l ^ (((l >> 5) & 1) << 2); }
 
 template <int K>
 __global__ void __launch_bounds__(NTHREADS)
@@ -53,13 +72,14 @@ receiver_tail_kernel(const float* __restrict__ chan_in,
                      const float* __restrict__ prev0,
                      float* __restrict__ audio, float* __restrict__ prev,
                      float* __restrict__ power_part, int nd, int C) {
-  // mixed samples: index l holds sample n = base + l - K
-  __shared__ float mi[TCH + K];
-  __shared__ float mq[TCH + K];
-  // shaped samples: index o holds output m = base - 1 + o
-  __shared__ float ysi[TCH + 1];
-  __shared__ float ysq[TCH + 1];
-  __shared__ float wsum[NWARPS];
+  static_assert(K % 4 == 0 && R % 4 == 0, "16-byte window loads");
+  // mixed samples: index l holds sample n = base + l - K (swizzled)
+  __shared__ __align__(16) float mi[TCH + K];
+  __shared__ __align__(16) float mq[TCH + K];
+  // last_*[t]: the shaped sample before window thread t's first output
+  __shared__ float last_i[NWIN + 1];
+  __shared__ float last_q[NWIN + 1];
+  __shared__ float wsum[NWIN / 32];
 
   const int t = threadIdx.x;
   const int c = blockIdx.x;
@@ -88,8 +108,8 @@ receiver_tail_kernel(const float* __restrict__ chan_in,
     }
     float s, co;
     lo_sincos<false>(p0, st, n, &s, &co);
-    mi[l] = vi * co + vq * s;
-    mq[l] = vq * co - vi * s;
+    mi[swz4(l)] = vi * co + vq * s;
+    mq[swz4(l)] = vq * co - vi * s;
   }
 
   float w[K];  // reversed coefficients: w[tap] = coeff[c, K-1-tap]
@@ -97,64 +117,101 @@ receiver_tail_kernel(const float* __restrict__ chan_in,
   for (int k = 0; k < K; ++k) w[k] = coeff[(size_t)c * K + (K - 1 - k)];
   __syncthreads();
 
-  // ---- shaping FIR: output o (m = base - 1 + o) reads mixed l = o..o+K-1
-  for (int o = t; o <= TCH; o += NTHREADS) {
-    float ai = 0.0f, aq = 0.0f;
+  // ---- shaping FIR: output o (sample m = base - 1 + o) reads mixed
+  // l = o..o+K-1. Window thread t makes o = R*t + 1 + j, j < R
+  float ai[R], aq[R];
+  if (t < NWIN) {
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      ai += w[k] * mi[o + k];
-      aq += w[k] * mq[o + k];
+    for (int j = 0; j < R; ++j) ai[j] = aq[j] = 0.0f;
+    // the window: mixed l = R*t + 4*q + e; it is tap l - o of output o
+#pragma unroll
+    for (int q = 0; q < (K + R) / 4; ++q) {
+      const int at = swz4(R * t + 4 * q);
+      const float4 vi = *reinterpret_cast<const float4*>(mi + at);
+      const float4 vq = *reinterpret_cast<const float4*>(mq + at);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float si = e == 0 ? vi.x : e == 1 ? vi.y : e == 2 ? vi.z : vi.w;
+        const float sq = e == 0 ? vq.x : e == 1 ? vq.y : e == 2 ? vq.z : vq.w;
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          const int k = 4 * q + e - 1 - j;
+          if (k >= 0 && k < K) {
+            ai[j] = fmaf(w[k], si, ai[j]);
+            aq[j] = fmaf(w[k], sq, aq[j]);
+          }
+        }
+      }
     }
-    ysi[o] = ai;
-    ysq[o] = aq;
+    last_i[t + 1] = ai[R - 1];
+    last_q[t + 1] = aq[R - 1];
+  } else if (t == NWIN) {
+    // the output before the chunk: carried into the first chunk, else one
+    // tap loop over the halo
+    float li = prev0[c], lq = prev0[C + c];
+    if (base != 0) {
+      li = lq = 0.0f;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        li = fmaf(w[k], mi[swz4(k)], li);
+        lq = fmaf(w[k], mq[swz4(k)], lq);
+      }
+    }
+    last_i[0] = li;
+    last_q[0] = lq;
   }
   __syncthreads();
 
-  // ---- demod and power over outputs m = base + j, j = t, t + NTHREADS, ..
-  float* out = audio + (size_t)c * nd + base;
+  // ---- demod and power of the thread's outputs, in order
   float pacc = 0.0f;
-  for (int j = t; j < TCH; j += NTHREADS) {
-    const float yi = ysi[j + 1];
-    const float yq = ysq[j + 1];
-    float a;
-    switch (md) {  // one channel per block: uniform
-      case 0:
-        a = sqrtf(yi * yi + yq * yq);
-        break;
-      case 1: {
-        const bool carried = base == 0 && j == 0;
-        const float li = carried ? prev0[c] : ysi[j];
-        const float lq = carried ? prev0[C + c] : ysq[j];
-        a = fm_law(yi, yq, li, lq);
-        break;
-      }
-      case 2:
-        a = yi + yq;
-        break;
-      default:
-        a = yi - yq;
-        break;
-    }
-    out[j] = a;
-    pacc += yi * yi + yq * yq;
-  }
-
-  // ---- the chunk's power, reduced in a fixed order
+  if (t < NWIN) {
+    float a[R];
+    float li = last_i[t], lq = last_q[t];
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    pacc += __shfl_down_sync(0xFFFFFFFFu, pacc, off);
+    for (int j = 0; j < R; ++j) {
+      const float yi = ai[j];
+      const float yq = aq[j];
+      switch (md) {  // one channel per block: uniform
+        case 0:
+          a[j] = sqrtf(yi * yi + yq * yq);
+          break;
+        case 1:
+          a[j] = fm_law(yi, yq, li, lq);
+          break;
+        case 2:
+          a[j] = yi + yq;
+          break;
+        default:
+          a[j] = yi - yq;
+          break;
+      }
+      pacc += yi * yi + yq * yq;
+      li = yi;
+      lq = yq;
+    }
+    float4* out =
+        reinterpret_cast<float4*>(audio + (size_t)c * nd + base + R * t);
+#pragma unroll
+    for (int j = 0; j < R; j += 4)
+      out[j / 4] = make_float4(a[j], a[j + 1], a[j + 2], a[j + 3]);
+    if (t == NWIN - 1 && base + TCH == nd) {
+      prev[c] = ai[R - 1];
+      prev[C + c] = aq[R - 1];
+    }
+
+    // ---- the chunk's power, reduced in a fixed order
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      pacc += __shfl_down_sync(0xFFFFFFFFu, pacc, off);
+    }
+    if ((t & 31) == 0) wsum[t >> 5] = pacc;
   }
-  if ((t & 31) == 0) wsum[t >> 5] = pacc;
   __syncthreads();
   if (t == 0) {
     float s = 0.0f;
 #pragma unroll
-    for (int i = 0; i < NWARPS; ++i) s += wsum[i];
+    for (int i = 0; i < NWIN / 32; ++i) s += wsum[i];
     power_part[(size_t)chunk * C + c] = s;
-    if (base + TCH == nd) {
-      prev[c] = ysi[TCH];
-      prev[C + c] = ysq[TCH];
-    }
   }
 }
 
@@ -166,14 +223,16 @@ extern "C" {
 
 // Launch the time-minor tail on `stream`. chan_in [2, C, nd]; phase0/step
 // [C] int64 holding uint32; coeff [C, K] design-order coefficients; mode [C]
-// int32; raw_hist [2, C, K-1] (pre-mix); prev0/prev [2, C]; audio [C, nd];
-// power_part [nd / 1024, C] scratch; power [C]. Returns cudaGetLastError().
+// int32; raw_hist [2, C, K-1] (pre-mix); prev0/prev [2, C]; audio [C, nd],
+// 16-byte aligned; power_part [nd / 1024, C] scratch; power [C]. Returns
+// cudaGetLastError().
 int webradio_receiver_tail_launch(
     const void* chan_in, const void* phase0, const void* step,
     const void* coeff, const void* mode, const void* raw_hist,
     const void* prev0, void* audio, void* prev, void* power_part,
     void* power, int nd, int C, int K, int device, void* stream) {
-  if (K != kTaps || nd < TCH || nd % TCH != 0 || C < 1 || nd / TCH > 65535) {
+  if (K != kTaps || nd < TCH || nd % TCH != 0 || C < 1 || nd / TCH > 65535 ||
+      reinterpret_cast<uintptr_t>(audio) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);

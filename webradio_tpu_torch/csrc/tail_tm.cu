@@ -17,91 +17,127 @@
 // scratch; CUDA blocks run in no order.
 //
 // Grid: (channel group x time tile) with halo recompute. A block owns NC =
-// 64 consecutive channel columns and one tile of rows [r0, r1). A tile with
-// r0 > 0 starts HALO rows early and re-mixes rows [r0-HALO, r0) from the
-// product: the LO is closed-form in (phase0 + n*step) mod 2^31, so nothing
-// sequential is needed. With the audio FIR HALO = 2K: those rows rebuild the
-// K-1 mixed rows the shaping FIR reads, the FM lag and the K-1 demod rows
-// the audio FIR reads. Without it HALO = K: K-1 mixed rows plus one shaped
-// row for the FM lag. Tile 0 takes chan_hist_i/q, demod_prev and audio_hist
-// from the carried state instead. The block that owns the last tile writes
-// the carries, with the JAX package's definitions: the last K-1 MIXED rows,
-// the last shaped row, the last K-1 demod rows. The power is written as
-// per-tile partial sums (each the fixed-order sum of the block's two row
-// halves) and reduced in tile order by a second kernel (no float atomics),
-// so the squelch gate is the same on every run.
+// 64 consecutive channels and one tile of rows [r0, r1). A tile with r0 > 0
+// starts HALO rows early and re-mixes rows [r0-HALO, r0) from the product:
+// the LO is closed-form in (phase0 + n*step) mod 2^31, so nothing sequential
+// is needed. With the audio FIR HALO = 2K: those rows rebuild the K-1 mixed
+// rows the shaping FIR reads, the FM lag and the K-1 demod rows the audio
+// FIR reads. Without it HALO = K: K-1 mixed rows plus one shaped row for the
+// FM lag. Halo chunks whose shaped rows nobody reads (the first half of the
+// halo) are only mixed. Tile 0 takes chan_hist_i/q, demod_prev and
+// audio_hist from the carried state instead. The block that owns the last
+// tile writes the carries, with the JAX package's definitions: the last K-1
+// MIXED rows, the last shaped row, the last K-1 demod rows. The power is
+// written as per-tile partial sums and reduced in tile order by a second
+// kernel (no float atomics), so the squelch gate is the same on every run.
+//
+// The body is made of self-contained warps. A warp owns WC = 16 of the
+// block's channels and both planes of them, and takes its rows in chunks of
+// S = 16 through every stage: mix -> shaping FIR -> demod -> demod ring ->
+// audio FIR. It shares nothing with the block's other warps but the
+// coefficient tables, so the chunk loop holds no block barrier (only
+// __syncwarp between a stage's stores and the next stage's loads), and the
+// SM's 12 warps drift into different stages and cover one another's
+// latencies: one warp's sincospif and FM polynomial run under another's
+// tensor-core chain. (As one block in lock step, three barriers a chunk,
+// the same arithmetic ran at a third of the issue rate.)
+//
+// Mix: lane (hm, cm) = (lane / 16, lane % 16) mixes rows 2r + hm of column
+// cm, r < 8: a warp's store is two whole ring rows. With the fast LO the
+// phasor of row n0 + hm is exact (sincospif of the integer phase) and the
+// rows after it are that phasor rotated by the exact phasors of 2, 4, ..,
+// 14 steps, held in registers for the whole tile: one sincospif a chunk
+// and lane, at most three float32 roundings (~2e-7) on each of sin and cos.
 //
 // The shaping FIR runs on the tensor cores, as mma.sync.m16n8k8 TF32 with
-// float32 accumulators, and the SIMT pipe keeps the LO, the mix, the demod
-// law, the audio FIR and (PFB) the filterbank product. Float32 accuracy is
-// held by a three-term split: every operand x is hi = tf32(x) (round to
-// nearest) and lo = x - hi cut to TF32, and the product is a_lo*b_hi +
-// a_hi*b_lo + a_hi*b_hi; what is dropped is at most 2^-22 of |a||b| per
-// term, which is float32 accuracy for a FIR whose output is of its terms'
-// size. The tensor cores round their accumulator toward zero, which would
-// bias a long chain, so a_hi*b_hi (10 accumulations) is kept apart from the
-// two small terms.
+// float32 accumulators. Float32 accuracy is held by a three-term split:
+// every operand x is hi = tf32(x) (round to nearest) and lo = x - hi cut to
+// TF32, and the product is a_lo*b_hi + a_hi*b_lo + a_hi*b_hi; what is
+// dropped is at most 2^-22 of |a||b| per term, which is float32 accuracy for
+// a FIR whose output is of its terms' size. The tensor cores round their
+// accumulator toward zero, which would bias a long chain, so a_hi*b_hi is
+// kept apart from the two small terms. The warp's mixed rows live in two
+// rings (I, Q) of K+S = 80 rows x 16 columns, five slots of 16 rows: a
+// chunk's new rows overwrite the oldest slot, nothing slides. The chunk's
+// shaped rows are Y[16, 16] = T[16, 80] . M[80, 16] per plane, T the banded
+// Toeplitz form of the one shared kernel (row r holds the reversed kernel
+// from column r+1; column 0 is padding). T is the same for every channel
+// and chunk: it is split once into a table in shared memory, from which a
+// k-step reads its four fragment values. The n-tile nt of a plane is the
+// columns 2g + nt, so one 8-byte load fetches a lane's B value for both
+// n-tiles; a ring row's column index is XORed by 8 on every second row
+// pair, which keeps those loads, the mix's row stores and the demod ring's
+// 16-byte stores free of bank conflicts without padding.
 //
-// The filterbank product stays on float32 FMAs, one chain per output in tap
-// order, because the raw-FM rule of the comparisons (PERF.md, section 2)
-// admits nothing else. A slot beside a strong carrier holds what the
-// stopband leaves of it, 1e-3 of the terms, so any two float32-accurate
-// sums of those terms differ by about 1e-6 of the slot's signal, and where
-// that signal passes near zero the FM angle moves by more than the bound:
-// on about 1e-4 of such a slot's samples, whichever way the other sum is
-// made. Measured on the tensor cores against the float32 matmul: a
-// three-term split (0.57 ms) crossed the branch cut on 1.09e-4 of the FM
-// samples of the fused-filterbank path; a six-term split, closer to the
-// exact product than the matmul is, still left 3 of 16,191 carried demod
-// samples above 1e-5 where one is allowed. The FMA chain in tap order is
-// what the plain version's matmul computes, so it agrees with it as the
-// packed path does.
+// Demod: straight from the accumulator fragments. A lane holds rows g and
+// g+8 of columns 4t..4t+3, I and Q; the FM lag (the row before) comes from
+// lane - 4 by shuffle, and across the chunk edge from the lane that holds
+// row 15, in a register. One instruction therefore demodulates the columns
+// 4t + cc, t < 4, of one cc: the warp orders its 16 channels so that those
+// four share a law (a stable sort by law, dealt round the four column
+// classes; the identity where the classes are uniform already, as with one
+// law on every slot or laws cycling with period 4), and the FM law's
+// division and polynomial run only where a class holds FM, with all lanes.
+// The lag shuffles run for every class: they cost less than a branch.
+// ops/tail_tm.law_sorted_columns is the same rule in Python. The power is
+// summed per lane over its rows in order and across the eight lanes of a
+// column by three XOR shuffles: a fixed order that depends on neither the
+// column a channel sits in nor the laws beside it.
 //
-// The shaping FIR: a block's 128 threads (4 warps) work through the tile in
-// chunks of S = 16 rows. The mixed rows live in two rings (I, Q) of K+S = 80
-// rows x 64 channels in shared memory, five slots of 16 rows: a chunk's new
-// rows overwrite the oldest slot, nothing slides. The chunk's shaped rows are
-// Y[16, 64] = T[16, 80] . M[80, 64] per plane, T the banded Toeplitz form of
-// the one shared kernel (row r holds the reversed kernel from column r+1;
-// column 0 is padding), so the band wastes 16 of 80 columns, not half the
-// depth as a 64-row tile would. T is the same for every channel and chunk:
-// its 22 distinct fragment values per thread are split once into registers.
-// M's fragments are read from the ring (an XOR swizzle of the channel index
-// by the row keeps both the fragment loads and the mix's row stores free of
-// bank conflicts without padding) and split as they are loaded. Warp w
-// makes plane w/2, channels (w%2)*32.. of it. The shaped rows go back to
-// shared memory, because the fragment layout is not one thread per channel,
-// and the rest of the body is: thread (h, ch) mixes, demodulates and sums
-// the power of rows h*8..h*8+7 of each chunk of channel ch, reading the FM
-// lag from the row before (the previous chunk's last row in a register).
-// The demod rows go to a third ring; thread h takes every second output of
-// the decimating audio FIR, a plain FMA chain over the ring column.
+// Audio FIR: the demod rows go to a third ring of 128 rows. At D = 5 (the
+// stock 240 -> 48 kHz) the decimating FIR runs on the tensor cores too, per
+// 40 rows: Out[16 channels, 8 outputs] = A[16, 104] . TA[104, 8], A the
+// ring's rows G-64..G+39 as stored and TA[j, o] = h_audio_rev[j - 5o - 1],
+// the banded form of the shared audio kernel with stride 5, pre-split in
+// shared memory (its fragments would take 54 registers); the same
+// three-term split with the three terms in three accumulators. A group runs
+// as soon as its last row is in the ring, so it trails the chunks by up to
+// 24 rows; a tile's first and last group are whole groups too (rows outside
+// the tile meet zeros of the band or feed outputs that are not stored).
+// Every other D keeps a SIMT loop, one FMA chain per output over the ring
+// column (plain rows there), two lanes a column taking every second output.
+// The launch picks by D alone.
 //
 // PFB: the product for 64 rows at a time, P[64, 128] = F[64, 2K_p] .
 // W[2K_p, 128] (the block's 64 I columns and 64 Q columns of the packed
-// weights, used as stored). Frames and weights are staged in slices of 16
-// taps through two shared-memory stages by cp.async (16 bytes a thread, the
-// next slice in flight while this one is multiplied). A thread keeps an
-// 8 x 8 patch of accumulators, 8 rows by the I and Q columns of 4 channels:
-// per tap it needs 8 frame samples and 8 weights from shared memory for 64
-// FMAs, a quarter of a word per FMA, which is what the shared-memory pipe
-// delivers beside the FMA pipe's full rate (a broadcast load costs its
-// lanes' words all the same, so a taller, narrower patch is bound by that
-// pipe). Loads are 16 bytes wide: four taps of a row's frames, four columns
-// of a tap's weights. P goes to shared memory (over the stages) and the mix
-// reads it per channel. Weights are re-read from L2 once per 64 rows. The
-// grid walks the time tiles fastest, so the blocks resident together share
-// a few channel groups' weight columns in L2.
+// weights, used as stored), made by the whole block between barriers.
+// Frames and weights are staged in slices of 16 taps through two
+// shared-memory stages by cp.async (16 bytes a thread, the next slice in
+// flight while this one is multiplied). A thread keeps an 8 x 8 patch of
+// accumulators, 8 rows by the I and Q columns of 4 channels: per tap it
+// needs 8 frame samples and 8 weights from shared memory for 64 FMAs, a
+// quarter of a word per FMA, which is what the shared-memory pipe delivers
+// beside the FMA pipe's full rate (a broadcast load costs its lanes' words
+// all the same, so a taller, narrower patch is bound by that pipe). Loads
+// are 16 bytes wide: four taps of a row's frames, four columns of a tap's
+// weights. P goes to shared memory (over the stages) and each warp's mix
+// reads its columns of it. Weights are re-read from L2 once per 64 rows.
+// The grid walks the time tiles fastest, so the blocks resident together
+// share a few channel groups' weight columns in L2. The product stays on
+// float32 FMAs, one chain per output in tap order, because the raw-FM rule
+// of the comparisons (PERF.md, section 2) admits nothing else: a slot
+// beside a strong carrier holds what the stopband leaves of it, 1e-3 of the
+// terms, so any two float32-accurate sums of those terms differ by about
+// 1e-6 of the slot's signal, and where that signal passes near zero the FM
+// angle moves by more than the bound. The FMA chain in tap order is what
+// the plain version's matmul computes, so it agrees with it as the packed
+// path does.
 //
 // What bounds them on the H100 (times and shares in PERF.md): the float32
 // operations bound of PERF.md counts the FIRs and the product at the SIMT
-// peak; with the shaping FIR on the tensor cores the body is bound by the
-// warp slots of what is left (the LO's sincospif, the demod law, the
-// fragment loads and splits, the audio FIR, three barriers a chunk), and
-// PFB by the FMA and shared-memory pipes of its product on top of that
-// (two blocks an SM, 8 warps, leave their latencies uncovered). AUDIO
-// takes 68 KB of shared memory a block and CHANRATE 48 KB (3 blocks an SM
-// either way: ~150 registers a thread allow no more), PFB 102 KB (2).
+// peak. With both FIRs on the tensor cores the body is bound by the tensor
+// pipe as mma.sync drives it: a warp issues 120 m16n8k8 TF32 mma a chunk
+// for the shaping FIR and 31 for the audio FIR, and a third more of them
+// cost a fifth more time (measured), about 12 cycles each on its SM
+// sub-core, a third of the card's TF32 peak. The three terms are the price
+// of float32 accuracy and the band wastes 16 of 80 columns; what is left
+// is wgmma, whose 64-row tiles waste half a band. Beside the tensor pipe
+// sit the warp issue slots of what feeds it (ring loads and integer splits,
+// about half of a chunk's ~1,000 instructions a warp), the LO and the FM
+// law, at 12 warps an SM: AUDIO takes 72 KB of shared memory a block (3
+// blocks an SM fill its 227 KB; ~150 registers a thread), CHANRATE 40 KB,
+// PFB 106 KB (2 blocks; its product's FMA and shared-memory pipes come on
+// top). At C=1,024 the main path has 256 blocks for 396 places.
 //
 // Precision: every FIR tier ("highest", "hx5", "hx4", "high") is computed
 // as the three-term split-TF32 product, which holds the float32 bounds.
@@ -113,15 +149,24 @@ namespace {
 
 constexpr int K = 64;       // taps of the shaping and the audio FIR
 constexpr int NC = 64;      // channels per block
-constexpr int NTHR = 128;   // threads per block: two per channel, four warps
+constexpr int NTHR = 128;   // threads per block: four warps
+constexpr int NWARP = NTHR / 32;
+constexpr int WC = NC / NWARP;  // channels per warp: two mma n-tiles
 constexpr int S = 16;       // rows per chunk: one mma m-tile
-constexpr int HR = S / 2;   // rows per thread per chunk
+constexpr int HR = S / 2;   // rows per lane per chunk in the mix
 constexpr int WIN = K + S;  // ring rows: the chunk and the K rows before it
 constexpr int NSLOT = WIN / S;
 constexpr int KSTEPS = WIN / 8;    // mma k-steps over the ring
-constexpr int NBAND = 2 * KSTEPS + 2;  // distinct band fragment values
 constexpr int BAND_PAD = 16;       // leading zeros of the band table
 constexpr int BAND_TAB = 96;       // table length: reads reach index 94
+constexpr int ARING = 128;         // demod ring rows (a power of two)
+// the audio FIR on the tensor cores
+constexpr int AD = 5;              // the decimation it is built for
+constexpr int AOUT = 8;            // outputs per group: one mma n-tile
+constexpr int AGROUP = AD * AOUT;  // rows per group
+constexpr int AKSTEPS = (K + AGROUP) / 8;  // k-steps over rows G-K..G+39
+constexpr int ATAB_PAD = AD * (AOUT - 1) + 1;  // leading zeros of its table
+constexpr int ATAB = 144;          // table length: reads reach index 138
 // the in-kernel filterbank product
 constexpr int PM = 64;             // rows per product group (4 chunks)
 constexpr int KS = 16;             // taps per staged slice
@@ -135,6 +180,7 @@ constexpr int PFB_FLOATS =
 enum Kind { AUDIO = 0, CHANRATE = 1, PFB = 2 };
 
 constexpr uint32_t TF32_MASK = 0xFFFFE000u;  // sign, exponent, 10 bits
+constexpr uint32_t FULL = 0xFFFFFFFFu;
 
 // hi = x rounded to the nearest TF32 value (ties away from zero, what
 // cvt.rna.tf32.f32 gives; in integer operations, because the conversion
@@ -167,22 +213,21 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
                : "memory");
 }
 
-// float index of (row, col) in a [rows][NC] shared-memory plane whose
-// channel index is XOR-swizzled by the row: a B fragment (4 rows x 8
-// channels a load), a row store (32 channels of one row) and an
-// accumulator store (float2 at even columns of 8 rows) all touch 32
-// distinct banks
+// float index of (row, col) in a warp's [rows][WC] shared-memory plane:
+// the column index is XORed by 8 on every second row pair. A fragment load
+// (4 rows x 8 column pairs, 8 bytes a lane), the mix's store (two rows) and
+// the demod ring's store (16 bytes a lane) then touch each bank once
 __device__ __forceinline__ int swz(int row, int col) {
-  return row * NC + (col ^ ((row & 3) << 3));
+  return row * WC + (col ^ (((row >> 1) & 1) << 3));
 }
 
 // xa/xb are the I and Q product planes addressed as x[n * row_stride + c]
 // (AUDIO, CHANRATE), or the frames [nd, row_stride] and the packed weights
 // [row_stride, 2C] (PFB, row_stride = 2K_p). out is audio48 [nd/D, C], or
 // the channel-rate audio [nd, C] (CHANRATE, which reads no h_audio/ahist0
-// and writes no ahist).
-template <bool FAST, int KIND>
-__global__ void __launch_bounds__(NTHR)
+// and writes no ahist). TCA: the audio FIR on the tensor cores (D == AD).
+template <bool FAST, int KIND, bool TCA>
+__global__ void __launch_bounds__(NTHR, KIND == PFB ? 2 : 3)
 tail_tm_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
                long long row_stride,
                const long long* __restrict__ phase0,
@@ -203,122 +248,205 @@ tail_tm_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
   constexpr int HALO = HAS_AUDIO_FIR ? 2 * K : K;
   // rows per pass of the outer loop: a product group, or one chunk
   constexpr int GROUP = KIND == PFB ? PM : S;
+  constexpr int RING_FLOATS = 2 * NWARP * WIN * WC;
+  constexpr int ARING_FLOATS = HAS_AUDIO_FIR ? NWARP * ARING * WC : 0;
   extern __shared__ __align__(16) float smem[];
-  float* const ring_i = smem;                    // mixed I [WIN][NC] swizzled
-  float* const ring_q = ring_i + WIN * NC;       // mixed Q
-  float* const ys = ring_q + WIN * NC;           // shaped [2][S][NC] swizzled
-  float* const ba = ys + 2 * S * NC;             // demod audio ring [WIN][NC]
-  // PFB: two slice stages, then the product [PM][LDP] over them
-  float* const stage = ba + (HAS_AUDIO_FIR ? WIN * NC : 0);
   __shared__ uint32_t band_hi[BAND_TAB], band_lo[BAND_TAB];
-  __shared__ __align__(16) float ha[K];  // reversed audio kernel
-  __shared__ float psum[NC];  // the second row half's power sum
+  __shared__ uint32_t atab_hi[TCA ? ATAB : 1], atab_lo[TCA ? ATAB : 1];
+  __shared__ float ha[TCA ? 1 : K];  // the SIMT audio FIR's reversed kernel
+  __shared__ int colch[NC];  // [warp][column] -> the warp's channel there
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int g = lane >> 2;  // mma fragment row group
-  const int t = lane & 3;   // mma fragment thread in group
-  const int ch = tid & (NC - 1);
-  const int h = tid >> 6;   // row half: warps 0, 1 / warps 2, 3
+  const int g = lane >> 2;   // mma fragment row group
+  const int t = lane & 3;    // mma fragment thread in group
+  const int hm = lane >> 4;  // mix: row parity
+  const int cm = lane & 15;  // mix: column
+  // the warp's planes: mixed I and Q [WIN][WC], demod audio [ARING][WC]
+  float* const ring_i = smem + warp * (WIN * WC);
+  float* const ring_q = ring_i + NWARP * WIN * WC;
+  float* const ba = smem + RING_FLOATS + warp * (ARING * WC);
+  // PFB: two slice stages, then the product [PM][LDP] over them
+  float* const stage = smem + RING_FLOATS + ARING_FLOATS;
   // PFB walks the time tiles fastest: the blocks resident together then
   // share a few channel groups' weight columns, which stay in L2
   const int c0 = (KIND == PFB ? blockIdx.y : blockIdx.x) * NC;
-  const int c = c0 + ch;
+  const int cw = c0 + warp * WC;  // the warp's first channel
   const int tile = KIND == PFB ? blockIdx.x : blockIdx.y;
   const int r0 = tile * tile_rows;
   const int r1 = min(r0 + tile_rows, nd);
 
   // ---- tables and rings. The band table holds the reversed shaping kernel
-  // between zeros, split: band[i] = h_shape[i - BAND_PAD]
+  // between zeros, split: band[i] = h_shape[i - BAND_PAD]; the audio table
+  // likewise, atab[i] = h_audio[i - ATAB_PAD]
   for (int i = tid; i < BAND_TAB; i += NTHR) {
     const float v =
         (i >= BAND_PAD && i < BAND_PAD + K) ? h_shape[i - BAND_PAD] : 0.0f;
     split_tf32(v, band_hi[i], band_lo[i]);
   }
-  if (HAS_AUDIO_FIR) {
+  if (TCA) {
+    for (int i = tid; i < ATAB; i += NTHR) {
+      const float v =
+          (i >= ATAB_PAD && i < ATAB_PAD + K) ? h_audio[i - ATAB_PAD] : 0.0f;
+      split_tf32(v, atab_hi[i], atab_lo[i]);
+    }
+  } else if (HAS_AUDIO_FIR) {
     for (int k = tid; k < K; k += NTHR) ha[k] = h_audio[k];
   }
-  // zeros everywhere: a halo tile's rows before the halo are never read by
-  // an emitted output, but the band's padding column multiplies one of them
-  // by zero, so it has to be finite
-  for (int i = tid; i < (HAS_AUDIO_FIR ? 3 : 2) * WIN * NC + 2 * S * NC;
-       i += NTHR) {
-    smem[i] = 0.0f;
+  // the demod ring is swizzled for the tensor-core form's fragment loads;
+  // the SIMT loop walks a column of plain rows
+  auto aswz = [](int row, int col) {
+    return TCA ? swz(row, col) : row * WC + col;
+  };
+  // zeros everywhere: rows that no emitted output reads still meet zeros of
+  // the bands, so they have to be finite
+  for (int i = tid; i < RING_FLOATS + ARING_FLOATS; i += NTHR) smem[i] = 0.0f;
+
+  // ---- the warp's column order: channel j of the warp (lanes j and j+16)
+  // goes to column `col`. Stable position `pos` by law, then dealt round the
+  // four column classes (class cc = columns 4t + cc); the identity where
+  // every class is uniform as the channels stand
+  bool ident;
+  {
+    const int m = mode[cw + cm];
+    const int key = static_cast<unsigned>(m) > 3u ? 3 : m;
+    int below = 0;
+    uint32_t same = 0;
+#pragma unroll
+    for (int law = 0; law < 4; ++law) {
+      const uint32_t b = __ballot_sync(FULL, key == law) & 0xFFFFu;
+      if (law < key) below += __popc(b);
+      if (law == key) same = b;
+    }
+    ident = __all_sync(FULL, key == __shfl_sync(FULL, key, lane & 3));
+    const int pos = below + __popc(same & ((1u << cm) - 1u));
+    const int col = ident ? cm : 4 * (pos & 3) + (pos >> 2);
+    if (lane < WC) colch[warp * WC + col] = cm;
   }
   __syncthreads();
 
-  const uint32_t p0 = static_cast<uint32_t>(phase0[c]);
-  const uint32_t st = static_cast<uint32_t>(step[c]);
-  const int md = mode[c];
+  // mix role: column cm holds channel c_mix
+  const int c_mix = cw + colch[warp * WC + cm];
+  const uint32_t p0 = static_cast<uint32_t>(phase0[c_mix]);
+  const uint32_t st = static_cast<uint32_t>(step[c_mix]);
+  // demod role: columns 4t..4t+3
+  int chd[4], md[4];
+#pragma unroll
+  for (int cc = 0; cc < 4; ++cc) {
+    chd[cc] = cw + colch[warp * WC + 4 * t + cc];
+    md[cc] = mode[chd[cc]];
+  }
+  // lane offset of a fragment load: row t (and t + 4) of eight rows, the
+  // column pair 2g, 2g+1
+  const int frag = swz(t, 2 * g);
 
-  // FAST: the LO of a thread's HR consecutive rows is the exact phasor of
-  // the first row times the exact phasors of 0..HR-1 steps (held in
-  // registers for the whole tile): one sincospif a chunk instead of HR,
-  // and at most three float32 roundings (~2e-7) on each of sin and cos
+  // FAST: the LO of a lane's rows n0 + hm + 2r is the exact phasor of row
+  // n0 + hm times the exact phasors of 2r steps (in registers for the whole
+  // tile)
   float rot_s[HR], rot_c[HR];
   if (FAST) {
 #pragma unroll
     for (int r = 0; r < HR; ++r)
-      lo_sincos<true>(0u, st, r, &rot_s[r], &rot_c[r]);
+      lo_sincos<true>(0u, st, 2 * r, &rot_s[r], &rot_c[r]);
   }
 
-  // The first chunk writes slot 0; its window row j (row n0 - K + j of the
-  // stream, j < K) is ring row S + j
-  float lag_i = 0.0f, lag_q = 0.0f;
+  // Chunk n0 sits in ring slot (n0 / S) mod NSLOT; its window row j (row
+  // n0 - K + j of the stream) is in slot cur + 1 + j / S. Demod row n sits
+  // in ring row n mod ARING
+  float lag_i[4], lag_q[4];  // lanes g == 0: the shaped row before the chunk
+#pragma unroll
+  for (int cc = 0; cc < 4; ++cc) lag_i[cc] = lag_q[cc] = 0.0f;
   int start;
   if (r0 == 0) {
     // block-carried state: rows -(K-1)..-1 of the mixed and demod streams
-    for (int j = h; j < K - 1; j += 2) {
-      ring_i[swz(S + 1 + j, ch)] = hist_i0[(size_t)j * C + c];
-      ring_q[swz(S + 1 + j, ch)] = hist_q0[(size_t)j * C + c];
-      if (HAS_AUDIO_FIR) ba[(S + 1 + j) * NC + ch] = ahist0[(size_t)j * C + c];
+    for (int j = hm; j < K - 1; j += 2) {
+      ring_i[swz(S + 1 + j, cm)] = hist_i0[(size_t)j * C + c_mix];
+      ring_q[swz(S + 1 + j, cm)] = hist_q0[(size_t)j * C + c_mix];
+      if (HAS_AUDIO_FIR)
+        ba[aswz(ARING - (K - 1) + j, cm)] = ahist0[(size_t)j * C + c_mix];
     }
-    lag_i = prev0[c];
-    lag_q = prev0[C + c];
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) {
+      lag_i[cc] = prev0[chd[cc]];
+      lag_q[cc] = prev0[C + chd[cc]];
+    }
     start = 0;
   } else {
     // halo recompute: mixed rows from r0-HALO make shaped rows valid from
     // r0-HALO+K-1. Without the audio FIR (HALO = K) that is row r0-1, the
     // FM lag of row r0. With it (HALO = 2K) demod rows are valid from
-    // r0-K, which covers the audio FIR's K-1 rows before r0
+    // r0-K+1, the audio FIR's K-1 rows before r0
     start = r0 - HALO;
   }
+  // chunks before this row are only mixed: nobody reads their shaped rows
+  const int fir_from = r0 - (HAS_AUDIO_FIR ? K : S);
 
   // ---- the band's fragment values. Band element (r, j) is
-  // band[j - r - 1 + BAND_PAD]; over the k-steps a thread's a0..a3 take 22
-  // distinct values e[m] = band[4m + t - g + 7]: k-step kk uses
-  // a0 = e[2kk+2], a1 = e[2kk], a2 = e[2kk+3], a3 = e[2kk+1]
-  uint32_t eh[NBAND], el[NBAND];
-  auto load_band = [&]() {
+  // band[j - r - 1 + BAND_PAD], so k-step kk takes a0 (g, 8kk + t) =
+  // band[8kk + band_at + 8], a1 (g + 8, ..) = band[8kk + band_at], a2 =
+  // band[8kk + band_at + 12], a3 = band[8kk + band_at + 4]: 22 distinct
+  // values a thread, read from the split table at every k-step (in
+  // registers they cost 44, and with them the body spilled at the 168 that
+  // three blocks an SM leave a thread)
+  const int band_at = t - g + 7;
+
+  // ---- one group of the tensor-core audio FIR: outputs at rows G + 5o,
+  // o < 8, of the warp's 16 channels, from demod rows G-K..G+39 (row G-K
+  // meets the band's padding column). A[m, j]: channel column 2(m % 8) +
+  // m / 8, ring row G - K + j; B[j, o] = atab[j - 5o - 1 + ATAB_PAD]
+  const int atab_at = t - AD * g - 1 + ATAB_PAD;
+  auto audio_group = [&](int G) {
+    float d_hh[4], d_lh[4], d_hl[4];
 #pragma unroll
-    for (int m = 0; m < NBAND; ++m) {
-      eh[m] = band_hi[4 * m + t - g + 7];
-      el[m] = band_lo[4 * m + t - g + 7];
+    for (int i = 0; i < 4; ++i) d_hh[i] = d_lh[i] = d_hl[i] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < AKSTEPS; ++kk) {
+      const float* const p =
+          ba + ((G - K + 8 * kk) & (ARING - 1)) * WC + frag;
+      const float2 v0 = *reinterpret_cast<const float2*>(p);
+      const float2 v1 = *reinterpret_cast<const float2*>(p + 4 * WC);
+      uint32_t ah[4], al[4];
+      split_tf32(v0.x, ah[0], al[0]);
+      split_tf32(v0.y, ah[1], al[1]);
+      split_tf32(v1.x, ah[2], al[2]);
+      split_tf32(v1.y, ah[3], al[3]);
+      const uint32_t b0h = atab_hi[atab_at + 8 * kk];
+      const uint32_t b1h = atab_hi[atab_at + 8 * kk + 4];
+      const uint32_t b0l = atab_lo[atab_at + 8 * kk];
+      const uint32_t b1l = atab_lo[atab_at + 8 * kk + 4];
+      mma_tf32(d_lh, al[0], al[1], al[2], al[3], b0h, b1h);
+      mma_tf32(d_hh, ah[0], ah[1], ah[2], ah[3], b0h, b1h);
+      mma_tf32(d_hl, ah[0], ah[1], ah[2], ah[3], b0l, b1l);
+    }
+    // d0, d1: channel column 2g, outputs 2t, 2t+1; d2, d3: column 2g+1
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = G + AD * (2 * t + (i & 1));
+      if (row >= r0 && row < r1) {
+        const int ch = cw + colch[warp * WC + 2 * g + (i >> 1)];
+        out[(size_t)(row / AD) * C + ch] = (d_lh[i] + d_hl[i]) + d_hh[i];
+      }
     }
   };
-  if (KIND != PFB) load_band();
+  int ag = (r0 / AGROUP) * AGROUP;  // the next audio group's first row
 
-  // the shaping FIR's share of this warp: one plane, four 8-channel tiles
-  const float* const ring_p = (warp >> 1) ? ring_q : ring_i;
-  float* const ys_p = ys + (warp >> 1) * S * NC;
-  const int ntb = (warp & 1) * 4;
-
-  // product rows of the current chunk, this thread's HR rows, in registers.
-  // AUDIO and CHANRATE load them from the product, the next chunk's before
-  // this chunk's arithmetic so their latency hides; PFB reads them from the
-  // group's product in shared memory
+  // product rows of the current chunk, this lane's rows 2r + hm of column
+  // cm, in registers. AUDIO and CHANRATE load them from the product, the
+  // next chunk's while this chunk is demodulated so their latency hides;
+  // PFB reads them from the group's product in shared memory
   float cxi[HR], cxq[HR];
-  if (KIND != PFB) {
+  auto load_rows = [&](int n) {
 #pragma unroll
     for (int r = 0; r < HR; ++r) {
-      cxi[r] = xa[(size_t)(start + h * HR + r) * row_stride + c];
-      cxq[r] = xb[(size_t)(start + h * HR + r) * row_stride + c];
+      cxi[r] = xa[(size_t)(n + 2 * r + hm) * row_stride + c_mix];
+      cxq[r] = xb[(size_t)(n + 2 * r + hm) * row_stride + c_mix];
     }
-  }
+  };
+  if (KIND != PFB) load_rows(start);
 
-  float pacc = 0.0f;
-  int cur = 0;  // ring slot of the current chunk
+  float pacc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  int cur = (start / S) % NSLOT;  // ring slot of the current chunk
   for (int g0 = start; g0 < r1; g0 += GROUP) {
     if (KIND == PFB) {
       // ---- filterbank product for rows g0..g0+PM-1 on float32 FMAs, one
@@ -356,6 +484,8 @@ tail_tm_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
         asm volatile("cp.async.commit_group;" ::: "memory");
       };
 
+      // every warp has mixed the last group's product out of the stages
+      __syncthreads();
       load_slice(0, 0);
       for (int s = 0; s < n_slices; ++s) {
         asm volatile("cp.async.wait_group 0;" ::: "memory");
@@ -407,222 +537,242 @@ tail_tm_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
             make_float4(acc[r][4], acc[r][5], acc[r][6], acc[r][7]);
       }
       __syncthreads();
-      load_band();
     }
 
     for (int n0 = g0; n0 < g0 + GROUP; n0 += S) {
-      float nxi[HR], nxq[HR];
       if (KIND == PFB) {
-        const float* const pp = stage + (n0 - g0 + h * HR) * LDP + ch;
+        const float* const pp =
+            stage + (n0 - g0 + hm) * LDP + (c_mix - c0);
 #pragma unroll
         for (int r = 0; r < HR; ++r) {
-          cxi[r] = pp[r * LDP];
-          cxq[r] = pp[r * LDP + NC];
-        }
-      } else {
-        const int next = n0 + S < r1 ? n0 + S : n0;  // last chunk: unused
-#pragma unroll
-        for (int r = 0; r < HR; ++r) {
-          nxi[r] = xa[(size_t)(next + h * HR + r) * row_stride + c];
-          nxq[r] = xb[(size_t)(next + h * HR + r) * row_stride + c];
+          cxi[r] = pp[2 * r * LDP];
+          cxq[r] = pp[2 * r * LDP + NC];
         }
       }
 
-      // ---- residual NCO mix: this thread's rows into the ring's current
+      // ---- residual NCO mix: this lane's rows into the ring's current
       // slot
-      float s0 = 0.0f, co0 = 1.0f;
-      if (FAST) lo_sincos<true>(p0, st, n0 + h * HR, &s0, &co0);
-#pragma unroll
-      for (int r = 0; r < HR; ++r) {
-        float s, co;
-        if (FAST) {
-          s = s0 * rot_c[r] + co0 * rot_s[r];
-          co = co0 * rot_c[r] - s0 * rot_s[r];
-        } else {
-          lo_sincos<false>(p0, st, n0 + h * HR + r, &s, &co);
-        }
-        const int at = swz(cur * S + h * HR + r, ch);
-        ring_i[at] = cxi[r] * co + cxq[r] * s;
-        ring_q[at] = cxq[r] * co - cxi[r] * s;
-      }
-      __syncthreads();
-
-      // ---- shaping FIR on the tensor cores: window row j is stream row
-      // n0 - K + j; rows 16jb..16jb+15 sit in slot cur+1+jb (mod NSLOT),
-      // the chunk itself (jb = NSLOT-1) in slot cur
       {
-        float am[4][4], ac[4][4];  // a_hi b_hi apart from the small terms
+        float s0 = 0.0f, co0 = 1.0f;
+        if (FAST) lo_sincos<true>(p0, st, n0 + hm, &s0, &co0);
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
+        for (int r = 0; r < HR; ++r) {
+          float s, co;
+          if (FAST) {
+            s = s0 * rot_c[r] + co0 * rot_s[r];
+            co = co0 * rot_c[r] - s0 * rot_s[r];
+          } else {
+            lo_sincos<false>(p0, st, n0 + 2 * r + hm, &s, &co);
+          }
+          // swz(): row 2r + hm of a slot, so the XOR bit is r's lowest
+          const int at = (cur * S + 2 * r + hm) * WC + (cm ^ ((r & 1) << 3));
+          ring_i[at] = cxi[r] * co + cxq[r] * s;
+          ring_q[at] = cxq[r] * co - cxi[r] * s;
+        }
+      }
+      __syncwarp();
+
+      const bool shaped = n0 >= fir_from;  // uniform over the block
+      float y_i[4][2], y_q[4][2];  // [column 4t + cc][row g, row g + 8]
+      if (shaped) {
+        // ---- shaping FIR on the tensor cores: window row j is stream row
+        // n0 - K + j; rows 16jb..16jb+15 sit in slot cur+1+jb (mod NSLOT),
+        // the chunk itself (jb = NSLOT-1) in slot cur. Tile (plane p,
+        // n-tile nt) is index 2p + nt; a_hi b_hi apart from the small terms
+        float am[4][4], ac[4][4];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) am[nt][i] = ac[nt][i] = 0.0f;
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) am[q][i] = ac[q][i] = 0.0f;
 #pragma unroll
         for (int kk = 0; kk < KSTEPS; ++kk) {
           int slot = cur + 1 + (kk >> 1);
           if (slot >= NSLOT) slot -= NSLOT;
-          const int row = slot * S + (kk & 1) * 8 + t;
+          const int at = (slot * S + (kk & 1) * 8) * WC + frag;
+          const float2 vi0 = *reinterpret_cast<const float2*>(ring_i + at);
+          const float2 vi1 =
+              *reinterpret_cast<const float2*>(ring_i + at + 4 * WC);
+          const float2 vq0 = *reinterpret_cast<const float2*>(ring_q + at);
+          const float2 vq1 =
+              *reinterpret_cast<const float2*>(ring_q + at + 4 * WC);
+          const uint32_t* const eh = band_hi + 8 * kk + band_at;
+          const uint32_t* const el = band_lo + 8 * kk + band_at;
           uint32_t bh[4][2], bl[4][2];
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt) {
-            const int col = (ntb + nt) * 8 + g;
-            split_tf32(ring_p[swz(row, col)], bh[nt][0], bl[nt][0]);
-            split_tf32(ring_p[swz(row + 4, col)], bh[nt][1], bl[nt][1]);
-          }
-          // term by term over the four n-tiles, so consecutive mma do not
+          split_tf32(vi0.x, bh[0][0], bl[0][0]);
+          split_tf32(vi1.x, bh[0][1], bl[0][1]);
+          split_tf32(vi0.y, bh[1][0], bl[1][0]);
+          split_tf32(vi1.y, bh[1][1], bl[1][1]);
+          split_tf32(vq0.x, bh[2][0], bl[2][0]);
+          split_tf32(vq1.x, bh[2][1], bl[2][1]);
+          split_tf32(vq0.y, bh[3][0], bl[3][0]);
+          split_tf32(vq1.y, bh[3][1], bl[3][1]);
+          // term by term over the four tiles, so consecutive mma do not
           // wait on one another's accumulator
 #pragma unroll
-          for (int nt = 0; nt < 4; ++nt)
-            mma_tf32(ac[nt], el[2 * kk + 2], el[2 * kk], el[2 * kk + 3],
-                     el[2 * kk + 1], bh[nt][0], bh[nt][1]);
+          for (int q = 0; q < 4; ++q)
+            mma_tf32(ac[q], el[8], el[0], el[12], el[4], bh[q][0], bh[q][1]);
 #pragma unroll
-          for (int nt = 0; nt < 4; ++nt)
-            mma_tf32(am[nt], eh[2 * kk + 2], eh[2 * kk], eh[2 * kk + 3],
-                     eh[2 * kk + 1], bh[nt][0], bh[nt][1]);
+          for (int q = 0; q < 4; ++q)
+            mma_tf32(am[q], eh[8], eh[0], eh[12], eh[4], bh[q][0], bh[q][1]);
 #pragma unroll
-          for (int nt = 0; nt < 4; ++nt)
-            mma_tf32(ac[nt], eh[2 * kk + 2], eh[2 * kk], eh[2 * kk + 3],
-                     eh[2 * kk + 1], bl[nt][0], bl[nt][1]);
+          for (int q = 0; q < 4; ++q)
+            mma_tf32(ac[q], eh[8], eh[0], eh[12], eh[4], bl[q][0], bl[q][1]);
         }
+        // fragment (nt, i) is row g + 8(i / 2) of column 2(2t + i % 2) + nt
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const int col = (ntb + nt) * 8 + 2 * t;
-          *reinterpret_cast<float2*>(ys_p + swz(g, col)) =
-              make_float2(am[nt][0] + ac[nt][0], am[nt][1] + ac[nt][1]);
-          *reinterpret_cast<float2*>(ys_p + swz(g + 8, col)) =
-              make_float2(am[nt][2] + ac[nt][2], am[nt][3] + ac[nt][3]);
-        }
-      }
-      __syncthreads();
-
-      // ---- demod of this thread's rows: the law switch sits outside the
-      // row loop, so each law's rows interleave; the FM lag is the previous
-      // row's shaped sample
-      float yi[HR + 1], yq[HR + 1];  // [0] is the row before
+        for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-      for (int r = 0; r < HR; ++r) {
-        yi[r + 1] = ys[swz(h * HR + r, ch)];
-        yq[r + 1] = ys[S * NC + swz(h * HR + r, ch)];
-      }
-      yi[0] = h ? ys[swz(HR - 1, ch)] : lag_i;
-      yq[0] = h ? ys[S * NC + swz(HR - 1, ch)] : lag_q;
-      lag_i = ys[swz(S - 1, ch)];
-      lag_q = ys[S * NC + swz(S - 1, ch)];
-      float a[HR];
-      switch (md) {
-        case 0:  // AM
-#pragma unroll
-          for (int r = 1; r <= HR; ++r)
-            a[r - 1] = sqrtf(yi[r] * yi[r] + yq[r] * yq[r]);
-          break;
-        case 1:  // FM
-#pragma unroll
-          for (int r = 1; r <= HR; ++r)
-            a[r - 1] = fm_law(yi[r], yq[r], yi[r - 1], yq[r - 1]);
-          break;
-        case 2:  // USB
-#pragma unroll
-          for (int r = 1; r <= HR; ++r) a[r - 1] = yi[r] + yq[r];
-          break;
-        default:  // LSB
-#pragma unroll
-          for (int r = 1; r <= HR; ++r) a[r - 1] = yi[r] - yq[r];
-          break;
-      }
-      // chunks start at r0 - HALO + a multiple of S and HALO is a multiple
-      // of S, so a chunk lies wholly before r0 or wholly from it on
-      if (n0 >= r0) {
-#pragma unroll
-        for (int r = 1; r <= HR; ++r) pacc += yi[r] * yi[r] + yq[r] * yq[r];
-      }
-
-      if (HAS_AUDIO_FIR) {
-#pragma unroll
-        for (int r = 0; r < HR; ++r)
-          ba[(cur * S + h * HR + r) * NC + ch] = a[r];
-        __syncthreads();
-        // ---- decimating audio FIR: outputs m*D in [max(n0, r0), n0 + S),
-        // every second one this thread's. Output n0 + o reads window rows
-        // o+1..o+K of the demod ring, which wrap once at ring row WIN
-        const int first = max(n0, r0);
-        const int lim = min(n0 + S, r1);
-        for (int nn = ((first + D - 1) / D) * D; nn < lim; nn += D) {
-          if (((nn / D) & 1) != h) continue;
-          int at = (cur + 1) * S + (nn - n0) + 1;
-          if (at >= WIN) at -= WIN;
-          // taps four at a time (one 16-byte load); the one group that
-          // straddles the wrap picks each row's side
-          const float* const col = ba + ch;
-          const float4* const ha4 = reinterpret_cast<const float4*>(ha);
-          const int kb = min(K, WIN - at) >> 2;  // whole groups before it
-          float acc0 = 0.0f, acc1 = 0.0f, acc2 = 0.0f, acc3 = 0.0f;
-          const float* p = col + at * NC;
-#pragma unroll 4
-          for (int k4 = 0; k4 < kb; ++k4) {
-            const float4 hv = ha4[k4];
-            acc0 += hv.x * p[0];
-            acc1 += hv.y * p[NC];
-            acc2 += hv.z * p[2 * NC];
-            acc3 += hv.w * p[3 * NC];
-            p += 4 * NC;
+          for (int i = 0; i < 4; ++i) {
+            y_i[2 * (i & 1) + nt][i >> 1] = am[nt][i] + ac[nt][i];
+            y_q[2 * (i & 1) + nt][i >> 1] = am[2 + nt][i] + ac[2 + nt][i];
           }
-          if (kb < K / 4) {
-            const float4 hv = ha4[kb];
-            const int row = at + 4 * kb;  // WIN-3..WIN
-            acc0 += hv.x * col[(row >= WIN ? row - WIN : row) * NC];
-            acc1 += hv.y * col[(row + 1 >= WIN ? row + 1 - WIN : row + 1) * NC];
-            acc2 += hv.z * col[(row + 2 >= WIN ? row + 2 - WIN : row + 2) * NC];
-            acc3 += hv.w * col[(row + 3 - WIN) * NC];
-            p = col + (row + 4 - WIN) * NC;
+      }
+
+      // the next chunk's product rows, in flight during the demod
+      if (KIND != PFB) load_rows(n0 + S < r1 ? n0 + S : n0);
+
+      if (shaped) {
+        // ---- demod from the fragments. The row before row g (g + 8) is
+        // lane - 4's row g (g + 8) value; for the lanes g == 0 it is the
+        // carried lag (row 7, which the lanes g == 7 hold as their row g)
+        const int before = (lane + 28) & 31;
+        float a[4][2];
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc) {
+          const float yi0 = y_i[cc][0], yq0 = y_q[cc][0];
+          const float yi1 = y_i[cc][1], yq1 = y_q[cc][1];
+          // lanes g == 0 receive row 7 and row 15, the next chunk's lag.
+          // (Skipping the shuffles in a warp that holds no FM slot made the
+          // body slower, not faster.)
+          const float u0i = __shfl_sync(FULL, yi0, before);
+          const float u0q = __shfl_sync(FULL, yq0, before);
+          const float u1i = __shfl_sync(FULL, yi1, before);
+          const float u1q = __shfl_sync(FULL, yq1, before);
+          const float pi0 = g ? u0i : lag_i[cc];
+          const float pq0 = g ? u0q : lag_q[cc];
+          const float pi1 = g ? u1i : u0i;
+          const float pq1 = g ? u1q : u0q;
+          lag_i[cc] = u1i;
+          lag_q[cc] = u1q;
+          switch (md[cc]) {
+            case 0:  // AM
+              a[cc][0] = sqrtf(yi0 * yi0 + yq0 * yq0);
+              a[cc][1] = sqrtf(yi1 * yi1 + yq1 * yq1);
+              break;
+            case 1:  // FM
+              a[cc][0] = fm_law(yi0, yq0, pi0, pq0);
+              a[cc][1] = fm_law(yi1, yq1, pi1, pq1);
+              break;
+            case 2:  // USB
+              a[cc][0] = yi0 + yq0;
+              a[cc][1] = yi1 + yq1;
+              break;
+            default:  // LSB
+              a[cc][0] = yi0 - yq0;
+              a[cc][1] = yi1 - yq1;
+              break;
+          }
+          // chunks start at r0 - HALO + a multiple of S and HALO is a
+          // multiple of S, so a chunk lies wholly before r0 or from it on
+          if (n0 >= r0) {
+            pacc[cc] += yi0 * yi0 + yq0 * yq0;
+            pacc[cc] += yi1 * yi1 + yq1 * yq1;
+          }
+        }
+
+        if (HAS_AUDIO_FIR) {
+          // rows n0 + g and n0 + g + 8 of columns 4t..4t+3
+          float* const p = ba + aswz((n0 + g) & (ARING - 1), 4 * t);
+          *reinterpret_cast<float4*>(p) =
+              make_float4(a[0][0], a[1][0], a[2][0], a[3][0]);
+          *reinterpret_cast<float4*>(p + 8 * WC) =
+              make_float4(a[0][1], a[1][1], a[2][1], a[3][1]);
+          __syncwarp();
+          if (TCA) {
+            // ---- decimating audio FIR, every group whose rows are in
+            while (ag + AGROUP <= n0 + S) {
+              audio_group(ag);
+              ag += AGROUP;
+            }
+          } else {
+            // ---- decimating audio FIR: outputs m*D in [max(n0, r0),
+            // n0 + S), every second one this lane's. Output nn reads demod
+            // rows nn-K+1..nn of column cm
+            // rows nn-K+1..nn of column cm; they wrap at most once
+            const int first = max(n0, r0);
+            const int lim = min(n0 + S, r1);
+            for (int nn = ((first + D - 1) / D) * D; nn < lim; nn += D) {
+              if (((nn / D) & 1) != hm) continue;
+              const int row = (nn - (K - 1)) & (ARING - 1);
+              const int k1 = min(K, ARING - row);  // taps before the wrap
+              const float* p = ba + row * WC + cm;
+              float acc = 0.0f;
 #pragma unroll 4
-            for (int k4 = kb + 1; k4 < K / 4; ++k4) {
-              const float4 hv2 = ha4[k4];
-              acc0 += hv2.x * p[0];
-              acc1 += hv2.y * p[NC];
-              acc2 += hv2.z * p[2 * NC];
-              acc3 += hv2.w * p[3 * NC];
-              p += 4 * NC;
+              for (int k = 0; k < k1; ++k) acc = fmaf(ha[k], p[k * WC], acc);
+              p = ba + cm - k1 * WC;
+#pragma unroll 4
+              for (int k = k1; k < K; ++k) acc = fmaf(ha[k], p[k * WC], acc);
+              out[(size_t)(nn / D) * C + c_mix] = acc;
             }
           }
-          out[(size_t)(nn / D) * C + c] = (acc0 + acc1) + (acc2 + acc3);
-        }
-      } else if (n0 >= r0) {
-        // ---- channel-rate audio: this thread's demod rows, each row's
-        // store coalesced across the block's channels
+        } else if (n0 >= r0) {
+          // ---- channel-rate audio: rows n0 + g and n0 + g + 8; 16 bytes a
+          // lane where the column order is the identity
+          float* const o0 = out + (size_t)(n0 + g) * C;
+          float* const o1 = o0 + (size_t)8 * C;
+          if (ident) {
+            *reinterpret_cast<float4*>(o0 + chd[0]) =
+                make_float4(a[0][0], a[1][0], a[2][0], a[3][0]);
+            *reinterpret_cast<float4*>(o1 + chd[0]) =
+                make_float4(a[0][1], a[1][1], a[2][1], a[3][1]);
+          } else {
 #pragma unroll
-        for (int r = 0; r < HR; ++r)
-          out[(size_t)(n0 + h * HR + r) * C + c] = a[r];
-      }
-
-      if (KIND != PFB) {
-#pragma unroll
-        for (int r = 0; r < HR; ++r) {
-          cxi[r] = nxi[r];
-          cxq[r] = nxq[r];
+            for (int cc = 0; cc < 4; ++cc) {
+              o0[chd[cc]] = a[cc][0];
+              o1[chd[cc]] = a[cc][1];
+            }
+          }
         }
       }
+      // the next chunk's mix overwrites the oldest slot, which this chunk's
+      // fragment loads have read
+      __syncwarp();
       cur = cur + 1 == NSLOT ? 0 : cur + 1;
     }
   }
+  // the tile's last audio group: its rows from r1 on are an earlier
+  // chunk's, finite, and meet only outputs that are not stored
+  if (TCA && ag < r1) audio_group(ag);
 
-  // the tile's power: the two row halves' sums, in that order
-  if (h) psum[ch] = pacc;
-  __syncthreads();
-  if (!h) power_part[(size_t)tile * C + c] = pacc + psum[ch];
+  // the tile's power: a lane's rows in order, then the column's eight lanes
+#pragma unroll
+  for (int cc = 0; cc < 4; ++cc) {
+    float p = pacc[cc];
+    p += __shfl_xor_sync(FULL, p, 4);
+    p += __shfl_xor_sync(FULL, p, 8);
+    p += __shfl_xor_sync(FULL, p, 16);
+    if (g == 0) power_part[(size_t)tile * C + chd[cc]] = p;
+  }
 
   if (r1 == nd) {
     // carries: the last K-1 mixed rows, the last shaped row, the last K-1
-    // demod rows. They are window rows 1..K-1 of the chunk that would come
-    // next (slot cur): ring rows (cur+1)*S + j, wrapped
-    for (int j = h; j < K - 1; j += 2) {
+    // demod rows. The mixed rows are window rows 1..K-1 of the chunk that
+    // would come next (slot cur): ring rows (cur+1)*S + j, wrapped
+    for (int j = hm; j < K - 1; j += 2) {
       int at = (cur + 1) * S + 1 + j;
       if (at >= WIN) at -= WIN;
-      hist_i[(size_t)j * C + c] = ring_i[swz(at, ch)];
-      hist_q[(size_t)j * C + c] = ring_q[swz(at, ch)];
-      if (HAS_AUDIO_FIR) ahist[(size_t)j * C + c] = ba[at * NC + ch];
+      hist_i[(size_t)j * C + c_mix] = ring_i[swz(at, cm)];
+      hist_q[(size_t)j * C + c_mix] = ring_q[swz(at, cm)];
+      if (HAS_AUDIO_FIR)
+        ahist[(size_t)j * C + c_mix] =
+            ba[aswz((nd - (K - 1) + j) & (ARING - 1), cm)];
     }
-    if (!h) {
-      prev[c] = lag_i;
-      prev[C + c] = lag_q;
+    if (g == 0) {
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        prev[chd[cc]] = lag_i[cc];
+        prev[C + chd[cc]] = lag_q[cc];
+      }
     }
   }
 }
@@ -642,19 +792,27 @@ int launch(const void* xa, const void* xb, long long row_stride,
   constexpr int rows = KIND == PFB ? PM : S;
   if (taps != K || C % NC != 0 || nd % rows != 0 || tile_rows % rows != 0 ||
       tile_rows < halo || D < 1 || nd % D != 0 || row_stride < 1 ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0 ||
       (KIND == PFB &&
        (C / NC > 65535 || row_stride % KS != 0 ||
         reinterpret_cast<uintptr_t>(xa) % 16 != 0 ||
         reinterpret_cast<uintptr_t>(xb) % 16 != 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  size_t smem_floats = (KIND == CHANRATE ? 2 : 3) * WIN * NC + 2 * S * NC;
+  size_t smem_floats = 2 * NWARP * WIN * WC;
+  if (KIND != CHANRATE) smem_floats += NWARP * ARING * WC;
   if (KIND == PFB) smem_floats += PFB_FLOATS;
   const size_t smem_bytes = smem_floats * sizeof(float);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const auto kernel = fast ? tail_tm_kernel<true, KIND>
-                           : tail_tm_kernel<false, KIND>;
+  // the audio FIR's form follows from D alone
+  constexpr bool HAS_AUDIO_FIR = KIND != CHANRATE;
+  const auto kernel =
+      HAS_AUDIO_FIR && D == AD
+          ? (fast ? tail_tm_kernel<true, KIND, HAS_AUDIO_FIR>
+                  : tail_tm_kernel<false, KIND, HAS_AUDIO_FIR>)
+          : (fast ? tail_tm_kernel<true, KIND, false>
+                  : tail_tm_kernel<false, KIND, false>);
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem_bytes));
@@ -689,9 +847,9 @@ extern "C" {
 // Launch the audio-fused tail on `stream`. Shapes: product planes addressed
 // as x[n * row_stride + c] for n < nd, c < C (xq points at the Q columns);
 // phase0/step [C] int64 holding uint32; h_shape/h_audio [K] reversed
-// kernels; mode [C] int32; hist_i0/hist_q0/ahist0 and the outputs
-// hist_i/hist_q/ahist [K-1, C]; prev0/prev [2, C]; audio48 [nd/D, C];
-// power_part [n_tiles, C] scratch; power [C]. Returns cudaGetLastError().
+// kernels; mode [C] int32; hist_i0/hist_q0/ahist0 and the outputs hist_i/hist_q/ahist [K-1, C]; prev0/prev [2, C]; audio48
+// [nd/D, C], 16-byte aligned; power_part [n_tiles, C] scratch; power [C].
+// Returns cudaGetLastError().
 int webradio_tail_tm_launch(
     const void* xi, const void* xq, long long row_stride, const void* phase0,
     const void* step, const void* h_shape, const void* h_audio,

@@ -9,7 +9,8 @@ shifted multiply-adds, with shared or per-channel coefficients.
 float32 matmuls against a banded (Toeplitz) weight matrix built on the host
 (:func:`toeplitz_weights`); the weight functions are numpy and bit-identical
 to the JAX package's. :func:`fir_dispatch` routes one call between the two
-forms.
+forms. :func:`fir_decimate_banded_tf32x3_tm` is the plain emulation of the
+CUDA tails' tensor-core audio FIR.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .precision import full_fp32
+from .precision import full_fp32, matmul_tf32x3
 
 
 def toeplitz_tile(nd_out: int, decimation: int, fir_length: int) -> int:
@@ -215,3 +216,41 @@ def fir_decimate_toeplitz_tm(
         else:
             y = wt @ a[:, :span]
     return y.reshape(nd, c), x[n - (k - 1):]
+
+
+def fir_decimate_banded_tf32x3_tm(
+    x: torch.Tensor,
+    h_rev: torch.Tensor,
+    decimation: int,
+    history: torch.Tensor,
+    outputs: int = 8,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain emulation of the CUDA tails' decimating audio FIR on the
+    tensor cores (``csrc/tail_tm.cu``, built for decimation 5): the contract
+    of :func:`fir_decimate_toeplitz_tm` with the reversed kernel ``h_rev
+    [K]`` in place of the banded weights.
+
+    Per group of ``outputs * D`` rows starting at row ``G``, ``outputs``
+    consecutive outputs are ``band [outputs, K + outputs * D] . window``,
+    where the window is rows ``G - K .. G + outputs * D - 1`` of the stream
+    and ``band[o, j] = h_rev[j - D * o - 1]`` (column 0 is padding), as a
+    three-term TF32 split with float32 sums
+    (:func:`..precision.matmul_tf32x3`). ``N`` must be whole groups.
+    """
+    d = int(decimation)
+    k = h_rev.shape[0]
+    n, c = x.shape
+    group = outputs * d
+    if history.shape[0] != k - 1:
+        raise ValueError("history length does not match the kernel length")
+    if n % group:
+        raise ValueError(f"{n} rows is not a multiple of the group {group}")
+    span = k + group
+    band = torch.zeros(outputs, span, dtype=torch.float32, device=x.device)
+    for o in range(outputs):
+        band[o, d * o + 1:d * o + 1 + k] = h_rev
+    pad = torch.zeros(1, c, dtype=x.dtype, device=x.device)
+    ext = torch.cat([pad, history, x], dim=0)  # row i is stream row i - K
+    win = ext.unfold(0, span, group)  # [n / group, C, span]
+    y = matmul_tf32x3(band, win.transpose(1, 2).contiguous())
+    return y.reshape(n // d, c), x[n - (k - 1):]

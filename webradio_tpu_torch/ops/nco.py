@@ -145,16 +145,20 @@ def nco_mix_tm_exact(
 
 def nco_mix_tm_rotated(
     i: torch.Tensor, q: torch.Tensor, phase0: torch.Tensor,
-    phase_step: torch.Tensor, rows: int = 8,
+    phase_step: torch.Tensor, rows: int = 8, lanes: int = 2,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain emulation of the CUDA tail kernels' ``fast`` LO: the exact
-    phasor (:func:`nco_mix_tm_exact`'s) at every ``rows``-th sample, rotated
-    in float32 by the exact phasors of ``0..rows-1`` steps for the samples
-    between. At most three float32 roundings (~2e-7) from the exact law on
-    each of sin and cos. ``N`` must be a multiple of ``rows``."""
+    """Plain emulation of the CUDA tail kernels' ``fast`` LO. The samples
+    come in chunks of ``rows * lanes``; the first ``lanes`` samples of a
+    chunk take the exact phasor (:func:`nco_mix_tm_exact`'s), and sample
+    ``lanes * r + h`` is the exact phasor of sample ``h`` rotated in float32
+    by the exact phasor of ``lanes * r`` steps (a kernel lane mixes every
+    ``lanes``-th row of a chunk). At most three float32 roundings (~2e-7)
+    from the exact law on each of sin and cos. ``N`` must be a multiple of
+    the chunk."""
     n = i.shape[0]
-    if n % rows:
-        raise ValueError(f"{n} rows is not a multiple of {rows}")
+    chunk = rows * lanes
+    if n % chunk:
+        raise ValueError(f"{n} rows is not a multiple of {chunk}")
     scale = 2.0 * math.pi / (1 << PHASE_BITS)
 
     def phasor(phases):
@@ -162,9 +166,14 @@ def nco_mix_tm_rotated(
         return torch.sin(ang).to(torch.float32), torch.cos(ang).to(
             torch.float32)
 
-    s0, c0 = phasor(nco_phases_tm(n, phase0, phase_step)[::rows])  # [n/r, C]
-    rs, rc = phasor(nco_phases_tm(rows, torch.zeros_like(phase0),
-                                  phase_step))  # [rows, C]
-    s = s0[:, None, :] * rc[None] + c0[:, None, :] * rs[None]
-    c = c0[:, None, :] * rc[None] - s0[:, None, :] * rs[None]
+    c_ = phase0.shape[0]
+    # [n / chunk, 1, lanes, C]: the chunks' first samples
+    s0, c0 = (x.reshape(n // chunk, chunk, c_)[:, None, :lanes]
+              for x in phasor(nco_phases_tm(n, phase0, phase_step)))
+    # [1, rows, 1, C]: rotations by 0, lanes, 2 lanes, .. steps
+    rs, rc = (x[None, ::lanes, None]
+              for x in phasor(nco_phases_tm(chunk, torch.zeros_like(phase0),
+                                            phase_step)))
+    s = s0 * rc + c0 * rs
+    c = c0 * rc - s0 * rs
     return _mix(i, q, s.reshape(n, -1), c.reshape(n, -1))

@@ -16,16 +16,18 @@ FIR ``|y|^2``, and the FM law keeps the reference's ``atan2(ii, qq)``
 order. Two LO laws: ``fast=False`` is the reference's 16-bit table law;
 ``fast=True`` is the full 31-bit angle per sample (the TPU kernel's
 factored phasor approximates that same angle; the CUDA kernels take it
-exactly for every eighth row and rotate by the exact phasors of one to seven
-steps, ~2e-7 from it).
+exactly for the first two rows of every 16 and rotate by the exact phasors
+of 2, 4, .., 14 steps, ~2e-7 from it).
 
 Every ``precision`` tier is computed to float32 accuracy here: "hx5", "hx4"
 and "high" name TPU MXU pass counts and have no Hopper meaning yet. The
 kernels make the shaping FIR on the tensor cores as a three-term TF32 split
 (``ops.precision.matmul_tf32x3`` is its plain emulation,
-``ops.nco.nco_mix_tm_rotated`` that of the ``fast`` LO) and the filterbank
-product as float32 FMA chains in tap order; the plain versions stay true
-float32.
+``ops.nco.nco_mix_tm_rotated`` that of the ``fast`` LO), the decimating
+audio FIR likewise where the decimation is 5
+(``ops.fir.fir_decimate_banded_tf32x3_tm``; a float32 FMA loop for any
+other), and the filterbank product as float32 FMA chains in tap order; the
+plain versions stay true float32.
 """
 
 from __future__ import annotations
@@ -58,6 +60,9 @@ TILE_ROWS = 640
 MIN_BLOCKS = 1024
 #: the only tap count the kernel is built for (firdesign.FIR_LENGTH)
 KERNEL_TAPS = 64
+#: channels per kernel warp: a warp orders its channels by demod law
+#: (:func:`law_sorted_columns`)
+WARP_CHANNELS = 16
 PRECISIONS = ("highest", "hx5", "hx4", "high")
 
 
@@ -70,6 +75,33 @@ def tile_rows_for(nd: int, channels: int) -> int:
     if (channels // 64) * -(-nd // rows) >= MIN_BLOCKS:
         return rows
     return TILE_ROWS
+
+
+def law_sorted_columns(mode) -> list[int]:
+    """Column order of one kernel warp's :data:`WARP_CHANNELS` channels,
+    as ``csrc/tail_tm.cu`` builds it: entry ``col`` is the channel (0..15)
+    whose samples sit in column ``col``.
+
+    One kernel instruction demodulates the columns of one class (columns
+    ``cc, cc + 4, cc + 8, cc + 12``), so the order makes a class share a
+    demod law where it can: the channels are sorted by law (stable; any
+    value outside 0..3 counts as 3, the kernel's default law) and sorted
+    entries ``4 cc .. 4 cc + 3`` go to class ``cc``. Where every class is
+    uniform as the channels stand (one law on every slot, laws cycling with
+    period 4), the order is the identity. It decides only where a channel
+    sits in the warp, never what is computed for it.
+    """
+    key = [m if 0 <= m <= 3 else 3 for m in (int(m) for m in mode)]
+    n = WARP_CHANNELS
+    if len(key) != n:
+        raise ValueError(f"a warp holds {n} channels, got {len(key)}")
+    if all(key[j] == key[j & 3] for j in range(n)):
+        return list(range(n))
+    order = sorted(range(n), key=lambda j: key[j])  # sorted() is stable
+    cols = [0] * n
+    for pos, j in enumerate(order):
+        cols[4 * (pos & 3) + (pos >> 2)] = j
+    return cols
 
 
 def _split(ci_planes, cq_planes, packed):
