@@ -27,7 +27,22 @@ Phases (each fails the run on error):
    the fused filterbank through ``fused_pfb_tail_audio_tm``, (d) catch-up
    (``process_host_many``), capacity growth and slot scatter;
 7. timing of the other paths: back-to-back ms/block of (a), (b), (c) at
-   C=1,024, and of (c) against the packed path at C=16,384 in turns.
+   C=1,024, and of (c) against the packed path at C=16,384 in turns;
+8. the server: the port's ``RadioApp`` in this process on the card (no
+   device named), HTTP on 127.0.0.1, two tone tuners for about ten seconds
+   of real-time serving: tuner 0 at C=16,384 (channelized, every slot at
+   the default bandwidths, so kernel #1 runs every block) with AM, FM,
+   USB and LSB receivers, tuner 1 the demo topology at capacity 4 (the
+   direct engine). Requests: /status, /tuners, both waterfalls; two
+   seconds of WAV from the AM and FM receivers of both tuners (1 kHz and
+   440 Hz within 2 Hz), a PUT moving tuner 0's AM receiver to FM at +100
+   kHz (then 440 Hz), a POST and a DELETE of a receiver, a /profile trace;
+   kernel #1's launches against tuner 0's blocks, and per tuner the
+   blocks, drops, the server's own real-time factor and ms/block, and the
+   device's idle share in a torch.profiler window during serving. Drops of
+   the ring and of the tone source are counted by span: start-up, the
+   profiler window, the /profile trace, and serving (everything else),
+   which must drop no block.
 
 Prints a ``{"kernels": [...]}`` line and, last, a ``{"ok": true, ...}``
 line. Exits non-zero, without a result, where torch sees no CUDA device.
@@ -53,6 +68,9 @@ MAIN_BLOCKS = 16
 TIMED_BLOCKS = 24
 PATH_BLOCKS = 8  # blocks through each of the paths (a) and (c)
 PATH_TIMED_BLOCKS = 8
+SERVER_SECONDS = 10.0  # real-time serving in the server phase
+HEAR_SECONDS = 2.0  # WAV audio read per receiver
+TONE_TOLERANCE_HZ = 2.0
 # the card's published peaks (NVIDIA H100 SXM data sheet): float32 outside
 # the tensor cores, and device memory
 PEAK_FP32_FLOPS = 67e12
@@ -146,19 +164,20 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_profile(step, n: int):
+def device_profile(step, n: int, cpu: bool = True):
     """Run ``step(i)`` for ``i < n`` back to back under ``torch.profiler``
     and read the device's own timeline: only kernel, memcpy and memset
     events (host-side ``aten::`` rows are not device time). Returns
     ``(busy ms/block, window ms/block, idle share, top kernels)`` where the
     window runs from the first device event's start to the last one's end;
-    all None where the profiler saw no device event."""
+    all None where the profiler saw no device event. ``cpu=False`` records
+    the device alone (lighter on the host, for a window of serving)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    with profile(activities=acts) as prof:
         for i in range(n):
             step(i)
         torch.cuda.synchronize()
@@ -978,6 +997,400 @@ def phase_path_timing(dev, results, paths):
                                              if n == "fused"]
 
 
+def server_config():
+    """Tuner 0: C=16,384, "auto" (the channelized engine), four receivers
+    at the default 80 / 8 kHz bandwidths; tuner 1: examples/demo_tone.json
+    (capacity 4: the direct engine). Both tone tuners: AM 1 kHz at IF 0,
+    FM 440 Hz at +100 kHz."""
+    tuner = {"driver": "tone", "centre_frequency": 124_325_000,
+             "sample_rate": SAMPLE_RATE, "block_frames": BLOCK_FRAMES}
+    return {
+        "server": {"port": 0, "host": "127.0.0.1", "html": "html"},
+        "tuners": [dict(tuner, capacity=WIDE_CHANNELS, engine="auto"),
+                   dict(tuner, capacity=4)],
+        "receivers": [
+            {"tuner": 0, "if_frequency": 0, "demodulator": "AM"},
+            {"tuner": 0, "if_frequency": 100_000, "demodulator": "FM"},
+            {"tuner": 0, "if_frequency": -200_000, "demodulator": "USB"},
+            {"tuner": 0, "if_frequency": 300_000, "demodulator": "LSB"},
+            {"tuner": 1, "if_frequency": 0, "demodulator": "AM"},
+            {"tuner": 1, "if_frequency": 100_000, "demodulator": "FM",
+             "af_bandwidth": 8_000},
+        ],
+    }
+
+
+def http_call(port, method, path, body=None):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    conn.request(method, path,
+                 body=None if body is None else json.dumps(body))
+    resp = conn.getresponse()
+    data = resp.read()
+    conn.close()
+    return resp.status, data
+
+
+def hear(port, rx, rate, seconds=HEAR_SECONDS, skip=0.25):
+    """Read ``seconds`` of ``/audio/<rx>.wav``; the dominant tone in Hz."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    conn.request("GET", f"/audio/{rx}.wav")
+    resp = conn.getresponse()
+    if resp.status != 200:
+        raise AssertionError(f"/audio/{rx}.wav answered {resp.status}")
+    want, data = 44 + int(2 * rate * (seconds + skip)), b""
+    while len(data) < want:
+        chunk = resp.read(16_384)
+        if not chunk:
+            break
+        data += chunk
+    conn.close()
+    x = np.frombuffer(data[44:44 + (len(data) - 44) // 2 * 2],
+                      "<i2")[int(skip * rate):].astype(np.float64)
+    if x.size < rate or np.abs(x).max() < 100:
+        raise AssertionError(f"receiver {rx}: {x.size} samples, silent?")
+    spec = np.abs(np.fft.rfft((x - x.mean()) * np.hanning(x.size)))
+    return float(np.argmax(spec) * rate / x.size)
+
+
+def hear_all(port, wants, rate, results, tag):
+    """Hear several receivers at once (one thread each): ``wants`` maps a
+    label to (receiver uuid, expected Hz)."""
+    import threading
+
+    got, errors = {}, []
+
+    def one(label, rx):
+        try:
+            got[label] = hear(port, rx, rate)
+        except Exception as e:  # re-raised below, on the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=one, args=(label, rx))
+               for label, (rx, _) in wants.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    if errors:
+        raise errors[0]
+    for label, (rx, want) in wants.items():
+        log(f"  {tag} {label} (receiver {rx}): dominant tone "
+            f"{got[label]:.2f} Hz, expected {want:.0f}")
+        if abs(got[label] - want) > TONE_TOLERANCE_HZ:
+            raise AssertionError(f"{label}: heard {got[label]:.2f} Hz, "
+                                 f"expected {want:.0f} Hz")
+        results[f"{tag}{label}_tone_hz"] = got[label]
+
+
+def check_waterfall(port, fe, results):
+    """The waterfall JSON of a front end: not all -10000, its strongest bin
+    at the centre (the AM carrier) or on the FM carrier +100 kHz up, which
+    sweeps +/-5 kHz (the AM envelope swings 0.5-1.5, so in some rows the FM
+    carrier is stronger), and the centre bin at least 20 dB above the
+    median bin."""
+    status, data = http_call(port, "GET", f"/tuners/{fe.uuid}/waterfall")
+    spec = np.array(json.loads(data)["data"])
+    n = spec.size
+    fm_bin = n // 2 + round(100_000 / SAMPLE_RATE * n)
+    fm_span = 1 + 5_000 * n // SAMPLE_RATE
+    peak = int(np.argmax(spec))
+    log(f"  waterfall {fe.uuid}: {status}, {n} bins, min {spec.min():.1f} "
+        f"max {spec.max():.1f} dB at bin {peak} (centre {n // 2}, FM "
+        f"{fm_bin}), centre {spec[n // 2]:.1f} dB, median "
+        f"{np.median(spec):.1f} dB")
+    if status != 200 or n != fe.cfg.fft_size or not (spec > -10000).any():
+        raise AssertionError(f"waterfall {fe.uuid} is flat or missing")
+    if (abs(peak - n // 2) > 1 and abs(peak - fm_bin) > fm_span) or not (
+            spec[n // 2] >= np.median(spec) + 20.0):
+        raise AssertionError(f"waterfall {fe.uuid}: strongest bin {peak}")
+    results[f"server_waterfall_{fe.uuid}_peak_bin"] = peak
+
+
+#: the steps of the server phase that count as serving (PumpWatch.mark)
+SERVING_STEPS = ("first blocks", "GET /status, /tuners", "waterfalls",
+                 "four WAV listeners", "PUT", "one WAV listener",
+                 "POST, DELETE", "plain serving")
+
+
+class PumpWatch:
+    """A thread that reads each front end's block count and drops every 10
+    ms. It ties each drop to the step of the phase (:meth:`mark`) before
+    it, and keeps the pump thread's stack whenever no tuner has had a block
+    for :attr:`STALL_S`."""
+
+    STALL_S = 0.12
+
+    def __init__(self, front_ends, thread_of_pump):
+        import threading
+
+        self.fes, self.pump = front_ends, thread_of_pump
+        self.marks = [(time.monotonic(), "first blocks")]
+        self.drops, self.stalls = [], []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    @staticmethod
+    def dropped(fe):
+        return fe.ring.dropped_blocks + getattr(fe.tuner.source,
+                                                "dropped_blocks", 0)
+
+    def mark(self, label):
+        self.marks.append((time.monotonic(), label))
+
+    def _run(self):
+        import traceback
+
+        last = [(fe.block_count, self.dropped(fe)) for fe in self.fes]
+        since, stack_taken = time.monotonic(), False
+        while not self._stop.wait(0.01):
+            now = time.monotonic()
+            mark_t, label = self.marks[-1]
+            now_ = [(fe.block_count, self.dropped(fe)) for fe in self.fes]
+            for fe, (b0, d0), (b1, d1) in zip(self.fes, last, now_):
+                if d1 > d0:
+                    self.drops.append((fe.uuid, d1 - d0, label,
+                                       1e3 * (now - mark_t),
+                                       1e3 * (now - since)))
+            if any(b1 != b0 for (b0, _), (b1, _) in zip(last, now_)):
+                since, stack_taken = now, False
+            elif now - since > self.STALL_S and not stack_taken:
+                frame = sys._current_frames().get(self.pump.ident)
+                stack = traceback.format_stack(frame)[-4:] if frame else []
+                self.stalls.append((label, 1e3 * (now - mark_t),
+                                    "".join(stack).rstrip()))
+                stack_taken = True
+            last = now_
+
+    def close(self, serving):
+        """Stop; log the drops of each step, and each drop and stall in the
+        steps named in ``serving`` with the pump's stack."""
+        self._stop.set()
+        self._thread.join(timeout=5)
+        by_step: dict = {}
+        for uuid, n, label, after_ms, gap_ms in self.drops:
+            step = by_step.setdefault(label, {})
+            step[uuid] = step.get(uuid, 0) + n
+            if label in serving:
+                log(f"  drop: tuner {uuid} lost {n} in '{label}', "
+                    f"{after_ms:.0f} ms after it began, {gap_ms:.0f} ms "
+                    f"since the pump's last block")
+        log(f"  drops by step: {by_step}")
+        for label, after_ms, stack in self.stalls:
+            if label in serving:
+                log(f"  stall: no block for {1e3 * self.STALL_S:.0f} ms in "
+                    f"'{label}', {after_ms:.0f} ms after it began; the pump "
+                    f"at:\n{stack}")
+
+
+def phase_server(results):
+    """The server, driven over HTTP (see the module docstring, phase 8)."""
+    import pathlib
+    import shutil
+    import tempfile
+
+    from webradio_tpu_torch import app as tapp
+    from webradio_tpu_torch.radio import Radio
+
+    reset_counts()  # the server's launches only
+    app = tapp.RadioApp(server_config())
+    t0 = time.perf_counter()
+    if not app.start():
+        raise AssertionError("the server did not start")
+    fe0, fe1 = app.front_ends
+    port = app.server.port
+    log(f"  up on 127.0.0.1:{port} in {time.perf_counter() - t0:.1f} s: "
+        f"tuner {fe0.uuid} {type(fe0.pipeline).__name__} at "
+        f"C={fe0.pipeline.cfg.num_channels} ({type(fe0.tuner.source).__name__}"
+        f"), tuner {fe1.uuid} {type(fe1.pipeline).__name__} at "
+        f"C={fe1.pipeline.cfg.num_channels}")
+    if type(fe0.pipeline).__name__ != "ChannelizedPipeline" or (
+            type(fe1.pipeline).__name__ != "FrontEndPipeline"):
+        raise AssertionError("the engines are not channelized / direct")
+    served_from = time.monotonic()
+    failed = watch = None
+    trace_dir = tempfile.mkdtemp(prefix="webradio_trace_")
+    try:
+        deadline = time.monotonic() + 60
+        while min(fe0.block_count, fe1.block_count) < 5:
+            if time.monotonic() > deadline or app.failed is not None:
+                raise AssertionError(f"no blocks served: {app.failed}")
+            time.sleep(0.05)
+        # blocks lost by the pump's ring or by the tone source's own
+        # native ring. Start-up (tuner 0 captures while tuner 1 warms) and
+        # the two profiler windows are counted apart; everything else is
+        # serving, which must drop nothing (PERF.md section 2)
+        drops = lambda: [
+            fe.ring.dropped_blocks
+            + getattr(fe.tuner.source, "dropped_blocks", 0)
+            for fe in (fe0, fe1)]
+        mark = lambda: (time.monotonic(), drops(),
+                        [fe.block_count for fe in (fe0, fe1)])
+
+        def caught_up(after):
+            """Wait until the pump has drained both rings: the drops of a
+            stall's backlog count to the span that stalled the pump."""
+            t0 = time.monotonic()
+            while (any(fe.ring.backlog for fe in (fe0, fe1))
+                   and time.monotonic() < t0 + 5.0):
+                time.sleep(0.005)
+            log(f"  both rings drained {1e3 * (time.monotonic() - t0):.0f} "
+                f"ms after {after}")
+
+        caught_up("the first blocks")
+        m_start = mark()
+        watch = PumpWatch((fe0, fe1), app._pump)
+        watch.mark("GET /status, /tuners")
+        for path in ("/status", "/tuners"):
+            status, data = http_call(port, "GET", path)
+            if status != 200:
+                raise AssertionError(f"GET {path}: {status}")
+        tuners = json.loads(http_call(port, "GET", "/tuners")[1])
+        log(f"  /tuners: {[t['uri'] for t in tuners]}")
+        watch.mark("waterfalls")
+        for fe in (fe0, fe1):
+            check_waterfall(port, fe, results)
+        rx0 = [r.uuid for r in app.receivers[:2]]
+        rx1 = [r.uuid for r in app.receivers[4:6]]
+        rate = fe0.cfg.audio_rate
+        watch.mark("four WAV listeners")
+        hear_all(port, {"t0_am": (rx0[0], 1_000.0), "t0_fm": (rx0[1], 440.0),
+                        "t1_am": (rx1[0], 1_000.0), "t1_fm": (rx1[1], 440.0)},
+                 rate, results, "server_")
+        watch.mark("PUT")
+        status, _ = http_call(port, "PUT", f"/receivers/{rx0[0]}",
+                         {"if_frequency": 100_000, "demodulator": "FM"})
+        if status != 204:
+            raise AssertionError(f"PUT answered {status}")
+        blocks = fe0.block_count
+        while fe0.block_count < blocks + 3:
+            time.sleep(0.02)
+        watch.mark("one WAV listener")
+        hear_all(port, {"t0_am_put_to_fm": (rx0[0], 440.0)}, rate, results,
+                 "server_")
+        watch.mark("POST, DELETE")
+        status, data = http_call(port, "POST", "/receivers",
+                            {"tuner": f"/tuners/{fe0.uuid}",
+                             "if_frequency": 50_000, "demodulator": "USB"})
+        if status != 201:
+            raise AssertionError(f"POST answered {status}")
+        uri = json.loads(data)["uri"]
+        status, _ = http_call(port, "DELETE", uri)
+        if status != 204 or http_call(port, "GET", uri)[0] != 404:
+            raise AssertionError(f"DELETE {uri} answered {status}")
+        log(f"  POST then DELETE {uri}: 201, 204")
+        m_serving = mark()  # HTTP requests, audio streams, control writes
+        watch.mark("1 s profiler window")  # and the pump catching up
+        # the device's idle share while serving, from the device's own
+        # timeline (every stream); then the /profile endpoint's trace
+        b0 = fe0.block_count + fe1.block_count
+        busy, window, idle, top = device_profile(lambda i: time.sleep(0.1),
+                                                 10, cpu=False)
+        blocks_in = fe0.block_count + fe1.block_count - b0
+        if busy is None:
+            log("  profiler saw no device events; idle share not measured")
+        else:
+            log(f"  profiled 1 s of serving ({blocks_in} blocks of both "
+                f"tuners): device busy {10 * busy:.2f} ms of a "
+                f"{10 * window:.2f} ms device window, idle share {idle:.3f}")
+            for name, ms in top:
+                log(f"    {10 * ms:8.3f} ms in the window  {name}")
+        d_window = drops()
+        results["server_idle_share"] = idle
+        results["server_profiled_busy_ms_per_block"] = (
+            None if busy is None or not blocks_in else 10 * busy / blocks_in)
+        watch.mark("/profile trace")  # and the pump catching up
+        status, _ = http_call(port, "POST", "/profile",
+                         {"action": "start", "dir": trace_dir})
+        time.sleep(0.5)
+        status2, data = http_call(port, "POST", "/profile", {"action": "stop"})
+        trace = json.loads(
+            (pathlib.Path(trace_dir) / "trace.json").read_text())
+        kernels = sum(1 for e in trace.get("traceEvents", [])
+                      if e.get("cat") == "kernel")
+        log(f"  /profile start {status}, stop {status2}: trace.json with "
+            f"{len(trace['traceEvents'])} events, {kernels} kernel events")
+        if (status, status2) != (200, 200):
+            raise AssertionError("/profile failed")
+        results["server_trace_kernel_events"] = kernels
+        caught_up("the /profile trace")
+        m_profiled = mark()
+        watch.mark("plain serving")
+        # plain serving again, at least three seconds
+        t_end = max(time.monotonic() + 3.0, served_from + SERVER_SECONDS)
+        while time.monotonic() < t_end:
+            time.sleep(0.1)
+        m_end = mark()
+        final = json.loads(http_call(port, "GET", "/status")[1])
+    except BaseException as e:
+        failed = e
+    finally:
+        if watch is not None:
+            watch.close(SERVING_STEPS)
+        app.close()
+        shutil.rmtree(trace_dir, ignore_errors=True)
+        Radio.reset()
+    if failed is not None:
+        raise failed
+    if app.failed is not None:
+        raise AssertionError(f"the pump stopped: {app.failed}")
+    launches = {name: fn.launches for name, fn in tail_wrappers().items()}
+    log(f"  server: kernel launches {launches}")
+    out = {}
+    # the serving windows: first block to the profiler, and after the trace
+    windows = ((m_start, m_serving), (m_profiled, m_end))
+    for k, fe in enumerate((fe0, fe1)):
+        st = final["front_ends"][fe.uuid]
+        ms = st["ns_per_frame"] * BLOCK_FRAMES / 1e6
+        serving = sum(b[1][k] - a[1][k] for a, b in windows)
+        wall = sum(b[0] - a[0] for a, b in windows)
+        served = sum(b[2][k] - a[2][k] for a, b in windows)
+        out[fe.uuid] = {
+            "engine": st["engine"], "capacity": st["channel_capacity"],
+            "blocks": st["blocks"], "ring_dropped": st["dropped_blocks"],
+            # ring and tone-source drops by span of the phase
+            "dropped_startup": m_start[1][k],
+            "dropped_idle_window": d_window[k] - m_serving[1][k],
+            "dropped_trace": m_profiled[1][k] - d_window[k],
+            "dropped_serving": serving,
+            "serving_s": wall,
+            "serving_throughput": served * fe.cfg.block_seconds / wall,
+            "fanout_dropped": st["fanout_dropped"],
+            "realtime_factor": st["realtime_factor"],
+            "throughput_factor": st["throughput_factor"],
+            "sampled_ms_per_block": ms, "step_samples": st["step_samples"],
+            "last_dispatch_ms": st["last_dispatch_ms"],
+        }
+        o = out[fe.uuid]
+        log(f"  tuner {fe.uuid} ({st['engine']}, C={st['channel_capacity']})"
+            f": {st['blocks']} blocks, drops {o['dropped_startup']} at "
+            f"start-up, {o['dropped_idle_window']} in the 1 s profiler "
+            f"window, {o['dropped_trace']} around the /profile trace, "
+            f"{serving} in {wall:.2f} s of serving (throughput "
+            f"{o['serving_throughput']:.4f}); fan-out drops "
+            f"{st['fanout_dropped']}, real-time factor "
+            f"{st['realtime_factor']} ({ms:.3f} ms/block sampled over "
+            f"{st['step_samples']} blocks, dispatch to completion), "
+            f"throughput since start {st['throughput_factor']}")
+    served0 = out[fe0.uuid]["blocks"]
+    others = {n: c for n, c in launches.items()
+              if n != "fused_tail_audio_tm" and c}
+    if launches["fused_tail_audio_tm"] < served0 or others:
+        raise AssertionError(f"server: launches {launches} for {served0} "
+                             f"blocks of tuner {fe0.uuid}")
+    if not (out[fe0.uuid]["realtime_factor"] or 0) > 1:
+        raise AssertionError("tuner 0 served below real time")
+    lost = {fe.uuid: out[fe.uuid]["dropped_serving"] for fe in (fe0, fe1)}
+    if any(lost.values()):
+        raise AssertionError(f"blocks dropped while serving: {lost}")
+    out["fused_tail_audio_tm_launches"] = launches["fused_tail_audio_tm"]
+    results["server"] = out
+
+
 def check_default_device():
     """The entry points that place tensors take the card when no device is
     named."""
@@ -1060,6 +1473,8 @@ def main() -> int:
     log(f"  after timing: sm clock, max sm clock, power draw, temp = "
         f"{clocks}")
     results["after_timing_smi"] = clocks
+    log("== the server: RadioApp over HTTP")
+    phase_server(results)
 
     meta = {
         "fused_tail_audio_tm": ("webradio_tpu_torch/csrc/tail_tm.cu",

@@ -105,6 +105,25 @@ def test_process_host_many_is_scan_serving_with_the_host_contract():
     assert pipe.flush() is None
 
 
-def test_scan_serving_is_channelized_only():
-    with pytest.raises(NotImplementedError, match="direct engine"):
+def test_scan_serving_runs_the_direct_engine():
+    """A direct engine's ``ChainConfig`` scans its own step, block by
+    block, exactly."""
+    from webradio_tpu_torch.pipeline import frontend as tfe
+    from webradio_tpu_torch.pipeline import state as tstate
+
+    cfg = tstate.ChainConfig(sample_rate=FS, channel_rate=CR, audio_rate=AR,
+                             block_frames=BF, num_channels=4)
+    pt = tstate.make_receiver_params(cfg, IFS, IFBW, 8_000, MODES,
+                                     device="cpu")
+    blocks = _blocks()
+    st, audio, db = tstream.scan_serving(cfg, pt, tstate.init_state(cfg, "cpu"),
+                                         torch.from_numpy(blocks))
+    s1 = tstate.init_state(cfg, "cpu")
+    for i, iq in enumerate(blocks):
+        s1, a1, spectra = tfe.frontend_step(cfg, pt, s1, torch.from_numpy(iq))
+        torch.testing.assert_close(a1, audio[i], rtol=0, atol=0)
+    torch.testing.assert_close(db, tfe.spectrum_db(spectra[:, -1, :]),
+                               rtol=0, atol=0)
+    assert float(audio.abs().max()) > 1e-2
+    with pytest.raises(AttributeError):
         tstream.scan_serving(object(), None, None, torch.zeros(1, 2, 8))

@@ -4,16 +4,24 @@ The JAX package (``webradio_tpu``) is the reference; this package mirrors
 its module paths so each counterpart sits at the same relative path:
 
 * ``ops``       — the DSP operators on torch tensors (FIR design, NCO mix,
-                  direct and Toeplitz FIRs, demodulators, spectrum,
-                  filterbank) and the hand-written Hopper kernels for the
-                  four fused receiver tails (``ops/tail_tm.py`` over
-                  ``csrc/tail_tm.cu``, ``ops/tail.py`` over
+                  direct, Toeplitz and overlap-save FIRs, demodulators,
+                  spectrum, filterbank) and the hand-written Hopper kernels
+                  for the four fused receiver tails (``ops/tail_tm.py``
+                  over ``csrc/tail_tm.cu``, ``ops/tail.py`` over
                   ``csrc/tail.cu``).
-* ``pipeline``  — every single-device branch of the channelized serving
-                  step, its control plane (slot scatter, capacity growth),
-                  the catch-up scan and the double-buffered host wrapper
-                  (``ChannelizedPipeline``).
-* ``io``        — the port's own sample sources and ingest ring (numpy).
+* ``pipeline``  — both engines' serving steps: the direct engine
+                  (``state``, ``frontend``) and every single-device branch
+                  of the channelized step, their control plane (slot
+                  scatter, capacity growth), the catch-up scan and the
+                  double-buffered host wrappers (``FrontEndPipeline``,
+                  ``ChannelizedPipeline``).
+* ``io``        — the port's own sample sources, tuner drivers, ingest ring
+                  and native ingest library (built from ``native/src`` into
+                  ``_build/`` at first use).
+* ``radio``     — the topology: front ends, receivers, the block pump, the
+                  audio fan-out, control writes applied between blocks.
+* ``web``, ``app`` — the HTTP server, the REST/streaming handlers and the
+                  application (``python -m webradio_tpu_torch``).
 * ``convert``   — carry a JAX parameter or state pytree (as numpy arrays)
                   over to the port's tensors.
 

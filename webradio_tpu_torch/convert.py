@@ -1,6 +1,7 @@
 """Carry JAX-package parameters and state over to the port.
 
-Both functions take the ``webradio_tpu.pipeline.channelized`` NamedTuple
+Each function takes a JAX parameter or state NamedTuple (the channelized
+engine's, or the direct engine's ``FrontEndParams`` / ``FrontEndState``)
 with every field as a numpy array (``jax.tree.map(np.asarray, x)`` on the
 JAX side) and return the port's NamedTuple on ``device`` (None: the CUDA
 device, and an error where there is none). Layouts are the same; the
@@ -18,8 +19,14 @@ import torch
 
 from . import require_cuda
 from .pipeline.channelized import ChannelizedParams, ChannelizedState
+from .pipeline.state import (
+    FrontEndParams,
+    FrontEndState,
+    ReceiverParams,
+    ReceiverState,
+)
 
-_INT64_FIELDS = ("residual_step", "nco_phase")
+_INT64_FIELDS = ("residual_step", "phase_step", "nco_phase")
 
 
 def _tensor(name, a, device):
@@ -40,27 +47,37 @@ def params_from_numpy(p, device: torch.device | str | None = None
     """The port's :class:`ChannelizedParams` from a JAX one of numpy
     arrays. The u8exact split weights are not ported (ROADMAP.md, the pfb
     tiers) and must be absent."""
-    if device is None:
-        device = require_cuda()
     if getattr(p, "pfb_weights_split", None) is not None:
         raise NotImplementedError(
             "pfb_weights_split (the u8exact tier) is not ported to "
             "webradio_tpu_torch yet (ROADMAP.md, still to port: the pfb "
             "tiers)"
         )
-    return ChannelizedParams(**{
-        f: _tensor(f, getattr(p, f), device)
-        for f in ChannelizedParams._fields
-    })
+    return _carry(ChannelizedParams, p, device)
+
+
+def _carry(cls, nt, device):
+    if device is None:
+        device = require_cuda()
+    return cls(**{f: _tensor(f, getattr(nt, f), device) for f in cls._fields})
 
 
 def state_from_numpy(s, device: torch.device | str | None = None
                      ) -> ChannelizedState:
     """The port's :class:`ChannelizedState` from a JAX one of numpy
     arrays."""
-    if device is None:
-        device = require_cuda()
-    return ChannelizedState(**{
-        f: _tensor(f, getattr(s, f), device)
-        for f in ChannelizedState._fields
-    })
+    return _carry(ChannelizedState, s, device)
+
+
+def frontend_params_from_numpy(p, device: torch.device | str | None = None
+                               ) -> FrontEndParams:
+    """The direct engine's :class:`FrontEndParams` from a JAX one of numpy
+    arrays."""
+    return FrontEndParams(rx=_carry(ReceiverParams, p.rx, device))
+
+
+def frontend_state_from_numpy(s, device: torch.device | str | None = None
+                              ) -> FrontEndState:
+    """The direct engine's :class:`FrontEndState` from a JAX one of numpy
+    arrays."""
+    return FrontEndState(rx=_carry(ReceiverState, s.rx, device))

@@ -1,6 +1,6 @@
 """Sample sources: fixed-size IQ block producers (the port's own copy of
-``webradio_tpu.io.source``, numpy only; the native tone source comes with
-the server's ``io/native.py``).
+``webradio_tpu.io.source``; :class:`NativeToneSource` synthesizes in the
+port's native ingest library, ``io/native.py``).
 
 The reference's ``SampleSource`` hierarchy (src/io/samplesource.h) couples
 sample production with the pull-through pipeline; here sources are plain
@@ -160,6 +160,63 @@ class ToneSource(SampleSource):
             )).astype(np.complex64)
         self._n0 += self.block_frames
         return z / max(1, len(self.carriers))
+
+
+class NativeToneSource(SampleSource):
+    """Off-GIL :class:`ToneSource`: the same carrier ensemble synthesized by
+    a paced C++ thread (``native/src/ingest.cpp`` ``wr_tone_*``), delivered
+    as ready ``[2, N]`` float32 plane blocks. The numpy source holds the
+    GIL while it synthesizes; this one costs the pump nothing, like a
+    hardware capture path (rtlsdrtuner.cxx:86-117).
+
+    :meth:`stop` may run while another thread waits in :meth:`read_block`:
+    the session frees its native object only after the reader has left
+    the native call (:class:`.native.NativeTone`), and the reader then
+    returns None."""
+
+    def __init__(self, carriers=None, noise: float = 0.01, seed: int = 0):
+        super().__init__()
+        self.carriers = list(carriers if carriers is not None
+                             else ToneSource.DEFAULT_CARRIERS)
+        self.noise = noise
+        self.seed = seed
+        self._session = None
+
+    def start(self) -> bool:
+        from . import native
+
+        if not native.available():
+            return False
+        try:
+            self._session = native.NativeTone(
+                self.sample_rate, self.block_frames, self.carriers,
+                self.noise, self.seed,
+            )
+        except RuntimeError:
+            return False
+        return super().start()
+
+    def stop(self) -> None:
+        super().stop()
+        session, self._session = self._session, None
+        if session is not None:
+            session.close()
+
+    @property
+    def dropped_blocks(self) -> int:
+        """Blocks the native ring dropped because no reader took them."""
+        session = self._session
+        return session.dropped_blocks if session is not None else 0
+
+    def read_block(self) -> np.ndarray | None:
+        while self._running:
+            session = self._session
+            if session is None:
+                return None
+            out = session.pop(timeout=1.0)
+            if out is not None:
+                return out
+        return None
 
 
 class FileSource(SampleSource):

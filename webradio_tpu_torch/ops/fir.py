@@ -9,8 +9,10 @@ shifted multiply-adds, with shared or per-channel coefficients.
 float32 matmuls against a banded (Toeplitz) weight matrix built on the host
 (:func:`toeplitz_weights`); the weight functions are numpy and bit-identical
 to the JAX package's. :func:`fir_dispatch` routes one call between the two
-forms. :func:`fir_decimate_banded_tf32x3_tm` is the plain emulation of the
-CUDA tails' tensor-core audio FIR.
+forms. :func:`overlap_save_decimate` is the frequency-domain form the
+direct engine takes under ``ChainConfig.use_overlap_save``.
+:func:`fir_decimate_banded_tf32x3_tm` is the plain emulation of the CUDA
+tails' tensor-core audio FIR.
 """
 
 from __future__ import annotations
@@ -254,3 +256,58 @@ def fir_decimate_banded_tf32x3_tm(
     win = ext.unfold(0, span, group)  # [n / group, C, span]
     y = matmul_tf32x3(band, win.transpose(1, 2).contiguous())
     return y.reshape(n // d, c), x[n - (k - 1):]
+
+
+def _next_pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p <<= 1
+    return p
+
+
+def overlap_save_decimate(
+    x: torch.Tensor,
+    coeff: torch.Tensor,
+    decimation: int,
+    history: torch.Tensor,
+    segment_len: int | None = None,
+    fft_len: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Frequency-domain decimating FIR (overlap-save), the contract of
+    :func:`fir_decimate`.
+
+    The input with its history prepended is cut into ``N / S`` segments of
+    ``L = fft_len`` samples overlapping by ``L - S >= K - 1``; each is
+    convolved circularly through ``torch.fft`` and the first ``K - 1``
+    wrapped outputs are discarded. Segment and transform lengths are the
+    JAX package's. Differs from the direct form by float32 FFT rounding.
+    """
+    k = coeff.shape[-1]
+    n = x.shape[-1]
+    _check_block(n, decimation)
+    if segment_len is None:
+        segment_len = min(4096, _next_pow2(n) if _next_pow2(n) <= n else n)
+        while n % segment_len:
+            segment_len //= 2
+    s = segment_len
+    if n % s:
+        raise ValueError(f"segment_len {s} must divide N {n}")
+    fft_n = fft_len or _next_pow2(s + k - 1)
+    if fft_n < s + k - 1:
+        raise ValueError("fft_len too small for segment + filter overlap")
+    num_seg = n // s
+
+    xext = torch.cat([history, x], dim=-1)  # [..., N + K - 1]
+    xpad = F.pad(xext, (0, (num_seg - 1) * s + fft_n - xext.shape[-1]))
+    segs = xpad.unfold(-1, fft_n, s)  # [..., num_seg, L]
+    # circular convolution with the design-order coefficients equals the
+    # reference's reversed-coefficient correlation at output offset K - 1
+    hf = torch.fft.fft(F.pad(coeff.to(torch.float32), (0, fft_n - k)).to(
+        torch.complex64))
+    if coeff.ndim > 1:
+        hf = hf[..., None, :]  # broadcast over segments
+    yf = torch.fft.ifft(torch.fft.fft(segs.to(torch.complex64)) * hf)
+    valid = yf[..., k - 1:k - 1 + s]  # [..., num_seg, S]
+    yfull = valid.reshape(valid.shape[:-2] + (num_seg * s,))
+    y = yfull[..., ::decimation].real.to(torch.float32).contiguous()
+    return y, x[..., n - (k - 1):].contiguous()

@@ -1,6 +1,8 @@
 """The block program on torch tensors — port of ``webradio_tpu.pipeline``.
 
-This slice ports the channelized serving step
-(:mod:`webradio_tpu_torch.pipeline.channelized`) and the two helpers it
-needs from ``frontend`` and ``state``. Import the submodules directly.
+Both serving engines: the direct engine (``state``, ``frontend``: every
+channel mixed and filtered from the wideband block) and the channelized
+engine (``channelized``: a shared polyphase filterbank and the fused
+receiver tails), with the catch-up scan (``stream``). Import the
+submodules directly.
 """

@@ -70,8 +70,8 @@ from ..ops.tail_tm import (
     fused_tail_tm,
     tail_after_mix_tm,
 )
-from .frontend import squelch_scale
-from .state import _squelch_array
+from .frontend import HostPipeline, squelch_scale
+from .state import _squelch_array, expand_controls
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -219,16 +219,9 @@ def make_channelized_params(
     if device is None:
         device = require_cuda()
     c = cfg.num_channels
-
-    def expand(v):
-        return list(v) if hasattr(v, "__len__") and not isinstance(v, str) else [v] * c
-
-    ifs = expand(if_hz)
-    ifbws = expand(if_bandwidth_hz)
-    afbws = expand(af_bandwidth_hz)
-    modes = expand(mode)
-    gains = expand(af_gain_db)
-    squelches = expand(squelch_db)
+    ifs, ifbws, afbws, modes, gains, squelches = expand_controls(
+        c, if_hz, if_bandwidth_hz, af_bandwidth_hz, mode, af_gain_db,
+        squelch_db)
     if not (len(ifs) == len(ifbws) == len(afbws) == len(modes) == c):
         raise ValueError("parameter lists must match num_channels")
 
@@ -536,102 +529,28 @@ def channelized_step_serving(
     return new_state, audio, spectrum_db(spectra[:, -1, :])
 
 
-class ChannelizedPipeline:
-    """Stateful wrapper with the JAX pipeline's double-buffered host
-    interface.
+class ChannelizedPipeline(HostPipeline):
+    """The channelized engine's pipeline: :func:`channelized_step_serving`
+    behind the double-buffered :class:`.frontend.HostPipeline` interface
+    (the JAX pipeline's); per-block audio ``[audio_frames, C]``."""
 
-    :meth:`process_host` copies a ``[2, N]`` float32 numpy block through a
-    pinned staging buffer to the device without blocking, runs the serving
-    step on the current CUDA stream and returns the PREVIOUS call's
-    ``(audio [audio_frames, C], latest_db [fft_size])`` as device tensors
-    (None on the first call); :meth:`flush` returns the last one.
-    :meth:`process_host_many` does the same for a backlog ``[k, 2, N]``
-    (audio ``[k, C, audio_frames]``). Two staging buffers per input shape
-    alternate, and a buffer is refilled only after the copy that last read
-    it has finished.
-
-    PyTorch compiles nothing, so there is no mode-set warm: a parameter
-    change, including a new demod law, takes effect at the next block.
-    """
-
-    #: per-block process_host audio orientation (as in the JAX pipeline)
     audio_time_major = True
 
     def __init__(self, cfg: ChannelizedConfig, params: ChannelizedParams):
-        self.cfg = cfg
-        self.params = params
-        self.device = params.pfb_weights.device
-        self.state = init_channelized_state(cfg, self.device)
-        self._pending = None
-        #: per input shape: [two pinned buffers, their last copies' events,
-        #: the slot to fill next]
-        self._staging: dict[tuple, list] = {}
+        super().__init__(cfg, params, params.pfb_weights.device)
 
-    def update_params(self, params: ChannelizedParams) -> None:
-        self.params = params
+    def _init_state(self) -> ChannelizedState:
+        return init_channelized_state(self.cfg, self.device)
+
+    def _serving_step(self, iq):
+        return channelized_step_serving(self.cfg, self.params, self.state,
+                                        iq)
 
     def update_params_slots(self, idx, sub: ChannelizedParams,
                             mode_set: tuple | None = None) -> None:
         """Incremental control write: a device-side scatter of the dirty
-        slots' columns (:func:`scatter_params_slots`). ``mode_set`` is
-        accepted for signature parity (see :func:`mode_set_of`)."""
+        slots' columns (:func:`scatter_params_slots`), IN PLACE. The caller
+        must not run it while a step that reads these parameters is being
+        dispatched on another thread. ``mode_set`` is accepted for
+        signature parity (see :func:`mode_set_of`)."""
         self.params = scatter_params_slots(self.params, idx, sub)
-
-    def _to_device(self, iq_planes: np.ndarray) -> torch.Tensor:
-        host = np.ascontiguousarray(iq_planes, dtype=np.float32)
-        if self.device.type != "cuda":
-            return torch.from_numpy(host).to(self.device)
-        stage = self._staging.get(host.shape)
-        if stage is None:
-            stage = self._staging[host.shape] = [
-                [torch.empty(host.shape, dtype=torch.float32,
-                             pin_memory=True) for _ in range(2)],
-                [None, None], 0]
-        bufs, copied, slot = stage
-        stage[2] = slot ^ 1
-        if copied[slot] is not None:
-            copied[slot].synchronize()  # its last copy has finished
-        bufs[slot].numpy()[...] = host
-        iq = torch.empty(host.shape, dtype=torch.float32, device=self.device)
-        iq.copy_(bufs[slot], non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
-        copied[slot] = event
-        return iq
-
-    def _swap_pending(self, audio, latest_db):
-        result = self._pending
-        self._pending = (audio, latest_db)
-        return result
-
-    def process_host(self, iq_planes: np.ndarray):
-        iq = self._to_device(iq_planes)
-        self.state, audio, latest_db = channelized_step_serving(
-            self.cfg, self.params, self.state, iq)
-        return self._swap_pending(audio, latest_db)
-
-    def process_host_many(self, blocks: np.ndarray):
-        """Catch-up path: a ``[k, 2, block_frames]`` backlog goes to the
-        device as ONE pinned copy and through
-        :func:`..stream.scan_serving`. Same double-buffered contract as
-        :meth:`process_host`; the previous result handed back may hold
-        audio ``[audio_frames, C]`` or ``[k, C, audio_frames]``."""
-        from .stream import scan_serving
-
-        self.state, audio, latest_db = scan_serving(
-            self.cfg, self.params, self.state, self._to_device(blocks))
-        return self._swap_pending(audio, latest_db)
-
-    def flush(self):
-        result = self._pending
-        self._pending = None
-        return result
-
-    def process_host_sync(self, iq_planes: np.ndarray):
-        out = self.process_host(iq_planes)
-        tail = self.flush()
-        return tail if out is None else out
-
-    def reset(self) -> None:
-        self.state = init_channelized_state(self.cfg, self.device)
-        self._pending = None

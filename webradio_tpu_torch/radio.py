@@ -1,0 +1,940 @@
+"""Topology / session management: front ends, receivers, the block pump
+(port of ``webradio_tpu.radio``).
+
+The reference models this as graph objects plus global registries
+(src/radio.{h,cxx}): a ``FrontEnd`` owns one tuner and a spectrum sink and a
+set of attached ``Receiver`` chains; ``Radio::run()`` pumps every tuner once
+per loop. Here a FrontEnd owns one *pipeline* (the direct or the
+channelized serving step on the card) with a fixed channel capacity;
+Receivers are control-plane slot views whose settings become the step's
+parameters.
+
+Control writes land between blocks. An HTTP thread that attaches,
+detaches or retunes a receiver designs the new parameters on the host and
+QUEUES them; the pump thread applies every queued write at the top of
+:meth:`FrontEnd.run_once`, before it dispatches the next step. The
+channelized engine's slot scatter writes its tensors in place, so a write
+made from another thread while a step is being dispatched could give one
+block half old and half new parameters; the queue rules that out.
+
+Device work never waits on the pump thread for the whole device: audio
+leaves the card only in the fan-out thread (one ``index_select`` of the
+subscribed rows, one copy into pinned host memory, a wait on a CUDA event
+recorded after that copy), profile samples wait on an event recorded
+after their step in a side thread, and the spectrum row is copied to the
+host on HTTP demand. Everything runs on the current (default) CUDA stream,
+so each copy is ordered after the step that made its input.
+
+Not ported yet, each raising NotImplementedError that names its ROADMAP.md
+item: ``engine="sharded"`` and ``multihost=True`` (the multi-device layer)
+and ``pfb_precision`` other than "highest" (the pfb tiers).
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import logging
+import threading
+import time
+
+import numpy as np
+import torch
+
+from . import require_cuda
+from .io.ring import BlockRing, CaptureThread
+from .io.tuner import Tuner
+from .ops.demod import MODES
+from .pipeline.channelized import (
+    ChannelizedConfig,
+    ChannelizedPipeline,
+    grow_channelized_state,
+    make_channelized_params,
+)
+from .pipeline.frontend import FrontEndPipeline
+from .pipeline.state import ChainConfig, grow_state, make_receiver_params
+
+#: "auto" engine switches to the shared polyphase filterbank once the
+#: channel batch is wide enough that per-channel wideband mixing dominates
+CHANNELIZED_AUTO_THRESHOLD = 16
+
+#: every Nth live block's dispatch->completion latency is sampled for
+#: /status, on a side thread (see FrontEnd._sample_step_async)
+PROFILE_SAMPLE_EVERY = 16
+
+#: ring backlog that triggers the catch-up scan (and the blocks per scan)
+CATCHUP_BLOCKS = 4
+
+#: device audio tensors the fan-out worker may hold while it fetches;
+#: overflow drops OLDEST (counted)
+FANOUT_QUEUE_DEPTH = 2
+
+log = logging.getLogger(__name__)
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to webradio_tpu_torch yet "
+        f"(ROADMAP.md, still to port: {item})")
+
+
+def _to_planes(block: np.ndarray) -> np.ndarray:
+    """Sample block -> contiguous float32 ``[2, N]`` planes.
+
+    Sources deliver complex64 ``[N]`` (Python drivers) or ready ``[2, N]``
+    float32 planes (native capture paths). Complex input converts through
+    the port's native deinterleaver when it builds, else numpy."""
+    if block.ndim == 2:
+        return np.ascontiguousarray(block, np.float32)
+    from .io import native
+
+    if native.available():
+        return native.convert_planes(block)
+    # complex64 is interleaved (re, im) float32 in memory
+    return np.ascontiguousarray(block.view(np.float32).reshape(-1, 2).T)
+
+
+def _fetch_audio_rows(audio: torch.Tensor, rows,
+                      time_major: bool = False) -> np.ndarray:
+    """The subscribed receivers' audio rows on the host: ONE
+    ``index_select`` of the rows on the device and ONE copy into pinned
+    host memory, in the calling (fan-out) thread, which then waits on a
+    CUDA event recorded after the copy.
+
+    ``time_major`` is the channelized serving layout (``[audio_frames,
+    C]``, channels are columns). Returns ``[k, audio_frames]`` for one
+    block, ``[blocks, k, audio_frames]`` for a catch-up scan's
+    ``[blocks, C, audio_frames]``."""
+    idx = torch.as_tensor(rows, dtype=torch.int64, device=audio.device)
+    src = audio.movedim(-1, -2) if time_major else audio
+    sel = src.index_select(-2, idx)  # contiguous [(blocks,) k, af]
+    if audio.device.type != "cuda":
+        return sel.numpy()
+    host = torch.empty(sel.shape, dtype=sel.dtype, pin_memory=True)
+    host.copy_(sel, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    done.synchronize()
+    return host.numpy()
+
+
+class CapacityError(RuntimeError):
+    """Attach past capacity where growth cannot run (the JAX package raises
+    it under multihost serving, which the port does not have yet; the HTTP
+    layer answers it with 409 Conflict)."""
+
+
+#: "argument not provided" sentinel for partial control writes
+UNSET = object()
+
+_uuid_lock = threading.Lock()
+_uuid_counters: dict[str, int] = {}
+
+
+def _next_uuid(kind: str) -> str:
+    """4-hex-digit counter UUIDs like the reference (radio.cxx:35-40),
+    counted per kind so the first tuner AND the first receiver are both
+    "0000" (what the reference UI hardcodes)."""
+    with _uuid_lock:
+        n = _uuid_counters.get(kind, 0)
+        _uuid_counters[kind] = n + 1
+        return f"{n:04x}"
+
+
+class DropOldestQueue:
+    """Bounded producer/consumer queue, drop-OLDEST on overflow with a drop
+    counter. ``put`` never blocks; ``get`` blocks until an item, close, or
+    timeout. After ``close()``, queued items still drain."""
+
+    def __init__(self, depth: int):
+        self.depth = int(depth)
+        self.dropped = 0
+        self._q: collections.deque = collections.deque()
+        self._cv = threading.Condition()
+        self._closed = False
+
+    def put(self, item) -> None:
+        with self._cv:
+            if self._closed:
+                return
+            if len(self._q) >= self.depth:
+                self._q.popleft()
+                self.dropped += 1
+            self._q.append(item)
+            self._cv.notify()
+
+    def get(self, timeout: float | None = None):
+        """Next item; None when closed-and-drained or on timeout."""
+        with self._cv:
+            while not self._q:
+                if self._closed:
+                    return None
+                if not self._cv.wait(timeout):
+                    return None
+            return self._q.popleft()
+
+    def clear(self) -> None:
+        with self._cv:
+            self._q.clear()
+
+    def close(self) -> None:
+        with self._cv:
+            self._closed = True
+            self._cv.notify_all()
+
+    @property
+    def closed(self) -> bool:
+        return self._closed
+
+
+class SinkWriter:
+    """Decouples a blocking local audio sink from the fan-out: rows are
+    enqueued (never blocking, drop-oldest) and a writer thread owns every
+    call into the sink, including the final ``close``."""
+
+    #: queue bound in audio blocks (~42.7 ms each at stock rates)
+    MAX_BLOCKS = 8
+
+    def __init__(self, sink, name: str):
+        self.sink = sink
+        self.failed = False
+        self._q = DropOldestQueue(self.MAX_BLOCKS)
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name=f"sink-{name}")
+        self._thread.start()
+
+    @property
+    def dropped(self) -> int:
+        return self._q.dropped
+
+    def write(self, row) -> None:
+        if not self.failed:
+            self._q.put(row)
+
+    def _run(self) -> None:
+        while True:
+            row = self._q.get()
+            if row is None:  # closed and drained
+                break
+            try:
+                self.sink.write(row)
+            except Exception:
+                log.exception("audio sink write failed; unbinding")
+                self.failed = True
+                self._q.clear()
+                break
+        try:
+            self.sink.close()
+        except Exception:
+            log.debug("audio sink close failed", exc_info=True)
+
+    def close(self) -> None:
+        self._q.close()
+
+
+class Receiver:
+    """One demodulation channel: a control-plane view of a pipeline slot.
+
+    Defaults mirror radio.cxx:78-82: 80 kHz channel passband, 8 kHz audio
+    passband, AM.
+    """
+
+    def __init__(self):
+        self.uuid = _next_uuid("receiver")
+        self.if_frequency = 0
+        self.if_bandwidth = 80_000
+        self.af_bandwidth = 8_000
+        # both functional here (dB); the reference surfaces them as
+        # constant 0 stubs (receiverhandler.cxx:118-119)
+        self.af_gain = 0
+        # dB threshold, or None = gate disabled (the default)
+        self.squelch_threshold = None
+        self.demodulator = "AM"
+        # optional local consumer of this receiver's audio rows (an object
+        # with write(row) and close()); written by the fan-out worker under
+        # _sink_lock
+        self.audio_sink = None
+        self._sink_lock = threading.Lock()
+        self.front_end: FrontEnd | None = None
+        Radio.receivers[self.uuid] = self
+
+    def set_front_end(self, fe: FrontEnd | None) -> None:
+        if self.front_end is not None:
+            self.front_end._detach(self)
+            self.front_end = None
+        if fe is not None:
+            fe._attach(self)
+            self.front_end = fe
+
+    def update(self, *, if_frequency=None, if_bandwidth=None,
+               af_bandwidth=None, demodulator=None, af_gain=None,
+               squelch_threshold=UNSET) -> bool:
+        """Apply a control write (PUT /receivers/<id>,
+        receiverhandler.cxx:125-140). Returns False on a bad field.
+
+        ``squelch_threshold``: absent = unchanged, ``None`` = gate off, a
+        dB value gates. Validate-then-apply: every field is checked before
+        any changes, so a rejected write leaves the receiver as it was.
+        """
+        staged = {}
+        try:
+            if if_frequency is not None:
+                staged["if_frequency"] = int(if_frequency)
+            if if_bandwidth is not None:
+                staged["if_bandwidth"] = int(if_bandwidth)
+            if af_bandwidth is not None:
+                staged["af_bandwidth"] = int(af_bandwidth)
+            if af_gain is not None:
+                staged["af_gain"] = int(af_gain)
+            if squelch_threshold is not UNSET:
+                staged["squelch_threshold"] = (
+                    None if squelch_threshold is None
+                    else float(squelch_threshold))
+        except (TypeError, ValueError):
+            return False
+        if staged.get("if_bandwidth", 1) <= 0:
+            return False
+        if staged.get("af_bandwidth", 1) <= 0:
+            return False
+        if demodulator is not None:
+            if demodulator not in MODES:
+                return False
+            staged["demodulator"] = demodulator
+        fe = self.front_end
+        if fe is None:
+            for field, value in staged.items():
+                setattr(self, field, value)
+            return True
+        # under the front end's control lock, so the fields and the
+        # parameters built from them are queued in the same order
+        with fe._ctrl_lock:
+            for field, value in staged.items():
+                setattr(self, field, value)
+            fe.rebuild_params(slots=fe.slots_of(self))
+        return True
+
+    def close(self) -> None:
+        self.set_front_end(None)
+        with self._sink_lock:
+            sink, self.audio_sink = self.audio_sink, None
+        if sink is not None:
+            try:
+                sink.close()
+            except Exception:
+                log.debug("receiver %s: audio sink close failed", self.uuid,
+                          exc_info=True)
+        Radio.receivers.pop(self.uuid, None)
+
+
+class FrontEnd:
+    """One tuner + spectrum + up to ``capacity`` receiver channels on one
+    device.
+
+    ``capacity`` is the step's channel batch width; receivers occupy slots,
+    and empty slots run as muted AM channels at IF 0 (their audio is never
+    consumed). Attaching past capacity doubles the width: the wider
+    pipeline is built off the pump thread and swapped in between blocks.
+    """
+
+    def __init__(self, tuner: Tuner, cfg: ChainConfig | None = None,
+                 capacity: int = 4, engine: str = "auto",
+                 fir_precision: str = "highest",
+                 pfb_precision: str = "highest",
+                 multihost: bool = False,
+                 device: torch.device | str | None = None):
+        """``engine``: "direct" (per-channel NCO + FIR, the reference
+        topology), "channelized" (shared polyphase filterbank, the scalable
+        path) or "auto" (channelized from CHANNELIZED_AUTO_THRESHOLD
+        channels). ``fir_precision``: the channelized engine's FIR tier
+        (every tier runs float32 on the card). ``device``: None is the CUDA
+        device, and an error where there is none."""
+        if engine == "sharded" or multihost:
+            raise _not_ported(
+                "engine='sharded' and multihost serving",
+                "the multi-device layer (parallel/*, torch.distributed)")
+        if engine not in ("auto", "direct", "channelized"):
+            raise ValueError(f"unknown engine {engine!r}")
+        if pfb_precision != "highest":
+            raise _not_ported(f"pfb_precision={pfb_precision!r}",
+                              "the pfb tiers")
+        self.device = torch.device(device) if device is not None \
+            else require_cuda()
+        self.uuid = _next_uuid("frontend")
+        self.tuner = tuner
+        self.engine = engine
+        self.fir_precision = fir_precision
+        self.pfb_precision = pfb_precision
+        base = cfg or ChainConfig()
+        self.cfg = dataclasses.replace(base, num_channels=capacity)
+        # the rate the device actually runs at (rtlsdrtuner.cxx:226-228):
+        # the DSP grid stays on the nominal rates, NCO/bin plans follow it
+        self.actual_sample_rate = self.cfg.sample_rate
+        self._slots: list[Receiver | None] = [None] * capacity
+        self.pipeline: FrontEndPipeline | ChannelizedPipeline | None = None
+        # control writes: designed under _ctrl_lock (one writer at a time,
+        # so they queue in the order their settings were made), queued
+        # under _queue_lock, and applied by the pump at the top of run_once
+        # (see apply_control), which never waits for a design
+        self._ctrl_lock = threading.RLock()
+        self._queue_lock = threading.Lock()
+        self._ctrl: list = []
+        # growth: _growth_lock guards the slot table's width, the grow
+        # thread and the pipeline waiting to be swapped in
+        self._growth_lock = threading.Lock()
+        self._grow_thread: threading.Thread | None = None
+        self._pending_swap = None
+        self.ring = BlockRing()
+        self._capture: CaptureThread | None = None
+        self.running = False
+        # latest spectrum dB row (on the device) for HTTP readers
+        self._spec_lock = threading.Lock()
+        self._spectrum_db: torch.Tensor | None = None
+        # profiling: the pump dispatches block N and hands on block N-1, so
+        # per-call wall time measures the HANDOFF; every
+        # PROFILE_SAMPLE_EVERY-th block is timed from dispatch to the
+        # completion of an event recorded after its step, in a side thread
+        self.block_count = 0
+        self.last_dispatch_ns = 0
+        self.last_step_ns = 0
+        self.total_step_ns = 0
+        self.step_samples = 0
+        self._sampler: threading.Thread | None = None
+        self._fanout = DropOldestQueue(FANOUT_QUEUE_DEPTH)
+        self._fanout_thread: threading.Thread | None = None
+        #: (what failed, the error) of the fan-out worker or of a growth
+        #: build; the next run_once raises it
+        self._fault: tuple[str, BaseException] | None = None
+        # uniform (if_bw, af_bw) the resident shared FIR kernels were
+        # designed from at the last FULL build; the incremental scatter
+        # requires dirty slots to keep exactly these
+        self._shared_bw: tuple | None = None
+        Radio.front_ends[self.uuid] = self
+
+    # ---- receiver slots -------------------------------------------
+    @property
+    def receivers(self) -> dict[str, Receiver]:
+        return {r.uuid: r for r in self._slots if r is not None}
+
+    def _attach(self, rx: Receiver) -> None:
+        with self._ctrl_lock:
+            for i, slot in enumerate(self._slots):
+                if slot is None:
+                    self._slots[i] = rx
+                    self.rebuild_params(slots=[i])
+                    return
+            # grow: double the slot table. While live, the serving
+            # pipeline keeps the old width and a thread builds the wider
+            # one; the pump swaps it in between blocks with carried state
+            with self._growth_lock:
+                self._slots.extend([None] * len(self._slots))
+                self.cfg = dataclasses.replace(self.cfg,
+                                               num_channels=len(self._slots))
+                self._slots[len(self._slots) // 2] = rx
+                live = self.running and self.pipeline is not None
+                if live and self._grow_thread is None:
+                    self._grow_thread = threading.Thread(
+                        target=self._grow_worker, daemon=True,
+                        name=f"grow-{self.uuid}")
+                    self._grow_thread.start()
+                elif not live:
+                    self.pipeline = None  # rebuilt at the new width below
+            self.rebuild_params()
+
+    def _detach(self, rx: Receiver) -> None:
+        with self._ctrl_lock:
+            cleared = []
+            for i, slot in enumerate(self._slots):
+                if slot is rx:
+                    self._slots[i] = None
+                    cleared.append(i)
+            self.rebuild_params(slots=cleared or None)
+
+    @property
+    def fanout_dropped(self) -> int:
+        """Fan-out queue overflow (device audio dropped before its consumer
+        rows could be fetched) — /status."""
+        return self._fanout.dropped
+
+    def slots_of(self, rx: Receiver) -> list[int] | None:
+        """Slot indices of ``rx``, or None when it is not attached (a
+        control write racing a DELETE then takes the full rebuild)."""
+        found = [i for i, s in enumerate(self._slots) if s is rx]
+        return found or None
+
+    # ---- parameters ------------------------------------------------
+    def _use_channelized(self, width: int | None = None) -> bool:
+        if self.engine == "channelized":
+            return True
+        if self.engine == "direct":
+            return False
+        w = self.cfg.num_channels if width is None else width
+        return w >= CHANNELIZED_AUTO_THRESHOLD
+
+    def _slot_settings(self, width: int):
+        """Control values of the first ``width`` slots; empty slots run as
+        muted defaults with the first occupied slot's law."""
+        fill_mode = next(
+            (s.demodulator for s in self._slots[:width] if s is not None),
+            "AM")
+        ifs, ifbw, afbw, modes = [], [], [], []
+        gains, squelches = [], []
+        for slot in self._slots[:width]:
+            if slot is None:
+                ifs.append(0)
+                ifbw.append(80_000)
+                afbw.append(8_000)
+                modes.append(fill_mode)
+                gains.append(0)
+                squelches.append(None)
+            else:
+                ifs.append(slot.if_frequency)
+                ifbw.append(slot.if_bandwidth)
+                afbw.append(slot.af_bandwidth)
+                modes.append(slot.demodulator)
+                gains.append(slot.af_gain)
+                squelches.append(slot.squelch_threshold)
+        return ifs, ifbw, afbw, modes, gains, squelches
+
+    def _channelized_cfg(self, width: int) -> ChannelizedConfig:
+        return ChannelizedConfig(
+            sample_rate=self.cfg.sample_rate,
+            channel_rate=self.cfg.channel_rate,
+            audio_rate=self.cfg.audio_rate,
+            block_frames=self.cfg.block_frames,
+            num_channels=width,
+            fft_size=self.cfg.fft_size,
+            fir_precision=self.fir_precision,
+            pfb_precision=self.pfb_precision,
+            fir_design=self.cfg.fir_design,
+        )
+
+    def _make_params(self, width: int, settings=None):
+        """Parameters for a ``width``-channel pipeline of the engine that
+        width selects, on the front end's device."""
+        settings = settings or self._slot_settings(width)
+        if self._use_channelized(width):
+            return make_channelized_params(
+                self._channelized_cfg(width), *settings,
+                actual_sample_rate=self.actual_sample_rate,
+                device=self.device)
+        return make_receiver_params(
+            dataclasses.replace(self.cfg, num_channels=width), *settings,
+            actual_sample_rate=self.actual_sample_rate, device=self.device)
+
+    def _build_pipeline(self, width: int, settings=None):
+        """A fresh pipeline at ``width`` channels."""
+        params = self._make_params(width, settings)
+        if self._use_channelized(width):
+            return ChannelizedPipeline(self._channelized_cfg(width), params)
+        return FrontEndPipeline(
+            dataclasses.replace(self.cfg, num_channels=width), params)
+
+    def _note_shared_bw(self, width: int) -> None:
+        _, ifbw, afbw, *_ = self._slot_settings(width)
+        self._shared_bw = ((ifbw[0], afbw[0])
+                           if len(set(ifbw)) == 1 and len(set(afbw)) == 1
+                           else None)
+
+    def rebuild_params(self, slots: list[int] | None = None) -> None:
+        """Turn control-plane settings into the step's parameters, applied
+        by the pump before its next block (:meth:`apply_control`).
+
+        While a growth build is in flight the serving pipeline is narrower
+        than the slot table; parameters are built at the serving width and
+        the swap catches the new slots up. ``slots`` names the dirty slots
+        when the caller knows them: on the channelized engine an
+        INCREMENTAL scatter of just those columns is queued
+        (:func:`..pipeline.channelized.scatter_params_slots`; at C=32,768 a
+        full rebuild re-designs and re-uploads 84 MB of filterbank weights,
+        the scatter ~3 KB), unless the change could alter the parameters'
+        structure (a bandwidth that leaves the shared FIR kernels)."""
+        with self._ctrl_lock:
+            if self.pipeline is None:
+                self.pipeline = self._build_pipeline(self.cfg.num_channels)
+                self._note_shared_bw(self.cfg.num_channels)
+                return
+            pipe = self.pipeline
+            width = pipe.cfg.num_channels
+            if (slots
+                    and isinstance(pipe, ChannelizedPipeline)
+                    and all(0 <= s < width for s in slots)
+                    and self._shared_bw is not None):
+                settings = self._slot_settings(width)
+                ifbw, afbw = settings[1], settings[2]
+                if all(ifbw[s] == self._shared_bw[0]
+                       and afbw[s] == self._shared_bw[1] for s in slots):
+                    sub = make_channelized_params(
+                        dataclasses.replace(pipe.cfg,
+                                            num_channels=len(slots)),
+                        *([v[s] for s in slots] for v in settings),
+                        actual_sample_rate=self.actual_sample_rate,
+                        device="cpu")
+                    idx = list(slots)
+                    self._queue(pipe,
+                                lambda p: p.update_params_slots(idx, sub))
+                    return
+            self._note_shared_bw(width)
+            params = self._make_params(width)
+            self._queue(pipe, lambda p: p.update_params(params))
+
+    def _queue(self, pipe, apply) -> None:
+        with self._queue_lock:
+            self._ctrl.append((pipe, apply))
+
+    def apply_control(self) -> None:
+        """Apply the queued control writes to the serving pipeline, in the
+        order they were made. Called by the pump thread between blocks (and
+        before the first); a write built for a pipeline that has since
+        been swapped out is dropped, since the swap rebuilds from the
+        current settings."""
+        with self._queue_lock:
+            queued, self._ctrl = self._ctrl, []
+        pipe = self.pipeline
+        for target, apply in queued:
+            if target is pipe:
+                apply(pipe)
+
+    # ---- lifecycle --------------------------------------------------
+    def start(self) -> bool:
+        if self.running:
+            return True
+        self.tuner.set_sample_rate(self.cfg.sample_rate)
+        self.tuner.set_block_frames(self.cfg.block_frames)
+        if not self.tuner.start():
+            log.error("front end %s: tuner failed to start", self.uuid)
+            return False
+        try:
+            eff = self.tuner.effective_sample_rate
+            if eff != self.actual_sample_rate:
+                self.actual_sample_rate = eff
+                if eff != self.cfg.sample_rate:
+                    log.warning(
+                        "front end %s: device sample rate %d Hz (requested "
+                        "%d) — frequency plan follows the actual rate",
+                        self.uuid, eff, self.cfg.sample_rate)
+                if self.pipeline is not None:
+                    self.rebuild_params()
+            if self.pipeline is None:
+                self.rebuild_params()
+            self.apply_control()
+            # one zero block through the step and the fan-out fetch before
+            # capture starts: builds the CUDA kernels where the step runs
+            # one (a build failure stops the start here), primes the
+            # pinned staging buffers and the allocator
+            log.info("front end %s: warming pipeline", self.uuid)
+            t0 = time.perf_counter()
+            out = self.pipeline.process_host_sync(
+                np.zeros((2, self.cfg.block_frames), np.float32))
+            _fetch_audio_rows(out[0], [0], self.pipeline.audio_time_major)
+            self.pipeline.reset()
+            log.info("front end %s: pipeline warm in %.1fs", self.uuid,
+                     time.perf_counter() - t0)
+        except BaseException:
+            self.tuner.stop()
+            raise
+        self.ring = BlockRing()
+        self._capture = CaptureThread(self.tuner, self.ring)
+        self._capture.start()
+        self.running = True
+        self._fault = None
+        self._fanout = DropOldestQueue(FANOUT_QUEUE_DEPTH)
+        self._fanout_thread = threading.Thread(
+            target=self._fanout_worker, daemon=True,
+            name=f"fanout-{self.uuid}")
+        self._fanout_thread.start()
+        self.started_monotonic = time.monotonic()
+        self._blocks_at_start = self.block_count
+        return True
+
+    def _grow_worker(self) -> None:
+        """Build the grown pipeline off the pump thread, then hand it to the
+        pump. If capacity grew AGAIN meanwhile, loop and rebuild at the
+        latest width; only a pipeline matching the slot table is published.
+        One zero block through the new pipeline moves first-call costs (a
+        kernel build where the grown width first selects a kernel, pinned
+        buffers) off the pump."""
+        while True:
+            with self._growth_lock:
+                target = self.cfg.num_channels
+            log.info("front end %s: growing to %d channels", self.uuid,
+                     target)
+            t0 = time.perf_counter()
+            try:
+                with self._ctrl_lock:
+                    settings = self._slot_settings(target)
+                pipe = self._build_pipeline(target, settings)
+                pipe.process_host_sync(
+                    np.zeros((2, self.cfg.block_frames), np.float32))
+                pipe.reset()
+            except BaseException as e:
+                # the wider pipeline is the only one that serves the new
+                # slots: the pump stops at its next block (see run_once)
+                log.exception("front end %s: growth build failed", self.uuid)
+                self._fault = ("growth build", e)
+                with self._growth_lock:
+                    self._grow_thread = None
+                return
+            with self._growth_lock:
+                if self.cfg.num_channels == target:
+                    self._pending_swap = pipe
+                    self._grow_thread = None
+                    log.info("front end %s: %d-channel pipeline ready in "
+                             "%.1fs, swapping at the next block", self.uuid,
+                             target, time.perf_counter() - t0)
+                    return
+
+    def _swap_grown_pipeline(self) -> None:
+        """Pump-thread half of growth: publish the old pipeline's in-flight
+        block, carry its DSP state into the grown one (new slots start from
+        zeros), swap, and rebuild from the current settings."""
+        with self._growth_lock:
+            new_pipe, self._pending_swap = self._pending_swap, None
+        if new_pipe is None:
+            return
+        old = self.pipeline
+        leftover = old.flush()
+        if leftover is not None:
+            self._publish(leftover)  # in the OLD pipeline's audio layout
+        width = new_pipe.cfg.num_channels
+        if isinstance(old, ChannelizedPipeline) and isinstance(
+                new_pipe, ChannelizedPipeline):
+            new_pipe.state = grow_channelized_state(old.state, width)
+        elif isinstance(old, FrontEndPipeline) and isinstance(
+                new_pipe, FrontEndPipeline):
+            new_pipe.state = grow_state(old.state, width)
+        else:
+            # engine flip (direct -> channelized past the auto threshold):
+            # the carries do not carry over; existing channels see one
+            # FIR-length transient
+            log.info("front end %s: engine changed across growth; state "
+                     "restarts fresh", self.uuid)
+        with self._ctrl_lock:
+            self.pipeline = new_pipe
+            self.rebuild_params()  # control writes made during the build
+
+    def stop(self) -> None:
+        if not self.running:
+            return
+        self.running = False
+        if self._capture:
+            self._capture.stop()
+        # tuner.stop() unblocks an in-flight read; join the capture thread
+        # afterwards so no reader outlives its device handle
+        self.tuner.stop()
+        if self._capture:
+            self._capture.join(timeout=5.0)
+            self._capture = None
+        self.ring.close()
+        if self._sampler is not None:
+            self._sampler.join(timeout=2.0)
+            self._sampler = None
+        if self._fanout_thread is not None:
+            self._fanout.close()  # worker drains what's queued, then exits
+            self._fanout_thread.join(timeout=2.0)
+            self._fanout_thread = None
+
+    # ---- the block pump ---------------------------------------------
+    def run_once(self, timeout: float = 1.0) -> bool:
+        """Process one block: control writes -> ingest -> step -> fan out
+        audio/spectrum. Blocks until the capture ring has a block
+        (rtlsdrtuner.cxx:265-285). An error of the step, or of the fan-out
+        worker or a growth build since the last block, propagates: nothing
+        here carries on past a failed device step."""
+        if self._fault is not None:
+            (what, fault), self._fault = self._fault, None
+            raise RuntimeError(
+                f"front end {self.uuid}: {what} failed") from fault
+        block = self.ring.get(timeout)
+        if block is None:
+            return False
+        if self._pending_swap is not None:
+            self._swap_grown_pipeline()
+        self.apply_control()
+        iq_planes = _to_planes(block)
+        t0 = time.perf_counter_ns()
+        n_blocks = 1
+        if self.ring.backlog >= CATCHUP_BLOCKS - 1:
+            # a backlog built up (a stall): run it as one catch-up scan.
+            # Torch compiles nothing, so the scan is always ready.
+            extra = self.ring.drain(CATCHUP_BLOCKS - 1)
+            blocks = np.stack([iq_planes] + [_to_planes(b) for b in extra])
+            out = self.pipeline.process_host_many(blocks)
+            n_blocks = blocks.shape[0]
+        else:
+            out = self.pipeline.process_host(iq_planes)
+        self.last_dispatch_ns = time.perf_counter_ns() - t0
+        self.block_count += n_blocks
+        if (self.block_count == 1
+                or self.block_count % PROFILE_SAMPLE_EVERY == 0):
+            event = None
+            if self.device.type == "cuda":
+                event = torch.cuda.Event()
+                event.record()  # completes when this block's step has run
+            self._sample_step_async(t0, event)
+        if out is None:
+            return True  # pipeline priming: results arrive next block
+        self._publish(out)
+        return True
+
+    def _sample_step_async(self, t0_ns: int, event) -> None:
+        """Time one block from its dispatch to the completion of the event
+        recorded after its step, in a side thread (the pump never waits)."""
+        if self._sampler is not None and self._sampler.is_alive():
+            return  # previous sample still in flight
+
+        def run():
+            try:
+                if event is not None:
+                    event.synchronize()
+            except Exception:
+                return  # teardown race: sampling is best-effort
+            dt = time.perf_counter_ns() - t0_ns
+            self.last_step_ns = dt
+            self.total_step_ns += dt
+            self.step_samples += 1
+
+        self._sampler = threading.Thread(target=run, daemon=True,
+                                         name=f"profile-{self.uuid}")
+        self._sampler.start()
+
+    def _publish(self, out) -> None:
+        """Hand (audio, spectrum) to HTTP readers. The audio stays on the
+        device: the pump records which rows have consumers and queues the
+        tensor for the fan-out worker; with no consumers nothing is queued
+        (the reference's zero-consumer no-op, audiostream.cxx:67-68). The
+        queue holds the tensor, so its memory is not reused before the
+        worker's gather has read it."""
+        from .web.audiostream import AudioStreamManager
+
+        audio, latest_db = out
+        with self._spec_lock:
+            self._spectrum_db = latest_db
+        # per-block channelized serving audio is time-major [af, C]; the
+        # catch-up scan [k, C, af] and the direct engine are channel-major
+        tm = audio.ndim == 2 and self.pipeline.audio_time_major
+        width = audio.shape[1] if (tm or audio.ndim == 3) else audio.shape[0]
+        rows = [
+            i for i, rx in enumerate(self._slots[:width])
+            if rx is not None
+            and (AudioStreamManager.has_consumers(rx.uuid)
+                 or rx.audio_sink is not None)
+        ]
+        if rows:
+            self._fanout.put((audio, tuple(rows), tm))
+
+    def _fanout_worker(self) -> None:
+        """Audio fan-out off the pump thread (see _publish)."""
+        while True:
+            item = self._fanout.get(timeout=0.5)
+            if item is None:
+                if self._fanout.closed or not self.running:
+                    return
+                continue
+            audio, rows, tm = item
+            try:
+                sel = _fetch_audio_rows(audio, rows, tm)
+            except BaseException as e:
+                log.exception("front end %s: fan-out fetch failed", self.uuid)
+                self._fault = ("audio fan-out", e)
+                return
+            if sel.ndim == 3:  # catch-up scan: [blocks, k, af]
+                for b in range(sel.shape[0]):
+                    self._deliver_rows(rows, sel[b])
+            else:
+                self._deliver_rows(rows, sel)
+
+    def _deliver_rows(self, rows, sel) -> None:
+        """Push fetched audio rows to stream consumers and local sinks."""
+        from .web.audiostream import AudioStreamManager
+
+        for k, i in enumerate(rows):
+            rx = self._slots[i] if i < len(self._slots) else None
+            if rx is None:
+                continue
+            row = sel[k]
+            if AudioStreamManager.has_consumers(rx.uuid):
+                AudioStreamManager.publish(rx.uuid, row, self.cfg.audio_rate)
+            if rx.audio_sink is not None:
+                with rx._sink_lock:
+                    sink = rx.audio_sink
+                    if sink is None:
+                        continue
+                    try:
+                        sink.write(row)
+                        bad = getattr(sink, "failed", False)
+                    except Exception:
+                        log.exception("receiver %s: audio sink write failed;"
+                                      " unbinding", rx.uuid)
+                        bad = True
+                    if bad:
+                        rx.audio_sink = None
+                        try:
+                            sink.close()
+                        except Exception:
+                            pass
+
+    # ---- readers (HTTP threads) ---------------------------------------
+    def get_spectrum_db(self) -> np.ndarray:
+        """Latest dB spectrum, ascending frequency (spectrumsink.cxx:125),
+        copied from the device on demand: the UI polls at 5 Hz while blocks
+        arrive at ~23 Hz."""
+        with self._spec_lock:
+            spec = self._spectrum_db
+        if spec is None:
+            return np.full(self.cfg.fft_size, -10000.0, np.float32)
+        return spec.cpu().numpy().copy()
+
+    def profile_ns_per_frame(self) -> float:
+        """Sampled dispatch-to-completion cost per input frame
+        (dspblock.cxx:93-104's metric)."""
+        if self.step_samples == 0:
+            return 0.0
+        return self.total_step_ns / (self.step_samples * self.cfg.block_frames)
+
+    def throughput_factor(self) -> float | None:
+        """Processed signal time / wall time since capture started: ~1.0
+        while keeping up with a paced source, below when blocks drop."""
+        blocks = self.block_count - getattr(self, "_blocks_at_start", 0)
+        if not self.running or blocks <= 0:
+            return None
+        elapsed = time.monotonic() - self.started_monotonic
+        if elapsed <= 0:
+            return None
+        return blocks * self.cfg.block_seconds / elapsed
+
+    def close(self) -> None:
+        self.stop()
+        for rx in list(self.receivers.values()):
+            rx.close()
+        Radio.front_ends.pop(self.uuid, None)
+
+
+class Radio:
+    """Global registries (radio.cxx:32-60); the pump is the app's."""
+
+    front_ends: dict[str, FrontEnd] = {}
+    receivers: dict[str, Receiver] = {}
+
+    @classmethod
+    def profile(cls) -> None:
+        for fe in cls.front_ends.values():
+            log.info(
+                "frontend %s: %.1f ns/frame (%.2fx realtime), %d blocks, "
+                "%d dropped",
+                fe.uuid,
+                fe.profile_ns_per_frame(),
+                (1e9 / fe.cfg.sample_rate)
+                / max(fe.profile_ns_per_frame(), 1e-9),
+                fe.block_count,
+                fe.ring.dropped_blocks,
+            )
+
+    @classmethod
+    def reset(cls) -> None:
+        """Tear down everything (tests)."""
+        for fe in list(cls.front_ends.values()):
+            fe.close()
+        for rx in list(cls.receivers.values()):
+            rx.close()
+        cls.front_ends.clear()
+        cls.receivers.clear()
