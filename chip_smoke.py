@@ -19,7 +19,8 @@ Phases (each fails the run on error):
    and the audio held against the same step with the tail's plain version;
 5. timing of the main path: ms/block at C=1,024 and C=16,384, one block at
    a time on CUDA events and back to back on the host clock, and the
-   device's idle share from ``torch.profiler`` device events;
+   device's idle share from ``torch.profiler`` device events (a profiler
+   window that saw kernels launched but recorded no kernel event fails);
 6. the other paths through ``process_host`` at C=1,024, each with its
    launch counts and its audio held against the plain tail: (a) mixed
    bandwidths through ``fused_receiver_tail`` and through the plain
@@ -28,21 +29,42 @@ Phases (each fails the run on error):
    (``process_host_many``), capacity growth and slot scatter;
 7. timing of the other paths: back-to-back ms/block of (a), (b), (c) at
    C=1,024, and of (c) against the packed path at C=16,384 in turns;
-8. the server: the port's ``RadioApp`` in this process on the card (no
-   device named), HTTP on 127.0.0.1, two tone tuners for about ten seconds
-   of real-time serving: tuner 0 at C=16,384 (channelized, every slot at
-   the default bandwidths, so kernel #1 runs every block) with AM, FM,
-   USB and LSB receivers, tuner 1 the demo topology at capacity 4 (the
-   direct engine). Requests: /status, /tuners, both waterfalls; two
-   seconds of WAV from the AM and FM receivers of both tuners (1 kHz and
-   440 Hz within 2 Hz), a PUT moving tuner 0's AM receiver to FM at +100
-   kHz (then 440 Hz), a POST and a DELETE of a receiver, a /profile trace;
-   kernel #1's launches against tuner 0's blocks, and per tuner the
-   blocks, drops, the server's own real-time factor and ms/block, and the
-   device's idle share in a torch.profiler window during serving. Drops of
-   the ring and of the tone source are counted by span: start-up, the
-   profiler window, the /profile trace, and serving (everything else),
-   which must drop no block.
+8. the filterbank tiers (``pfb_precision``: highest, u8exact, default,
+   high, bf16) on the main configuration at C=1,024 and C=16,384, fed
+   8-bit-grid blocks: each tier's product SNR against a float64 product
+   and its CUDA-event ms, the step's back-to-back ms/block with kernel #1
+   once a block, the tones, and the audio against the "highest" tier's;
+   kernel #1 and #2 on the "bf16" tier's bfloat16 product and #3 at
+   "default" and "high" against their plain versions (#3 by the tier rule:
+   audio SNR against the exactly made product within 0.5 dB of the plain
+   version's), each on its path with its launches counted;
+9. the headline topology, ``examples/headline_monitor.json``'s front end:
+   C=69,632, 16 blocks of 8-bit-grid input back to back at u8exact,
+   highest and bf16: ms/block, real-time factor (u8exact must be above 1),
+   kernel #1 once a block, the AM and FM tones, peak device memory;
+10. the server: the port's ``RadioApp`` in this process on the card (no
+   device named), HTTP on 127.0.0.1, three tone tuners for about ten
+   seconds of real-time serving: tuner 0 at C=16,384 (channelized, every
+   slot at the default bandwidths, so kernel #1 runs every block) with AM,
+   FM, USB and LSB receivers, tuner 1 the demo topology at capacity 4 (the
+   direct engine), tuner 2 channelized at 256 slots, all taken. Requests:
+   /status, /tuners, the waterfalls; two seconds of WAV from the AM and FM
+   receivers of tuners 0 and 1 (1 kHz and 440 Hz within 2 Hz), a PUT
+   moving tuner 0's AM receiver to FM at +100 kHz (then 440 Hz), a POST
+   and a DELETE of a receiver; a POST that grows tuner 2 to 512 slots (the
+   grown pipeline's warm block is the first to launch kernel #1 there; the
+   new receiver's 1 kHz heard after the swap); a forced stall of tuner 0
+   (its service held until its ring holds four blocks) that makes the pump
+   run ``process_host_many``; a 1 s torch.profiler window and a /profile
+   trace, each failing where it saw blocks served but recorded no kernel
+   event, with the profiler's start, stop and export/parse ms. Kernel #1's
+   launches against the blocks of tuner 0 and of the grown tuner 2, and per
+   tuner the blocks, drops, the server's own real-time factor and
+   ms/block, the pump's longest gap in each step, and the device's idle
+   share in the window. Drops of the ring and of the tone source are
+   counted by span: start-up, the profiler window, the /profile trace, and
+   serving (everything else, growth and catch-up included), which must
+   drop no block.
 
 Prints a ``{"kernels": [...]}`` line and, last, a ``{"ok": true, ...}``
 line. Exits non-zero, without a result, where torch sees no CUDA device.
@@ -69,12 +91,23 @@ TIMED_BLOCKS = 24
 PATH_BLOCKS = 8  # blocks through each of the paths (a) and (c)
 PATH_TIMED_BLOCKS = 8
 SERVER_SECONDS = 10.0  # real-time serving in the server phase
+GROW_FROM = 256  # the server's growing tuner: 256 slots, then 512
 HEAR_SECONDS = 2.0  # WAV audio read per receiver
 TONE_TOLERANCE_HZ = 2.0
 # the card's published peaks (NVIDIA H100 SXM data sheet): float32 outside
-# the tensor cores, and device memory
+# the tensor cores, bfloat16 on them (dense), and device memory
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
+# the filterbank tiers (ops/channelizer.py), and the headline topology:
+# examples/headline_monitor.json's front end
+TIERS = ("highest", "u8exact", "default", "high", "bf16")
+HEADLINE_CHANNELS = 69_632
+HEADLINE_TIERS = ("u8exact", "highest", "bf16")
+HEADLINE_BLOCKS = 16
+# the tier rule (PERF.md section 2): a lossy kernel's audio SNR against the
+# exactly made product within this of its plain version's
+SNR_SLACK_DB = 0.5
 # kernel against plain version, the CPU tests' bounds (tests/test_torch_*)
 BOUNDS = {"audio48": 1e-5, "hist_i": 1e-6, "hist_q": 1e-6,
           "demod_prev": 1e-6, "audio_hist": 1e-5}
@@ -84,6 +117,10 @@ POWER_RTOL = 1e-5
 # order: the products then differ by float32 rounding of a 320-term sum at
 # unit level, so the mixed carries and the FM lag get 2e-6
 PFB_BOUNDS = dict(BOUNDS, hist_i=2e-6, hist_q=2e-6, demod_prev=2e-6)
+# kernel #3 at a lossy tier makes the tier's law on the tensor cores, the
+# plain version the same law with cuBLAS's sums: for "high" three products,
+# each summed in its own order, so the carries get twice PFB_BOUNDS' 2e-6
+TIER_PFB_BOUNDS = dict(BOUNDS, hist_i=4e-6, hist_q=4e-6, demod_prev=4e-6)
 # the serving step with the kernel against the same step with the plain tail
 STEP_AUDIO_BOUND = 1e-5
 # FM samples a branch-cut flip may move (see audio_mismatch), as a fraction
@@ -164,35 +201,56 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_profile(step, n: int, cpu: bool = True):
+def device_profile(step, n: int, cpu: bool = True) -> dict:
     """Run ``step(i)`` for ``i < n`` back to back under ``torch.profiler``
     and read the device's own timeline: only kernel, memcpy and memset
     events (host-side ``aten::`` rows are not device time). Returns
-    ``(busy ms/block, window ms/block, idle share, top kernels)`` where the
-    window runs from the first device event's start to the last one's end;
-    all None where the profiler saw no device event. ``cpu=False`` records
-    the device alone (lighter on the host, for a window of serving)."""
+    ``busy`` / ``window`` ms per block (the window runs from the first
+    device event's start to the last one's end), ``idle`` share, ``top``
+    kernels, the ``kernels`` and ``copies`` events it holds, and what the
+    profiler's ``start``, ``stop`` and trace ``parse`` took
+    (``timings_ms``); busy, window and idle are None where the profiler
+    saw no device event. ``cpu=False`` records the device alone (lighter
+    on the host, for a window of serving)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
-    with profile(activities=acts) as prof:
-        for i in range(n):
-            step(i)
-        torch.cuda.synchronize()
+    prof = profile(activities=acts)
+    timings = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        timings[name] = 1e3 * (time.perf_counter() - t0)
+        return out
+
+    timed("start", prof.start)
+    for i in range(n):
+        step(i)
+    torch.cuda.synchronize()
+    timed("stop", prof.stop)
+    events = timed("parse", prof.events)
     spans = []
     per_name: dict[str, float] = {}
-    for e in prof.events():
+    kernels = copies = 0
+    for e in events:
         if e.device_type != DeviceType.CUDA:
             continue
         if "annotation" in str(getattr(e, "activity_type", "")).lower():
             continue  # user ranges drawn on the device row, not device work
+        if e.name.startswith(("Memcpy", "Memset")):
+            copies += 1
+        else:
+            kernels += 1
         t0, t1 = e.time_range.start, e.time_range.end
         spans.append((t0, t1))
         per_name[e.name] = per_name.get(e.name, 0.0) + (t1 - t0)
+    out = {"busy": None, "window": None, "idle": None, "top": [],
+           "kernels": kernels, "copies": copies, "timings_ms": timings}
     if not spans:
-        return None, None, None, []
+        return out
     spans.sort()
     busy, cur0, cur1 = 0.0, spans[0][0], spans[0][1]
     for t0, t1 in spans[1:]:  # union, so overlapping streams count once
@@ -204,8 +262,23 @@ def device_profile(step, n: int, cpu: bool = True):
     busy += cur1 - cur0
     window = cur1 - spans[0][0]
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:6]
-    top = [(name[:60], us / 1e3 / n) for name, us in top]
-    return busy / 1e3 / n, window / 1e3 / n, 1.0 - busy / window, top
+    out.update(busy=busy / 1e3 / n, window=window / 1e3 / n,
+               idle=1.0 - busy / window,
+               top=[(name[:60], us / 1e3 / n) for name, us in top])
+    return out
+
+
+def expect_kernel_events(tag, prof, launched):
+    """Fail where a profiler window saw work launched (blocks served, or a
+    wrapper's count rising) but its trace holds no kernel event: a profiler
+    fault, never a reading."""
+    log(f"  {tag}: profiler start {prof['timings_ms']['start']:.1f} ms, "
+        f"stop {prof['timings_ms']['stop']:.1f} ms, parse "
+        f"{prof['timings_ms']['parse']:.1f} ms; {prof['kernels']} kernel and "
+        f"{prof['copies']} copy events for {launched} launched")
+    if launched and not prof["kernels"]:
+        raise AssertionError(f"{tag}: the profiler saw {launched} launched "
+                             f"but recorded no kernel event")
 
 
 def tone_blocks(n: int, seed: int = 0, block_frames: int = BLOCK_FRAMES,
@@ -296,11 +369,11 @@ def io_bytes(inputs, outputs) -> int:
     return total
 
 
-def roofline(flops: float, nbytes: int):
-    """``(bound ms, what binds)``: the larger of the operations at the
-    card's float32 peak outside the tensor cores and the bytes at its
-    memory rate."""
-    t_ops = 1e3 * flops / PEAK_FP32_FLOPS
+def roofline(flops: float, nbytes: int, bf16_flops: float = 0.0):
+    """``(bound ms, what binds)``: the larger of the operations (float32 at
+    the card's peak outside the tensor cores, plus ``bf16_flops`` at its
+    dense bfloat16 tensor-core peak) and the bytes at its memory rate."""
+    t_ops = 1e3 * (flops / PEAK_FP32_FLOPS + bf16_flops / PEAK_BF16_FLOPS)
     t_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -368,8 +441,8 @@ class Worst:
         self.fm = max(self.fm, devs["worst_fm"])
         self.flips += devs["flips"]
 
-    def record(self, ms, plain_ms, flops, nbytes):
-        bound_ms, bound_by = roofline(flops, nbytes)
+    def record(self, ms, plain_ms, flops, nbytes, bf16_flops=0.0):
+        bound_ms, bound_by = roofline(flops, nbytes, bf16_flops)
         return {
             # every slot's audio; FM slots include branch-cut flips,
             # counted beside it (see audio_mismatch)
@@ -915,8 +988,14 @@ def phase_timing(dev, results):
             iq, params.pfb_weights, cfg.num_bins, pipe.state.pfb_hist,
             split=False), 10)
         prof_blocks = 8
-        busy, window, idle, top = device_profile(
+        launches = tail_wrappers()["fused_tail_audio_tm"].launches
+        prof = device_profile(
             lambda i: pipe.process_host(blocks[i % len(blocks)]), prof_blocks)
+        expect_kernel_events(
+            f"C={c} profile", prof,
+            tail_wrappers()["fused_tail_audio_tm"].launches - launches)
+        busy, window, idle, top = (prof[k] for k in ("busy", "window",
+                                                     "idle", "top"))
         log(f"  C={c}: one block at a time, median {med:.3f} ms/block on "
             f"the device clock (min {min(dev_ms):.3f}, {TIMED_BLOCKS} blocks; "
             f"wall {wall:.3f}); back to back {stream:.3f} ms/block, "
@@ -997,17 +1076,374 @@ def phase_path_timing(dev, results, paths):
                                              if n == "fused"]
 
 
+def u8_blocks(n: int, seed: int = 0, block_frames: int = BLOCK_FRAMES):
+    """Tone-source blocks as an 8-bit dongle delivers them: each sample
+    quantized to ``(u8 - 128) / 128`` (``io/tuner.py``), every value a
+    bfloat16, so the u8exact law is float32-accurate on them."""
+    out = []
+    for x in tone_blocks(n, seed=seed, block_frames=block_frames):
+        u8 = np.clip(np.round(x * 40.0) + 128.0, 0.0, 255.0)
+        out.append(((u8 - 128.0) / 128.0).astype(np.float32))
+    return out
+
+
+def snr_db(ref, got) -> float:
+    """SNR of ``got`` against ``ref`` in dB, in float64."""
+    ref, err = ref.double(), got.double() - ref.double()
+    return float(10.0 * np.log10(float((ref * ref).sum())
+                                 / max(float((err * err).sum()), 1e-300)))
+
+
+def tier_params(cfg, params, tier):
+    """The configuration and parameters of ``tier`` from a u8exact pair
+    (every lossy tier reads the same split; "highest" none)."""
+    import dataclasses
+
+    return (dataclasses.replace(cfg, pfb_precision=tier),
+            params._replace(pfb_weights_split=None) if tier == "highest"
+            else params)
+
+
+def phase_tiers(dev, results, kernels):
+    """The filterbank tiers on the main configuration at C=1,024 and
+    C=16,384, fed 8-bit-grid blocks: per tier the product's SNR against a
+    float64 product and its CUDA-event ms, the step's back-to-back ms/block
+    with kernel #1 once a block, and the audio against the "highest"
+    tier's; then each kernel variant the tiers add, against its plain
+    version: #1 on the "bf16" tier's bfloat16 product (both widths, and on
+    the step), #2 on it (the 9.6 kHz path, C=1,024) and #3 at "default"
+    and "high" (C=1,024)."""
+    import torch
+    from webradio_tpu_torch.ops import tail_tm
+    from webradio_tpu_torch.ops.channelizer import pfb_frames_tm, pfb_product
+    from webradio_tpu_torch.pipeline import channelized as ch
+
+    k, out = 64, {}
+    blocks = u8_blocks(8, seed=11)
+    for c in (MAIN_CHANNELS, WIDE_CHANNELS):
+        ifs, modes = slot_controls(c)
+        base = ch.ChannelizedConfig(num_channels=c, block_frames=BLOCK_FRAMES,
+                                    pfb_precision="u8exact")
+        p8 = ch.make_channelized_params(base, ifs, 80_000, 8_000, modes,
+                                        device=dev)
+        kp, nd, d = base.proto_taps, base.chan_frames, base.audio_decim
+        cols = p8.mode.cpu() != 1  # AM/USB/LSB: SNR without FM's flips
+        frames, _ = pfb_frames_tm(torch.from_numpy(blocks[0]).to(dev), kp,
+                                  base.num_bins,
+                                  torch.zeros(2, kp - 1, device=dev))
+        w = p8.pfb_weights
+        exact = frames.double() @ w.double().reshape(2 * kp, 2 * c)
+        n_audio = len(blocks) if c == MAIN_CHANNELS else 4
+        highest_audio = None
+        for tier in TIERS:
+            cfg, params = tier_params(base, p8, tier)
+            split = params.pfb_weights_split
+            y = pfb_product(frames, w, split, tier)
+            rec = {"product_snr_db": snr_db(exact, y),
+                   "product_ms": cuda_ms(
+                       lambda: pfb_product(frames, w, split, tier), 10)}
+            del y
+            reset_counts()
+            audio, _, _ = run_pipeline(cfg, params, blocks[:n_audio])
+            expect_counts(f"tier {tier} at C={c}",
+                          fused_tail_audio_tm=n_audio)
+            hear_tones(f"tier_{tier}_c{c}_", cfg, audio, modes, results)
+            rec["stream_ms_per_block"] = stream_ms(cfg, params, blocks,
+                                                   PATH_TIMED_BLOCKS)
+            rec["realtime_factor"] = BLOCK_MS / rec["stream_ms_per_block"]
+            if highest_audio is None:
+                highest_audio = audio
+            else:
+                rec["audio_snr_vs_highest_db"] = snr_db(
+                    highest_audio[:, cols], audio[:, cols])
+            if tier == "bf16":
+                # kernel #1 on the bfloat16 product against the plain tail
+                # on .float() of it, through the whole step
+                with plain_tails():
+                    ref, _, _ = run_pipeline(cfg, params, blocks[:n_audio])
+                against(f"tier bf16 C={c}: kernel #1 step vs plain-tail step",
+                        audio, ref, params, results, f"bf16_c{c}_step")
+                if c == MAIN_CHANNELS:
+                    kernels["fused_tail_audio_tm[bf16]"] = bf16_tail_record(
+                        dev, cfg, params, frames, n_audio)
+            del audio
+            log(f"  tier {tier} at C={c}: product SNR "
+                f"{rec['product_snr_db']:.1f} dB vs float64, cuBLAS product "
+                f"{rec['product_ms']:.4f} ms; step back to back "
+                f"{rec['stream_ms_per_block']:.3f} ms/block (real-time "
+                f"factor {rec['realtime_factor']:.2f})" + (
+                    f"; AM/USB/LSB audio {rec['audio_snr_vs_highest_db']:.1f}"
+                    f" dB vs the highest tier's"
+                    if "audio_snr_vs_highest_db" in rec else ""))
+            out[f"c{c}_{tier}"] = rec
+        del exact, frames, p8, highest_audio
+        torch.cuda.empty_cache()
+    results["tiers"] = out
+
+    # ---- kernel #2 on the bfloat16 product: the 9.6 kHz-audio path
+    cfg_b = ch.ChannelizedConfig(num_channels=MAIN_CHANNELS, audio_rate=9_600,
+                                 block_frames=256_000, pfb_precision="bf16")
+    ifs, modes = slot_controls(MAIN_CHANNELS)
+    params_b = ch.make_channelized_params(cfg_b, ifs, 80_000, 8_000, modes,
+                                          device=dev)
+    blocks_b = u8_blocks(4, seed=12, block_frames=cfg_b.block_frames)
+    reset_counts()
+    audio_b, _, _ = run_pipeline(cfg_b, params_b, blocks_b)
+    expect_counts("tier bf16, 9.6 kHz audio", fused_tail_tm=len(blocks_b))
+    hear_tones("tier_bf16_b_", cfg_b, audio_b, modes, results)
+    with plain_tails():
+        ref, _, _ = run_pipeline(cfg_b, params_b, blocks_b)
+    against("tier bf16 (b): kernel #2 step vs plain-tail step", audio_b, ref,
+            params_b, results, "bf16_b_step")
+    kernels["fused_tail_tm[bf16]"] = bf16_chanrate_record(
+        dev, cfg_b, params_b, len(blocks_b))
+
+    # ---- kernel #3 at "default" and "high"
+    for tier in ("default", "high"):
+        kernels[f"fused_pfb_tail_audio_tm[{tier}]"] = pfb_tier_record(
+            dev, tier, results)
+
+
+def bf16_product(rng, dev, *shape):
+    """A uniform random product rounded to bfloat16, as the kernel
+    comparisons of phase 3 draw theirs: the raw FM demod rows are
+    ill-conditioned where a slot's samples are near zero, which most slots
+    of a tone-source product are (the steps hold those through the filtered
+    audio, phase 8)."""
+    import torch
+
+    return torch.from_numpy(rng.uniform(-0.5, 0.5, shape).astype(
+        np.float32)).to(dev).bfloat16()
+
+
+def bf16_tail_record(dev, cfg, params, frames, launches):
+    """Kernel #1 on a bfloat16 product of the main path's shape against
+    its plain version on the same inputs (the step's LO and FIRs, carries
+    of zeros), timed beside it; the kernels-line record."""
+    import torch
+    from webradio_tpu_torch.ops import tail_tm
+
+    c, k, d = cfg.num_channels, 64, cfg.audio_decim
+    prod = bf16_product(np.random.default_rng(15), dev, frames.shape[0],
+                        2 * c)
+    z = lambda *s: torch.zeros(s, device=dev)
+    args = (prod, prod, torch.zeros(c, dtype=torch.int64, device=dev),
+            params.residual_step, params.chan_toep, params.audio_toep, d,
+            params.mode, z(k - 1, c), z(k - 1, c), z(2, c), z(k - 1, c))
+    got = tail_tm.fused_tail_audio_tm(*args, packed=True, fast=True)
+    torch.cuda.synchronize()
+    ref = tail_tm.fused_tail_audio_tm_ref(*args, packed=True, fast=True)
+    worst = Worst()
+    worst.add(compare("kernel #1 on the bf16 product", AUDIO_NAMES, BOUNDS,
+                      got, ref, params.mode == 1,
+                      float(params.audio_coeff.abs().max()),
+                      raw=("audio_hist",), filtered=("audio48",)))
+    ms = cuda_ms(lambda: tail_tm.fused_tail_audio_tm(*args, packed=True,
+                                                     fast=True), 50)
+    plain_ms = cuda_ms(lambda: tail_tm.fused_tail_audio_tm_ref(
+        *args, packed=True, fast=True), 10)
+    log(f"  kernel #1 on the bf16 product at C={c}: {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms")
+    rec = worst.record(ms, plain_ms, tail_flops(frames.shape[0], c, k, d),
+                       io_bytes(args, got))
+    rec["launches"] = launches
+    # at the wide width, beside the float32 product's kernel (phase 3)
+    cw, nd = WIDE_CHANNELS, frames.shape[0]
+    wide = (bf16_product(np.random.default_rng(17), dev, nd, 2 * cw),) * 2
+    wide += (torch.zeros(cw, dtype=torch.int64, device=dev),
+             params.residual_step.repeat(cw // c), params.chan_toep,
+             params.audio_toep, d, params.mode.repeat(cw // c),
+             z(k - 1, cw), z(k - 1, cw), z(2, cw), z(k - 1, cw))
+    rec["ms_c16384"] = cuda_ms(lambda: tail_tm.fused_tail_audio_tm(
+        *wide, packed=True, fast=True), 10)
+    log(f"  kernel #1 on the bf16 product at C={cw}: {rec['ms_c16384']:.4f}"
+        f" ms")
+    return rec
+
+
+def bf16_chanrate_record(dev, cfg, params, launches):
+    """Kernel #2 on a bfloat16 product of its path's shape against its
+    plain version (carries of zeros), timed beside it."""
+    import torch
+    from webradio_tpu_torch.ops import tail_tm
+
+    c, k = cfg.num_channels, 64
+    prod = bf16_product(np.random.default_rng(16), dev, cfg.chan_frames,
+                        2 * c)
+    z = lambda *s: torch.zeros(s, device=dev)
+    args = (prod, prod, torch.zeros(c, dtype=torch.int64, device=dev),
+            params.residual_step, params.chan_toep, params.mode,
+            z(k - 1, c), z(k - 1, c), z(2, c))
+    got = tail_tm.fused_tail_tm(*args, packed=True, fast=True)
+    torch.cuda.synchronize()
+    ref = tail_tm.fused_tail_tm_ref(*args, packed=True, fast=True)
+    names = ("audio", "hist_i", "hist_q", "demod_prev", "power")
+    worst = Worst()
+    worst.add(compare("kernel #2 on the bf16 product", names,
+                      dict(BOUNDS, audio=BOUNDS["audio_hist"]), got, ref,
+                      params.mode == 1, RAW_FM_STEP, raw=("audio",)))
+    ms = cuda_ms(lambda: tail_tm.fused_tail_tm(*args, packed=True,
+                                               fast=True), 30)
+    plain_ms = cuda_ms(lambda: tail_tm.fused_tail_tm_ref(
+        *args, packed=True, fast=True), 5)
+    log(f"  kernel #2 on the bf16 product at nd={prod.shape[0]}, C={c}: "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+    rec = worst.record(ms, plain_ms, tail_flops(prod.shape[0], c, k),
+                       io_bytes(args, got))
+    rec["launches"] = launches
+    return rec
+
+
+def pfb_tier_record(dev, tier, results):
+    """Kernel #3 at a lossy tier on the main configuration, C=1,024: the
+    path (``tail_kernel="pallas_pfb"``) through ``process_host`` with its
+    launches counted and its audio held to the plain-tail step; then the
+    kernel against its plain version on one block's frames: by the tier
+    rule, its AM/USB/LSB audio SNR against the exactly made product (float64,
+    rounded once to float32, through the plain tail) within SNR_SLACK_DB of
+    the plain version's, and its outputs within TIER_PFB_BOUNDS of it."""
+    import torch
+    from webradio_tpu_torch.ops import tail_tm
+    from webradio_tpu_torch.ops.channelizer import pfb_frames_tm
+    from webradio_tpu_torch.pipeline import channelized as ch
+
+    c, k = MAIN_CHANNELS, 64
+    cfg = ch.ChannelizedConfig(num_channels=c, block_frames=BLOCK_FRAMES,
+                               tail_kernel="pallas_pfb", pfb_precision=tier)
+    ifs, modes = slot_controls(c)
+    params = ch.make_channelized_params(cfg, ifs, 80_000, 8_000, modes,
+                                        device=dev)
+    blocks = tone_blocks(PATH_BLOCKS, seed=13, noise=0.3)
+    reset_counts()
+    audio, _, _ = run_pipeline(cfg, params, blocks)
+    expect_counts(f"(c) at {tier}", fused_pfb_tail_audio_tm=len(blocks))
+    hear_tones(f"c_{tier}_", cfg, audio, modes, results)
+    with plain_tails():
+        ref_audio, _, _ = run_pipeline(cfg, params, blocks)
+    against(f"(c) at {tier}: kernel #3 step vs plain-tail step", audio,
+            ref_audio, params, results, f"c_{tier}_step")
+
+    kp, d = cfg.proto_taps, cfg.audio_decim
+    frames, _ = pfb_frames_tm(torch.from_numpy(blocks[0]).to(dev), kp,
+                              cfg.num_bins,
+                              torch.zeros(2, kp - 1, device=dev))
+    w2 = params.pfb_weights.reshape(2 * kp, 2 * c)
+    z = lambda *s: torch.zeros(s, device=dev)
+    common = (frames, w2, torch.zeros(c, dtype=torch.int64, device=dev),
+              params.residual_step, params.chan_toep, params.audio_toep, d,
+              params.mode, z(k - 1, c), z(k - 1, c), z(2, c), z(k - 1, c))
+    kw = dict(fast=True, pfb_precision=tier,
+              pfb_weights_split=params.pfb_weights_split)
+    got = tail_tm.fused_pfb_tail_audio_tm(*common, **kw)
+    torch.cuda.synchronize()
+    ref = tail_tm.fused_pfb_tail_audio_tm_ref(*common, **kw)
+    exact_prod = (frames.double() @ w2.double()).float()
+    exact = tail_tm.fused_tail_audio_tm_ref(exact_prod, exact_prod,
+                                            *common[2:], packed=True,
+                                            fast=True)
+    cols = params.mode != 1
+    snr_k = snr_db(exact[0][:, cols], got[0][:, cols])
+    snr_p = snr_db(exact[0][:, cols], ref[0][:, cols])
+    log(f"  kernel #3 at {tier}: AM/USB/LSB audio SNR vs the exact product "
+        f"{snr_k:.2f} dB (plain version {snr_p:.2f} dB)")
+    if not snr_k >= snr_p - SNR_SLACK_DB:
+        raise AssertionError(f"kernel #3 at {tier}: SNR {snr_k:.2f} dB, "
+                             f"plain {snr_p:.2f} dB")
+    results[f"pfb_{tier}_audio_snr_db"] = {"kernel": snr_k, "plain": snr_p}
+    worst = Worst()
+    worst.add(compare(f"kernel #3 at {tier}", AUDIO_NAMES, TIER_PFB_BOUNDS,
+                      got, ref, params.mode == 1,
+                      float(params.audio_coeff.abs().max()),
+                      raw=("audio_hist",), filtered=("audio48",)))
+    ms = cuda_ms(lambda: tail_tm.fused_pfb_tail_audio_tm(*common, **kw), 20)
+    plain_ms = cuda_ms(lambda: tail_tm.fused_pfb_tail_audio_tm_ref(
+        *common, **kw), 5)
+    passes = 3 if tier == "high" else 1
+    product_flops = passes * 2.0 * frames.shape[0] * 2 * kp * 2 * c
+    log(f"  kernel #3 at {tier}, nd={frames.shape[0]}, C={c}: {ms:.4f} ms, "
+        f"plain (cuBLAS tier GEMM + plain tail) {plain_ms:.4f} ms")
+    rec = worst.record(
+        ms, plain_ms, tail_flops(frames.shape[0], c, k, d),
+        io_bytes((*common, params.pfb_weights_split), got), product_flops)
+    rec["launches"] = len(blocks)
+    return rec
+
+
+def phase_headline(dev, results):
+    """examples/headline_monitor.json's front end on the card: C=69,632,
+    channelized, fir_precision "highest", fed 8-bit-grid blocks, 16 blocks
+    back to back at u8exact, highest and bf16: ms/block, the real-time
+    factor, kernel #1 once a block, the AM and FM tones of slots 0 and 1
+    (only their audio leaves the card), and the device memory's peak."""
+    import torch
+    from webradio_tpu_torch.pipeline import channelized as ch
+
+    c = HEADLINE_CHANNELS
+    base = ch.ChannelizedConfig(num_channels=c, block_frames=BLOCK_FRAMES,
+                                fir_precision="highest",
+                                pfb_precision="u8exact")
+    ifs, modes = slot_controls(c)
+    t0 = time.perf_counter()
+    p8 = ch.make_channelized_params(base, ifs, 80_000, 8_000, modes,
+                                    device=dev)
+    log(f"  parameters for C={c} made in {time.perf_counter() - t0:.1f} s")
+    blocks = u8_blocks(HEADLINE_BLOCKS, seed=14)
+    out = {}
+    for tier in HEADLINE_TIERS:
+        cfg, params = tier_params(base, p8, tier)
+        torch.cuda.reset_peak_memory_stats(dev)
+        pipe = ch.ChannelizedPipeline(cfg, params)
+        for b in blocks[:2]:  # warm: allocator, cuBLAS handles
+            pipe.process_host(b)
+        pipe.flush()
+        torch.cuda.synchronize()
+        reset_counts()
+        slots = []
+        t0 = time.perf_counter()
+        for b in blocks:
+            r = pipe.process_host(b)
+            if r is not None:
+                slots.append(r[0][:, :2].clone())
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / len(blocks)
+        slots.append(pipe.flush()[0][:, :2].clone())
+        expect_counts(f"headline {tier}", fused_tail_audio_tm=len(blocks))
+        audio = torch.cat(slots).cpu()
+        if not bool(torch.isfinite(audio).all()):
+            raise AssertionError(f"headline {tier}: non-finite audio")
+        hear_tones(f"headline_{tier}_", cfg, audio, modes, results)
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        out[tier] = {"stream_ms_per_block": ms,
+                     "realtime_factor": BLOCK_MS / ms,
+                     "launches": len(blocks), "peak_mem_gb": peak}
+        log(f"  headline C={c} at {tier}: back to back {ms:.3f} ms/block, "
+            f"real-time factor {BLOCK_MS / ms:.2f}, kernel #1 "
+            f"{len(blocks)} launches for {len(blocks)} blocks, peak device "
+            f"memory {peak:.1f} GB")
+        del pipe, slots
+        torch.cuda.empty_cache()
+    results["headline"] = out
+    if not out["u8exact"]["realtime_factor"] > 1:
+        raise AssertionError("the headline topology at u8exact is below "
+                             "real time")
+
+
 def server_config():
     """Tuner 0: C=16,384, "auto" (the channelized engine), four receivers
     at the default 80 / 8 kHz bandwidths; tuner 1: examples/demo_tone.json
-    (capacity 4: the direct engine). Both tone tuners: AM 1 kHz at IF 0,
-    FM 440 Hz at +100 kHz."""
+    (capacity 4: the direct engine); tuner 2: GROW_FROM slots, channelized,
+    every slot taken (:func:`slot_controls`), below the kernel's "auto"
+    threshold, so one more receiver grows it across 512. Every tone tuner:
+    AM 1 kHz at IF 0, FM 440 Hz at +100 kHz."""
     tuner = {"driver": "tone", "centre_frequency": 124_325_000,
              "sample_rate": SAMPLE_RATE, "block_frames": BLOCK_FRAMES}
+    grow = [{"tuner": 2, "if_frequency": f, "demodulator": m}
+            for f, m in zip(*slot_controls(GROW_FROM))]
     return {
         "server": {"port": 0, "host": "127.0.0.1", "html": "html"},
         "tuners": [dict(tuner, capacity=WIDE_CHANNELS, engine="auto"),
-                   dict(tuner, capacity=4)],
+                   dict(tuner, capacity=4),
+                   dict(tuner, capacity=GROW_FROM, engine="channelized")],
         "receivers": [
             {"tuner": 0, "if_frequency": 0, "demodulator": "AM"},
             {"tuner": 0, "if_frequency": 100_000, "demodulator": "FM"},
@@ -1016,6 +1452,7 @@ def server_config():
             {"tuner": 1, "if_frequency": 0, "demodulator": "AM"},
             {"tuner": 1, "if_frequency": 100_000, "demodulator": "FM",
              "af_bandwidth": 8_000},
+            *grow,
         ],
     }
 
@@ -1113,7 +1550,8 @@ def check_waterfall(port, fe, results):
 #: the steps of the server phase that count as serving (PumpWatch.mark)
 SERVING_STEPS = ("first blocks", "GET /status, /tuners", "waterfalls",
                  "four WAV listeners", "PUT", "one WAV listener",
-                 "POST, DELETE", "plain serving")
+                 "POST, DELETE", "growth POST", "after the swap",
+                 "catch-up", "after the catch-up", "plain serving")
 
 
 class PumpWatch:
@@ -1130,6 +1568,8 @@ class PumpWatch:
         self.fes, self.pump = front_ends, thread_of_pump
         self.marks = [(time.monotonic(), "first blocks")]
         self.drops, self.stalls = [], []
+        #: step -> the longest ms without a block of any tuner in it
+        self.max_gap_ms: dict[str, float] = {}
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._run, daemon=True)
         self._thread.start()
@@ -1157,6 +1597,9 @@ class PumpWatch:
                                        1e3 * (now - mark_t),
                                        1e3 * (now - since)))
             if any(b1 != b0 for (b0, _), (b1, _) in zip(last, now_)):
+                gap = 1e3 * (now - since)
+                if gap > self.max_gap_ms.get(label, 0.0):
+                    self.max_gap_ms[label] = gap
                 since, stack_taken = now, False
             elif now - since > self.STALL_S and not stack_taken:
                 frame = sys._current_frames().get(self.pump.ident)
@@ -1180,6 +1623,8 @@ class PumpWatch:
                     f"{after_ms:.0f} ms after it began, {gap_ms:.0f} ms "
                     f"since the pump's last block")
         log(f"  drops by step: {by_step}")
+        log("  the pump's longest gap by step (ms): " + ", ".join(
+            f"{label} {ms:.0f}" for label, ms in self.max_gap_ms.items()))
         for label, after_ms, stack in self.stalls:
             if label in serving:
                 log(f"  stall: no block for {1e3 * self.STALL_S:.0f} ms in "
@@ -1201,22 +1646,29 @@ def phase_server(results):
     t0 = time.perf_counter()
     if not app.start():
         raise AssertionError("the server did not start")
-    fe0, fe1 = app.front_ends
+    from webradio_tpu_torch.radio import CATCHUP_BLOCKS
+
+    fes = list(app.front_ends)  # close() empties the app's list
+    fe0, fe1, fe2 = fes
     port = app.server.port
     log(f"  up on 127.0.0.1:{port} in {time.perf_counter() - t0:.1f} s: "
-        f"tuner {fe0.uuid} {type(fe0.pipeline).__name__} at "
-        f"C={fe0.pipeline.cfg.num_channels} ({type(fe0.tuner.source).__name__}"
-        f"), tuner {fe1.uuid} {type(fe1.pipeline).__name__} at "
-        f"C={fe1.pipeline.cfg.num_channels}")
-    if type(fe0.pipeline).__name__ != "ChannelizedPipeline" or (
-            type(fe1.pipeline).__name__ != "FrontEndPipeline"):
-        raise AssertionError("the engines are not channelized / direct")
+        + ", ".join(f"tuner {fe.uuid} {type(fe.pipeline).__name__} at "
+                    f"C={fe.pipeline.cfg.num_channels} "
+                    f"({type(fe.tuner.source).__name__})" for fe in fes))
+    log(f"  the app's profiler warm-up before its pump: "
+        f"{app.profiler_warm_ms:.0f} ms")
+    results["server_profiler_warm_ms"] = app.profiler_warm_ms
+    if [type(fe.pipeline).__name__ for fe in fes] != [
+            "ChannelizedPipeline", "FrontEndPipeline", "ChannelizedPipeline"
+    ] or fe2.pipeline.cfg.num_channels != GROW_FROM:
+        raise AssertionError("the engines are not channelized / direct / "
+                             f"channelized at {GROW_FROM}")
     served_from = time.monotonic()
     failed = watch = None
     trace_dir = tempfile.mkdtemp(prefix="webradio_trace_")
     try:
         deadline = time.monotonic() + 60
-        while min(fe0.block_count, fe1.block_count) < 5:
+        while min(fe.block_count for fe in fes) < 5:
             if time.monotonic() > deadline or app.failed is not None:
                 raise AssertionError(f"no blocks served: {app.failed}")
             time.sleep(0.05)
@@ -1224,26 +1676,33 @@ def phase_server(results):
         # native ring. Start-up (tuner 0 captures while tuner 1 warms) and
         # the two profiler windows are counted apart; everything else is
         # serving, which must drop nothing (PERF.md section 2)
-        drops = lambda: [
-            fe.ring.dropped_blocks
-            + getattr(fe.tuner.source, "dropped_blocks", 0)
-            for fe in (fe0, fe1)]
+        drops = lambda: [PumpWatch.dropped(fe) for fe in fes]
         mark = lambda: (time.monotonic(), drops(),
-                        [fe.block_count for fe in (fe0, fe1)])
+                        [fe.block_count for fe in fes])
 
         def caught_up(after):
-            """Wait until the pump has drained both rings: the drops of a
+            """Wait until the pump has drained every ring: the drops of a
             stall's backlog count to the span that stalled the pump."""
             t0 = time.monotonic()
-            while (any(fe.ring.backlog for fe in (fe0, fe1))
+            while (any(fe.ring.backlog for fe in fes)
                    and time.monotonic() < t0 + 5.0):
                 time.sleep(0.005)
-            log(f"  both rings drained {1e3 * (time.monotonic() - t0):.0f} "
+            log(f"  every ring drained {1e3 * (time.monotonic() - t0):.0f} "
                 f"ms after {after}")
+
+        def served(fe, n, what):
+            b = fe.block_count
+            deadline = time.monotonic() + 30
+            while fe.block_count < b + n:
+                if time.monotonic() > deadline or app.failed is not None:
+                    raise AssertionError(f"{what}: tuner {fe.uuid} served "
+                                         f"{fe.block_count - b} of {n} "
+                                         f"blocks ({app.failed})")
+                time.sleep(0.02)
 
         caught_up("the first blocks")
         m_start = mark()
-        watch = PumpWatch((fe0, fe1), app._pump)
+        watch = PumpWatch(fes, app._pump)
         watch.mark("GET /status, /tuners")
         for path in ("/status", "/tuners"):
             status, data = http_call(port, "GET", path)
@@ -1283,14 +1742,86 @@ def phase_server(results):
         if status != 204 or http_call(port, "GET", uri)[0] != 404:
             raise AssertionError(f"DELETE {uri} answered {status}")
         log(f"  POST then DELETE {uri}: 201, 204")
+
+        # ---- growth across 512 while serving: one more receiver on the
+        # full tuner 2 doubles its slots; the wider pipeline is built and
+        # warmed off the pump (its warm block is the first at C=512, the
+        # first that takes kernel #1) and swapped in between blocks
+        watch.mark("growth POST")
+        swapped_at = []
+        real_swap = fe2._swap_grown_pipeline
+
+        def swap():
+            n = fe2.block_count
+            real_swap()
+            if fe2.pipeline.cfg.num_channels > GROW_FROM and not swapped_at:
+                swapped_at.append(n)
+
+        fe2._swap_grown_pipeline = swap
+        t_grow = time.monotonic()
+        status, data = http_call(port, "POST", "/receivers",
+                                 {"tuner": f"/tuners/{fe2.uuid}",
+                                  "if_frequency": 0, "demodulator": "AM"})
+        if status != 201:
+            raise AssertionError(f"growth POST answered {status}")
+        grown_rx = json.loads(data)["uri"].rsplit("/", 1)[-1]
+        while not swapped_at:
+            if time.monotonic() > t_grow + 30 or app.failed is not None:
+                raise AssertionError(f"no growth swap ({app.failed})")
+            time.sleep(0.01)
+        width = fe2.pipeline.cfg.num_channels
+        log(f"  growth POST 201: tuner {fe2.uuid} {GROW_FROM} -> {width} "
+            f"slots, swapped in {time.monotonic() - t_grow:.2f} s after "
+            f"the POST, at block {swapped_at[0]}")
+        if width != 2 * GROW_FROM:
+            raise AssertionError(f"grown to {width} slots")
+        watch.mark("after the swap")
+        served(fe2, 10, "after the swap")
+        hear_all(port, {"t2_grown_am": (grown_rx, 1_000.0)}, rate, results,
+                 "server_")
+
+        # ---- a forced stall: tuner 0's service held until its ring holds
+        # CATCHUP_BLOCKS blocks (more than three blocks of signal), so the
+        # pump runs them as one process_host_many catch-up
+        watch.mark("catch-up")
+        pipe0, many = fe0.pipeline, []
+        real_many, real_get = pipe0.process_host_many, fe0.ring.get
+
+        def counted_many(blocks):
+            many.append(len(blocks))
+            return real_many(blocks)
+
+        def held_get(timeout=None):
+            if fe0.ring.backlog < CATCHUP_BLOCKS:
+                return None
+            fe0.ring.get = real_get
+            return real_get(timeout)
+
+        pipe0.process_host_many = counted_many
+        t_hold = time.monotonic()
+        fe0.ring.get = held_get
+        while not many:
+            if time.monotonic() > t_hold + 5 or app.failed is not None:
+                raise AssertionError(f"no catch-up ({app.failed})")
+            time.sleep(0.005)
+        log(f"  catch-up: tuner {fe0.uuid} held "
+            f"{1e3 * (time.monotonic() - t_hold):.0f} ms, then "
+            f"process_host_many on {many[0]} blocks")
+        if many != [CATCHUP_BLOCKS]:
+            raise AssertionError(f"catch-up ran on {many} blocks")
+        watch.mark("after the catch-up")
+        served(fe0, 10, "after the catch-up")
+        results["server_catchup_blocks"] = many[0]
         m_serving = mark()  # HTTP requests, audio streams, control writes
         watch.mark("1 s profiler window")  # and the pump catching up
         # the device's idle share while serving, from the device's own
         # timeline (every stream); then the /profile endpoint's trace
-        b0 = fe0.block_count + fe1.block_count
-        busy, window, idle, top = device_profile(lambda i: time.sleep(0.1),
-                                                 10, cpu=False)
-        blocks_in = fe0.block_count + fe1.block_count - b0
+        b0 = sum(fe.block_count for fe in fes)
+        prof = device_profile(lambda i: time.sleep(0.1), 10, cpu=False)
+        blocks_in = sum(fe.block_count for fe in fes) - b0
+        expect_kernel_events("1 s profiler window", prof, blocks_in)
+        busy, window, idle, top = (prof[k] for k in ("busy", "window",
+                                                     "idle", "top"))
         if busy is None:
             log("  profiler saw no device events; idle share not measured")
         else:
@@ -1299,6 +1830,9 @@ def phase_server(results):
                 f"{10 * window:.2f} ms device window, idle share {idle:.3f}")
             for name, ms in top:
                 log(f"    {10 * ms:8.3f} ms in the window  {name}")
+        # the window's trace parse holds the interpreter: its backlog's
+        # drops belong to the window, not to the /profile trace after it
+        caught_up("the 1 s profiler window")
         d_window = drops()
         results["server_idle_share"] = idle
         results["server_profiled_busy_ms_per_block"] = (
@@ -1308,15 +1842,22 @@ def phase_server(results):
                          {"action": "start", "dir": trace_dir})
         time.sleep(0.5)
         status2, data = http_call(port, "POST", "/profile", {"action": "stop"})
+        answer = json.loads(data)
+        if (status, status2) != (200, 200):
+            # a trace with copies but no kernel answers 500 with the reason
+            raise AssertionError(f"/profile failed: {answer}")
         trace = json.loads(
             (pathlib.Path(trace_dir) / "trace.json").read_text())
         kernels = sum(1 for e in trace.get("traceEvents", [])
                       if e.get("cat") == "kernel")
         log(f"  /profile start {status}, stop {status2}: trace.json with "
-            f"{len(trace['traceEvents'])} events, {kernels} kernel events")
-        if (status, status2) != (200, 200):
-            raise AssertionError("/profile failed")
+            f"{len(trace['traceEvents'])} events, {kernels} kernel events; "
+            f"profiler start {answer['timings_ms']['start']:.1f} ms, stop "
+            f"{answer['timings_ms']['stop']:.1f} ms, export "
+            f"{answer['timings_ms']['export']:.1f} ms")
         results["server_trace_kernel_events"] = kernels
+        results["server_profiler_ms"] = {
+            "window": prof["timings_ms"], "trace": answer["timings_ms"]}
         caught_up("the /profile trace")
         m_profiled = mark()
         watch.mark("plain serving")
@@ -1340,10 +1881,10 @@ def phase_server(results):
         raise AssertionError(f"the pump stopped: {app.failed}")
     launches = {name: fn.launches for name, fn in tail_wrappers().items()}
     log(f"  server: kernel launches {launches}")
-    out = {}
+    out = {"max_gap_ms": watch.max_gap_ms}
     # the serving windows: first block to the profiler, and after the trace
     windows = ((m_start, m_serving), (m_profiled, m_end))
-    for k, fe in enumerate((fe0, fe1)):
+    for k, fe in enumerate(fes):
         st = final["front_ends"][fe.uuid]
         ms = st["ns_per_frame"] * BLOCK_FRAMES / 1e6
         serving = sum(b[1][k] - a[1][k] for a, b in windows)
@@ -1376,15 +1917,23 @@ def phase_server(results):
             f"{st['realtime_factor']} ({ms:.3f} ms/block sampled over "
             f"{st['step_samples']} blocks, dispatch to completion), "
             f"throughput since start {st['throughput_factor']}")
-    served0 = out[fe0.uuid]["blocks"]
+    # kernel #1: every block of tuner 0 and of the grown tuner 2 (none of
+    # tuner 2 before it crossed 512), plus the warm blocks of tuner 0's
+    # pipeline and of the grown one, and at most a block in flight each
+    served0 = fe0.block_count  # the pump has stopped: final counts
+    grown = fe2.block_count - swapped_at[0]
     others = {n: c for n, c in launches.items()
               if n != "fused_tail_audio_tm" and c}
-    if launches["fused_tail_audio_tm"] < served0 or others:
-        raise AssertionError(f"server: launches {launches} for {served0} "
-                             f"blocks of tuner {fe0.uuid}")
+    n1 = launches["fused_tail_audio_tm"]
+    log(f"  kernel #1: {n1} launches for {served0} blocks of tuner {fe0.uuid}"
+        f" and {grown} of the grown tuner {fe2.uuid}")
+    if not served0 + grown + 2 <= n1 <= served0 + grown + 4 or others:
+        raise AssertionError(f"server: launches {launches} for {served0} + "
+                             f"{grown} blocks")
+    out["grown_blocks"] = grown
     if not (out[fe0.uuid]["realtime_factor"] or 0) > 1:
         raise AssertionError("tuner 0 served below real time")
-    lost = {fe.uuid: out[fe.uuid]["dropped_serving"] for fe in (fe0, fe1)}
+    lost = {fe.uuid: out[fe.uuid]["dropped_serving"] for fe in fes}
     if any(lost.values()):
         raise AssertionError(f"blocks dropped while serving: {lost}")
     out["fused_tail_audio_tm_launches"] = launches["fused_tail_audio_tm"]
@@ -1469,6 +2018,11 @@ def main() -> int:
     log("== timing of the other paths")
     phase_path_timing(dev, results, paths)
     del paths
+    log("== the filterbank tiers (C=1024, C=16384) and their kernel variants")
+    phase_tiers(dev, results, kernels)
+    log(f"== the headline topology: C={HEADLINE_CHANNELS}, "
+        f"{', '.join(HEADLINE_TIERS)}")
+    phase_headline(dev, results)
     clocks = nvidia_smi("clocks.sm,clocks.max.sm,power.draw,temperature.gpu")
     log(f"  after timing: sm clock, max sm clock, power draw, temp = "
         f"{clocks}")
@@ -1476,15 +2030,22 @@ def main() -> int:
     log("== the server: RadioApp over HTTP")
     phase_server(results)
 
+    tm = "webradio_tpu_torch/csrc/tail_tm.cu"
     meta = {
-        "fused_tail_audio_tm": ("webradio_tpu_torch/csrc/tail_tm.cu",
-                                "webradio_tpu/ops/pallas_tail_tm.py:736"),
-        "fused_tail_tm": ("webradio_tpu_torch/csrc/tail_tm.cu",
-                          "webradio_tpu/ops/pallas_tail_tm.py:372"),
-        "fused_pfb_tail_audio_tm": ("webradio_tpu_torch/csrc/tail_tm.cu",
+        "fused_tail_audio_tm": (tm, "webradio_tpu/ops/pallas_tail_tm.py:736"),
+        "fused_tail_tm": (tm, "webradio_tpu/ops/pallas_tail_tm.py:372"),
+        "fused_pfb_tail_audio_tm": (tm,
                                     "webradio_tpu/ops/pallas_tail_tm.py:904"),
         "fused_receiver_tail": ("webradio_tpu_torch/csrc/tail.cu",
                                 "webradio_tpu/ops/pallas_tail.py:141"),
+        # the tiers' variants (a bfloat16 product; #3's lossy products)
+        "fused_tail_audio_tm[bf16]": (
+            tm, "webradio_tpu/ops/pallas_tail_tm.py:736"),
+        "fused_tail_tm[bf16]": (tm, "webradio_tpu/ops/pallas_tail_tm.py:372"),
+        "fused_pfb_tail_audio_tm[default]": (
+            tm, "webradio_tpu/ops/pallas_tail_tm.py:904"),
+        "fused_pfb_tail_audio_tm[high]": (
+            tm, "webradio_tpu/ops/pallas_tail_tm.py:904"),
     }
     kernel_list = []
     for name, (source, replaces) in meta.items():

@@ -167,22 +167,39 @@ def test_process_host_double_buffer_contract():
     dict(pfb_precision="default"), dict(pfb_precision="high"),
 ])
 def test_unported_config_knobs_raise(knob):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tch.ChannelizedConfig(block_frames=BLOCK, num_channels=C, **knob)
+    # the pfb tiers are ported: each builds, with the bfloat16 split
+    # weights in its parameters; the fused filterbank still refuses the two
+    # tiers that need the packed product, as the JAX configuration does
+    _, cfg = _configs(**knob)
+    p = tch.make_channelized_params(cfg, IFS, 80_000, 8_000, MODES,
+                                    device="cpu")
+    assert p.pfb_weights_split.dtype == torch.bfloat16
+    assert p.pfb_weights_split.shape == (2, 2 * cfg.proto_taps, 2, C)
+    kw = dict(block_frames=BLOCK, num_channels=C, tail_kernel="pallas_pfb",
+              **knob)
+    if knob["pfb_precision"] in ("u8exact", "bf16"):
+        with pytest.raises(ValueError, match="pallas_pfb"):
+            jch.ChannelizedConfig(**kw)
+        with pytest.raises(ValueError, match="pallas_pfb"):
+            tch.ChannelizedConfig(**kw)
+    else:
+        assert tch.ChannelizedConfig(**kw).pfb_precision == knob[
+            "pfb_precision"]
 
 
 def test_unported_paths_raise():
-    # only the pfb tiers are left: the split weights of u8exact
-    _, cfg = _configs(tail_kernel="pallas")
+    # nothing of the step is left unported: a lossy tier whose parameters
+    # lack the split weights (a JAX "high" parameter set carries none)
+    # raises and names them, and convert carries a split as bfloat16
+    _, cfg = _configs(tail_kernel="pallas", pfb_precision="high")
     p = tch.make_channelized_params(cfg, IFS, 80_000, 8_000, MODES,
                                     device="cpu")
-    split = p._replace(pfb_weights_split=p.pfb_weights)
-    with pytest.raises(NotImplementedError):
-        convert.params_from_numpy(split, device="cpu")
-    with pytest.raises(NotImplementedError, match="pfb tiers"):
+    carried = convert.params_from_numpy(p, device="cpu")
+    assert torch.equal(carried.pfb_weights_split, p.pfb_weights_split)
+    with pytest.raises(ValueError, match="pfb_weights_split"):
         tch.channelized_step_serving(
-            cfg, split, tch.init_channelized_state(cfg, "cpu"),
-            torch.zeros(2, BLOCK))
+            cfg, p._replace(pfb_weights_split=None),
+            tch.init_channelized_state(cfg, "cpu"), torch.zeros(2, BLOCK))
     with pytest.raises(ValueError, match="pallas_pfb"):
         jch.ChannelizedConfig(block_frames=BLOCK, num_channels=C,
                               tail_kernel="pallas_pfb",

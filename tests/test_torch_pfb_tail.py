@@ -139,9 +139,11 @@ def test_pfb_tail_rejects_what_it_does_not_take():
     args = [T(s["phase0"].astype(np.int64)), T(s["step"].astype(np.int64)),
             T(s["w"]), T(s["wa"]), D, T(s["mode"])] + [
                 T(a) for a in s["carry"]]
-    with pytest.raises(NotImplementedError, match="pfb tiers"):
-        tail_tm.fused_pfb_tail_audio_tm(frames, T(s["weights"]), *args,
-                                        pfb_precision="bf16")
+    # the tiers that need the packed product (the JAX config's refusal)
+    for tier in ("bf16", "u8exact"):
+        with pytest.raises(ValueError, match="packed product"):
+            tail_tm.fused_pfb_tail_audio_tm(frames, T(s["weights"]), *args,
+                                            pfb_precision=tier)
     with pytest.raises(ValueError, match="contraction"):
         tail_tm.fused_pfb_tail_audio_tm(frames[:, :-4], T(s["weights"]),
                                         *args)

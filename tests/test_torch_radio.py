@@ -299,8 +299,9 @@ def test_front_end_refuses_what_is_not_ported(capture, registries):
         tradio.FrontEnd(tuner, engine="sharded", device="cpu")
     with pytest.raises(NotImplementedError, match="multi-device"):
         tradio.FrontEnd(tuner, multihost=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="pfb tiers"):
-        tradio.FrontEnd(tuner, pfb_precision="u8exact", device="cpu")
+    # the pfb tiers are ported: a front end takes every tier
+    assert tradio.FrontEnd(tuner, pfb_precision="u8exact",
+                           device="cpu").pfb_precision == "u8exact"
     with pytest.raises(ValueError):
         tradio.FrontEnd(tuner, engine="bogus", device="cpu")
     if not torch.cuda.is_available():

@@ -376,11 +376,38 @@ def test_profile_endpoint_writes_a_trace(app, tmp_path):
     wait_for(lambda: fe.block_count >= blocks + 2, what="traced blocks")
     status, _, data = request(app, "POST", "/profile", {"action": "stop"})
     assert status == 200
-    assert json.loads(data) == {"tracing": False, "trace_dir": trace_dir}
+    got = json.loads(data)
+    assert (got["tracing"], got["trace_dir"]) == (False, trace_dir)
+    # what the profiler's start, stop and export took; kernel events are
+    # counted on the card only
+    assert set(got["timings_ms"]) == {"start", "stop", "export"}
+    assert all(v >= 0 for v in got["timings_ms"].values())
+    assert got["kernel_events"] is None
     trace = json.loads((pathlib.Path(trace_dir) / "trace.json").read_text())
     assert "traceEvents" in trace
     assert request(app, "POST", "/profile", {"action": "stop"})[0] == 400
     assert request(app, "POST", "/profile", b"{bad json")[0] == 400
+
+
+def test_a_card_trace_without_kernels_is_refused(tmp_path):
+    """A card's trace with copies but no kernel while the pump served
+    blocks is a profiler fault: it is kept aside and refused, so /profile
+    answers with the reason instead of an empty trace.json."""
+    from webradio_tpu_torch.web import handlers
+
+    trace = tmp_path / "trace.json"
+    copies = [{"cat": "gpu_memcpy", "name": "Memcpy HtoD"}] * 3
+    trace.write_text(json.dumps({"traceEvents": copies}))
+    with pytest.raises(RuntimeError, match="3 copy events but no kernel"):
+        handlers.check_trace_has_kernels(trace, served=7)
+    assert not trace.exists()
+    assert (tmp_path / "trace_without_kernels.json").exists()
+    # no block served: an idle card's empty trace is a reading
+    trace.write_text(json.dumps({"traceEvents": copies}))
+    assert handlers.check_trace_has_kernels(trace, served=0) == 0
+    trace.write_text(json.dumps({"traceEvents": copies + [
+        {"cat": "kernel", "name": "tail_tm_kernel"}] * 2}))
+    assert handlers.check_trace_has_kernels(trace, served=7) == 2
 
 
 def test_checkpoint_roundtrip(app, tmp_path):

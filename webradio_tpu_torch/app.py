@@ -42,6 +42,7 @@ from .web.handlers import (
     TunerControlHandler,
     TunerHandler,
     WaterfallHandler,
+    warm_profiler,
 )
 from .web.server import RadioHttpServer
 
@@ -152,6 +153,8 @@ class RadioApp:
         self._last_snapshot: str | None = None
         #: the error that stopped the pump, if one did
         self.failed: BaseException | None = None
+        #: ms of the profiler's one-time set-up at start (None off the card)
+        self.profiler_warm_ms: float | None = None
         if self.state_file and self.state_file.exists():
             try:
                 saved = json.loads(self.state_file.read_text())
@@ -236,21 +239,25 @@ class RadioApp:
                 block_frames=tcfg.get("block_frames", 102_400),
                 fir_design=tcfg.get("fir_design", "reference"),
             )
-            # every driver defaults to the float32-exact filterbank: the
-            # JAX package's u8exact default for 8-bit hardware waits for
-            # the pfb tiers
+            # hardware drivers deliver 8-bit samples, on which the
+            # u8exact filterbank law is float32-accurate at bfloat16 GEMM
+            # cost: their default (the JAX package's); synthetic float32
+            # sources default to the true float32 tier
+            default_pfb = ("u8exact" if tcfg.get("driver") in
+                           ("rtlsdr", "rtltcp") else "highest")
             fe = FrontEnd(tuner, chain, capacity=tcfg.get("capacity", 4),
                           engine=tcfg.get("engine", "auto"),
                           fir_precision=tcfg.get("fir_precision", "highest"),
-                          pfb_precision=tcfg.get("pfb_precision", "highest"),
+                          pfb_precision=tcfg.get("pfb_precision",
+                                                 default_pfb),
                           multihost=tcfg.get("multihost", False),
                           device=self.device)
             self.front_ends.append(fe)
         for rcfg in self.config.get("receivers", []):
             if rcfg.get("audio_sink"):
                 raise _not_ported("a receiver's audio_sink",
-                                  "io/rtlsdr.py, io/soundcard.py and the "
-                                  "per-receiver audio sinks")
+                                  "io/soundcard.py and the per-receiver "
+                                  "audio sinks")
             rx = Receiver()
             rx.update(
                 if_frequency=rcfg.get("if_frequency", 0),
@@ -307,6 +314,11 @@ class RadioApp:
             self.build_server()
         if not self.server.start():
             return False
+        if self.device.type == "cuda":
+            # the profiler's one-time set-up, before any block is served
+            # (a /profile request would otherwise stall the pump with it)
+            self.profiler_warm_ms = warm_profiler()
+            log.info("profiler ready in %.0f ms", self.profiler_warm_ms)
         ok = all(fe.start() for fe in self.front_ends)
         if not ok:
             return False

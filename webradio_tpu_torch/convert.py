@@ -32,6 +32,8 @@ _INT64_FIELDS = ("residual_step", "phase_step", "nco_phase")
 def _tensor(name, a, device):
     if a is None:
         return None
+    if name == "pfb_weights_split":
+        return _bfloat16(name, a, device)
     a = np.asarray(a)
     if name in _INT64_FIELDS:
         a = a.astype(np.int64)
@@ -42,17 +44,29 @@ def _tensor(name, a, device):
     return torch.from_numpy(np.array(a)).to(device)
 
 
+def _bfloat16(name, a, device):
+    """A bfloat16 array (``ml_dtypes.bfloat16`` where it comes from JAX, or
+    a bfloat16 tensor) as a bfloat16 tensor: through float32, which holds
+    every bfloat16 value, so the carry is exact."""
+    if isinstance(a, torch.Tensor):
+        t = a.detach().cpu()
+    else:
+        a = np.asarray(a)
+        if a.dtype.name != "bfloat16":
+            raise TypeError(f"{name} has dtype {a.dtype}, expected bfloat16")
+        t = torch.from_numpy(a.astype(np.float32))
+    if t.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name} has dtype {t.dtype}, expected bfloat16")
+    return t.to(torch.bfloat16).to(device)
+
+
 def params_from_numpy(p, device: torch.device | str | None = None
                       ) -> ChannelizedParams:
     """The port's :class:`ChannelizedParams` from a JAX one of numpy
-    arrays. The u8exact split weights are not ported (ROADMAP.md, the pfb
-    tiers) and must be absent."""
-    if getattr(p, "pfb_weights_split", None) is not None:
-        raise NotImplementedError(
-            "pfb_weights_split (the u8exact tier) is not ported to "
-            "webradio_tpu_torch yet (ROADMAP.md, still to port: the pfb "
-            "tiers)"
-        )
+    arrays, the u8exact tier's bfloat16 split weights included. (JAX keeps
+    the split for u8exact only; a port configuration at "default", "high"
+    or "bf16" reads it too: build those parameters with
+    ``make_channelized_params``.)"""
     return _carry(ChannelizedParams, p, device)
 
 

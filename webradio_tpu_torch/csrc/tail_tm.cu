@@ -142,6 +142,32 @@
 // Precision: every FIR tier ("highest", "hx5", "hx4", "high") is computed
 // as the three-term split-TF32 product, which holds the float32 bounds.
 // hx5, hx4 and high are TPU MXU pass counts and have no Hopper meaning.
+//
+// The filterbank tiers (ops/channelizer.py) give two more variants:
+//
+// - AUDIO and CHANRATE on a bfloat16 product (the "bf16" tier stores it so,
+//   webradio_tpu/ops/pallas_tail_tm.py upcasts at load): a lane loads 8
+//   bytes, four channels of one row, twice a plane and chunk, and the mix
+//   lane of each (row, channel) takes its value from that lane by shuffle
+//   (two a value: the channel's half word is picked after it) and upcasts
+//   it, exactly (a bfloat16 is the top half of a float32). Everything after
+//   the load is the float32 body. Half the bytes of the product's read.
+// - PFB at "default" and "high": the product on the bf16 tensor cores,
+//   mma.sync m16n8k16 with float32 accumulators. A warp makes 16 rows x 128
+//   columns of the group's P (16 n-tiles, 64 accumulators a thread): per
+//   16-tap slice its A fragment is the staged float32 frames rounded to
+//   bfloat16 (and, for "high", the remainder rounded again: al =
+//   bf16(f - ah)), its B fragments the host-split weights (hi, and lo for
+//   "high", [2K_p, 2C] bfloat16 each) staged by cp.async as they are and
+//   packed two taps to a register by two 16-bit loads. One pass for
+//   "default"; three for "high" (al hi, ah lo, then ah hi, each over the 16
+//   n-tiles so consecutive mma do not wait on one another), the law
+//   ah hi + ah lo + al hi of ops/channelizer.pfb_product_high summed in
+//   one accumulator. "highest" keeps the float32 FMA chains: the raw-FM rule
+//   (PERF.md section 2) admits nothing else for it, while the two lossy
+//   tiers are held by the tier rule, their SNR against float64.
+
+#include <cuda_bf16.h>
 
 #include "tail_common.cuh"
 
@@ -174,10 +200,19 @@ constexpr int LDA = KS + 4;        // frame-slice row stride (16-byte rows)
 constexpr int LDB = 2 * NC + 8;    // weight-slice row stride
 constexpr int LDP = 2 * NC + 8;    // product row stride
 constexpr int STAGE_FLOATS = PM * LDA + KS * LDB;
+// the tensor-core tiers stage the weights as bfloat16, hi then lo, in the
+// float32 weight slice's room
+constexpr int LDBH = 2 * NC + 8;   // bf16 weight-slice row stride
+static_assert(2 * KS * LDBH <= 2 * KS * LDB, "bf16 slices exceed the stage");
+constexpr int NTILES = 2 * NC / 8; // n-tiles of a product group's row
 constexpr int PFB_FLOATS =
     2 * STAGE_FLOATS > PM * LDP ? 2 * STAGE_FLOATS : PM * LDP;
 
 enum Kind { AUDIO = 0, CHANRATE = 1, PFB = 2 };
+// the IN template argument: the packed product's type for AUDIO and
+// CHANRATE (IN_F32, IN_BF16), the in-kernel product's tier for PFB
+enum In { IN_F32 = 0, IN_BF16 = 1 };
+enum Tier { T_HIGHEST = 0, T_DEFAULT = 1, T_HIGH = 2 };
 
 constexpr uint32_t TF32_MASK = 0xFFFFE000u;  // sign, exponent, 10 bits
 constexpr uint32_t FULL = 0xFFFFFFFFu;
@@ -207,7 +242,35 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+// d += a[16x16, row-major] * b[16x8, col-major], bfloat16 in, float32 out.
+// With g = lane / 4, t = lane % 4 a register holds two values, the lower
+// index in the low half: a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..),
+// a3 (g+8, 2t+8..); b0 (k = 2t..2t+1, n = g), b1 (k = 2t+8.., n = g); d as
+// in mma_tf32
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two float32 values rounded to bfloat16 (to nearest, ties to even, as
+// torch's and JAX's casts), x in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(x, y);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// the low and the high bfloat16 of a register, as float32 (exact)
+__device__ __forceinline__ float bf16_low(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf16_high(uint32_t w) {
+  return __uint_as_float(w & 0xFFFF0000u);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(src)
                : "memory");
@@ -222,14 +285,16 @@ __device__ __forceinline__ int swz(int row, int col) {
 }
 
 // xa/xb are the I and Q product planes addressed as x[n * row_stride + c]
-// (AUDIO, CHANRATE), or the frames [nd, row_stride] and the packed weights
-// [row_stride, 2C] (PFB, row_stride = 2K_p). out is audio48 [nd/D, C], or
-// the channel-rate audio [nd, C] (CHANRATE, which reads no h_audio/ahist0
-// and writes no ahist). TCA: the audio FIR on the tensor cores (D == AD).
-template <bool FAST, int KIND, bool TCA>
+// (AUDIO, CHANRATE; float32, or bfloat16 under IN_BF16), or the frames
+// [nd, row_stride] and the packed weights [row_stride, 2C] (PFB, row_stride
+// = 2K_p; float32 at T_HIGHEST, else the bfloat16 hi half, and xc the lo
+// half, read at T_HIGH only). out is audio48 [nd/D, C], or the channel-rate
+// audio [nd, C] (CHANRATE, which reads no h_audio/ahist0 and writes no
+// ahist). TCA: the audio FIR on the tensor cores (D == AD).
+template <bool FAST, int KIND, bool TCA, int IN>
 __global__ void __launch_bounds__(NTHR, KIND == PFB ? 2 : 3)
-tail_tm_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
-               long long row_stride,
+tail_tm_kernel(const void* __restrict__ xa, const void* __restrict__ xb,
+               const void* __restrict__ xc, long long row_stride,
                const long long* __restrict__ phase0,
                const long long* __restrict__ step,
                const float* __restrict__ h_shape,
@@ -435,12 +500,47 @@ tail_tm_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
   // cm, in registers. AUDIO and CHANRATE load them from the product, the
   // next chunk's while this chunk is demodulated so their latency hides;
   // PFB reads them from the group's product in shared memory
+  constexpr bool BF16_IN = KIND != PFB && IN == IN_BF16;
   float cxi[HR], cxq[HR];
+  // IN_BF16: rows 2(4j + cm/4) + hm, channels 4(cm%4)..+3 of the warp, 8
+  // bytes a load; unpack_rows() hands them round
+  uint2 rawi[2], rawq[2];
   auto load_rows = [&](int n) {
+    if constexpr (BF16_IN) {
+      const auto* const pa = static_cast<const __nv_bfloat16*>(xa);
+      const auto* const pb = static_cast<const __nv_bfloat16*>(xb);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const size_t at = (size_t)(n + 2 * (4 * j + (cm >> 2)) + hm) *
+                              row_stride + cw + 4 * (cm & 3);
+        rawi[j] = *reinterpret_cast<const uint2*>(pa + at);
+        rawq[j] = *reinterpret_cast<const uint2*>(pb + at);
+      }
+    } else if constexpr (KIND != PFB) {
+      const float* const pa = static_cast<const float*>(xa);
+      const float* const pb = static_cast<const float*>(xb);
+#pragma unroll
+      for (int r = 0; r < HR; ++r) {
+        cxi[r] = pa[(size_t)(n + 2 * r + hm) * row_stride + c_mix];
+        cxq[r] = pb[(size_t)(n + 2 * r + hm) * row_stride + c_mix];
+      }
+    }
+  };
+  // IN_BF16: row 2r + hm of channel chl sits in lane hm*16 + 4(r%4) +
+  // chl/4, load r/4, half word chl%4 of its 8 bytes
+  const int chl = c_mix - cw;
+  auto unpack_rows = [&]() {
 #pragma unroll
     for (int r = 0; r < HR; ++r) {
-      cxi[r] = xa[(size_t)(n + 2 * r + hm) * row_stride + c_mix];
-      cxq[r] = xb[(size_t)(n + 2 * r + hm) * row_stride + c_mix];
+      const int src = (lane & 16) | (4 * (r & 3)) | (chl >> 2);
+      const uint32_t ix = __shfl_sync(FULL, rawi[r >> 2].x, src);
+      const uint32_t iy = __shfl_sync(FULL, rawi[r >> 2].y, src);
+      const uint32_t qx = __shfl_sync(FULL, rawq[r >> 2].x, src);
+      const uint32_t qy = __shfl_sync(FULL, rawq[r >> 2].y, src);
+      const uint32_t wi = (chl & 2) ? iy : ix;
+      const uint32_t wq = (chl & 2) ? qy : qx;
+      cxi[r] = (chl & 1) ? bf16_high(wi) : bf16_low(wi);
+      cxq[r] = (chl & 1) ? bf16_high(wq) : bf16_low(wq);
     }
   };
   if (KIND != PFB) load_rows(start);
@@ -448,12 +548,118 @@ tail_tm_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
   float pacc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   int cur = (start / S) % NSLOT;  // ring slot of the current chunk
   for (int g0 = start; g0 < r1; g0 += GROUP) {
-    if (KIND == PFB) {
+    if constexpr (KIND == PFB && IN != T_HIGHEST) {
+      // ---- filterbank product for rows g0..g0+PM-1 on the bf16 tensor
+      // cores: warp w makes rows 16w..16w+15, all 128 columns
+      const int kp2 = static_cast<int>(row_stride);
+      const int n_slices = kp2 / KS;
+      const float* const fa = static_cast<const float*>(xa);
+      const auto* const wh = static_cast<const __nv_bfloat16*>(xb);
+      const auto* const wl = static_cast<const __nv_bfloat16*>(xc);
+      float acc[NTILES][4];
+#pragma unroll
+      for (int nt = 0; nt < NTILES; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[nt][i] = 0.0f;
+
+      auto load_slice = [&](int s, int sg) {
+        float* const as = stage + sg * STAGE_FLOATS;
+        __nv_bfloat16* const bs = reinterpret_cast<__nv_bfloat16*>(
+            as + PM * LDA);
+        for (int i = tid; i < PM * (KS / 4); i += NTHR) {
+          const int row = i / (KS / 4);
+          const int pc = i % (KS / 4);
+          cp_async16(as + row * LDA + 4 * pc,
+                     fa + (size_t)(g0 + row) * kp2 + s * KS + 4 * pc);
+        }
+        // weights: KS taps x (the block's I columns, then its Q columns),
+        // 8 bfloat16 a copy; hi, then (T_HIGH) lo
+        constexpr int PIECES = KS * (2 * NC / 8);
+        for (int i = tid; i < (IN == T_HIGH ? 2 : 1) * PIECES; i += NTHR) {
+          const int half = i / PIECES;
+          const int tap = (i % PIECES) / (2 * NC / 8);
+          const int col = 8 * (i % (2 * NC / 8));
+          const int src_col = col < NC ? c0 + col : C + c0 + col - NC;
+          cp_async16(bs + half * KS * LDBH + tap * LDBH + col,
+                     (half ? wl : wh) + (size_t)(s * KS + tap) * 2 * C +
+                         src_col);
+        }
+        asm volatile("cp.async.commit_group;" ::: "memory");
+      };
+
+      __syncthreads();
+      load_slice(0, 0);
+      for (int s = 0; s < n_slices; ++s) {
+        asm volatile("cp.async.wait_group 0;" ::: "memory");
+        __syncthreads();
+        if (s + 1 < n_slices) load_slice(s + 1, (s + 1) & 1);
+        const float* const as =
+            stage + (s & 1) * STAGE_FLOATS + (16 * warp + g) * LDA + 2 * t;
+        const unsigned short* const bh =
+            reinterpret_cast<const unsigned short*>(
+                stage + (s & 1) * STAGE_FLOATS + PM * LDA) +
+            2 * t * LDBH + g;
+        const unsigned short* const bl = bh + KS * LDBH;
+        // A: rows g, g+8 of the warp's 16, taps 2t, 2t+1 and 2t+8, 2t+9
+        const float2 f[4] = {
+            *reinterpret_cast<const float2*>(as),
+            *reinterpret_cast<const float2*>(as + 8 * LDA),
+            *reinterpret_cast<const float2*>(as + 8),
+            *reinterpret_cast<const float2*>(as + 8 * LDA + 8)};
+        uint32_t ah[4], al[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          ah[i] = pack_bf16(f[i].x, f[i].y);
+          if (IN == T_HIGH)
+            al[i] = pack_bf16(f[i].x - bf16_low(ah[i]),
+                              f[i].y - bf16_high(ah[i]));
+        }
+        // B of n-tile nt: taps 2t, 2t+1 (b0) and 2t+8, 2t+9 (b1) of column
+        // 8nt + g
+        auto b_of = [&](const unsigned short* p, int nt, uint32_t& b0,
+                        uint32_t& b1) {
+          p += 8 * nt;
+          b0 = p[0] | (static_cast<uint32_t>(p[LDBH]) << 16);
+          b1 = p[8 * LDBH] | (static_cast<uint32_t>(p[9 * LDBH]) << 16);
+        };
+        if (IN == T_HIGH) {
+#pragma unroll
+          for (int nt = 0; nt < NTILES; ++nt) {
+            uint32_t b0, b1;
+            b_of(bh, nt, b0, b1);
+            mma_bf16(acc[nt], al, b0, b1);
+          }
+#pragma unroll
+          for (int nt = 0; nt < NTILES; ++nt) {
+            uint32_t b0, b1;
+            b_of(bl, nt, b0, b1);
+            mma_bf16(acc[nt], ah, b0, b1);
+          }
+        }
+#pragma unroll
+        for (int nt = 0; nt < NTILES; ++nt) {
+          uint32_t b0, b1;
+          b_of(bh, nt, b0, b1);
+          mma_bf16(acc[nt], ah, b0, b1);
+        }
+      }
+      __syncthreads();  // every warp is done with the stages
+#pragma unroll
+      for (int nt = 0; nt < NTILES; ++nt) {
+        float* const pp = stage + (16 * warp + g) * LDP + 8 * nt + 2 * t;
+        *reinterpret_cast<float2*>(pp) = make_float2(acc[nt][0], acc[nt][1]);
+        *reinterpret_cast<float2*>(pp + 8 * LDP) =
+            make_float2(acc[nt][2], acc[nt][3]);
+      }
+      __syncthreads();
+    } else if constexpr (KIND == PFB) {
       // ---- filterbank product for rows g0..g0+PM-1 on float32 FMAs, one
       // chain per output in tap order (what a float32 matmul computes).
       // A thread makes an 8 x 8 patch: rows 8rg..8rg+7, I and Q columns of
       // channels 4cg..4cg+3
       const int kp2 = static_cast<int>(row_stride);
+      const float* const fa = static_cast<const float*>(xa);
+      const float* const fb = static_cast<const float*>(xb);
       const int n_slices = kp2 / KS;
       const int rg = 2 * warp + (lane >> 4);
       const int cg = lane & 15;
@@ -471,7 +677,7 @@ tail_tm_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
           const int row = i / (KS / 4);
           const int pc = i % (KS / 4);
           cp_async16(as + row * LDA + 4 * pc,
-                     xa + (size_t)(g0 + row) * kp2 + s * KS + 4 * pc);
+                     fa + (size_t)(g0 + row) * kp2 + s * KS + 4 * pc);
         }
         // weights: KS taps x (the block's I columns, then its Q columns)
         for (int i = tid; i < KS * (2 * NC / 4); i += NTHR) {
@@ -479,7 +685,7 @@ tail_tm_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
           const int col = 4 * (i % (2 * NC / 4));
           const int src_col = col < NC ? c0 + col : C + c0 + col - NC;
           cp_async16(bs + tap * LDB + col,
-                     xb + (size_t)(s * KS + tap) * 2 * C + src_col);
+                     fb + (size_t)(s * KS + tap) * 2 * C + src_col);
         }
         asm volatile("cp.async.commit_group;" ::: "memory");
       };
@@ -540,6 +746,7 @@ tail_tm_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
     }
 
     for (int n0 = g0; n0 < g0 + GROUP; n0 += S) {
+      if constexpr (BF16_IN) unpack_rows();
       if (KIND == PFB) {
         const float* const pp =
             stage + (n0 - g0 + hm) * LDP + (c_mix - c0);
@@ -778,25 +985,45 @@ tail_tm_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
 }
 
 
+// the kernel for (KIND, IN), picked by the decimation (the audio FIR's
+// form) and the LO law
+template <int KIND, int IN>
+auto pick_kernel(int D, int fast) {
+  constexpr bool HAS_AUDIO_FIR = KIND != CHANRATE;
+  return HAS_AUDIO_FIR && D == AD
+             ? (fast ? tail_tm_kernel<true, KIND, HAS_AUDIO_FIR, IN>
+                     : tail_tm_kernel<false, KIND, HAS_AUDIO_FIR, IN>)
+             : (fast ? tail_tm_kernel<true, KIND, false, IN>
+                     : tail_tm_kernel<false, KIND, false, IN>);
+}
+
 template <int KIND>
-int launch(const void* xa, const void* xb, long long row_stride,
-           const void* phase0, const void* step, const void* h_shape,
-           const void* h_audio, const void* mode, const void* hist_i0,
-           const void* hist_q0, const void* prev0, const void* ahist0,
-           void* out, void* hist_i, void* hist_q, void* prev, void* ahist,
-           void* power_part, void* power, int nd, int C, int taps, int D,
-           int tile_rows, int fast, int device, void* stream) {
+int launch(const void* xa, const void* xb, const void* xc,
+           long long row_stride, const void* phase0, const void* step,
+           const void* h_shape, const void* h_audio, const void* mode,
+           const void* hist_i0, const void* hist_q0, const void* prev0,
+           const void* ahist0, void* out, void* hist_i, void* hist_q,
+           void* prev, void* ahist, void* power_part, void* power, int nd,
+           int C, int taps, int D, int tile_rows, int fast, int in,
+           int device, void* stream) {
   constexpr int halo = KIND == CHANRATE ? K : 2 * K;
   // rows come in chunks of S, or in product groups of PM whose slices are
   // copied 16 bytes at a time
   constexpr int rows = KIND == PFB ? PM : S;
+  const auto misaligned = [](const void* p, int bytes) {
+    return reinterpret_cast<uintptr_t>(p) % bytes != 0;
+  };
   if (taps != K || C % NC != 0 || nd % rows != 0 || tile_rows % rows != 0 ||
       tile_rows < halo || D < 1 || nd % D != 0 || row_stride < 1 ||
-      reinterpret_cast<uintptr_t>(out) % 16 != 0 ||
+      misaligned(out, 16) ||
       (KIND == PFB &&
-       (C / NC > 65535 || row_stride % KS != 0 ||
-        reinterpret_cast<uintptr_t>(xa) % 16 != 0 ||
-        reinterpret_cast<uintptr_t>(xb) % 16 != 0))) {
+       (C / NC > 65535 || row_stride % KS != 0 || in < 0 || in > 2 ||
+        misaligned(xa, 16) || misaligned(xb, 16) ||
+        (in == T_HIGH && misaligned(xc, 16)))) ||
+      (KIND != PFB && (in < 0 || in > 1 ||
+                       (in == IN_BF16 &&
+                        (row_stride % 4 != 0 || misaligned(xa, 8) ||
+                         misaligned(xb, 8)))))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   size_t smem_floats = 2 * NWARP * WIN * WC;
@@ -805,14 +1032,13 @@ int launch(const void* xa, const void* xb, long long row_stride,
   const size_t smem_bytes = smem_floats * sizeof(float);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // the audio FIR's form follows from D alone
-  constexpr bool HAS_AUDIO_FIR = KIND != CHANRATE;
-  const auto kernel =
-      HAS_AUDIO_FIR && D == AD
-          ? (fast ? tail_tm_kernel<true, KIND, HAS_AUDIO_FIR>
-                  : tail_tm_kernel<false, KIND, HAS_AUDIO_FIR>)
-          : (fast ? tail_tm_kernel<true, KIND, false>
-                  : tail_tm_kernel<false, KIND, false>);
+  auto kernel = pick_kernel<KIND, 0>(D, fast);
+  if constexpr (KIND == PFB) {
+    if (in == T_DEFAULT) kernel = pick_kernel<KIND, T_DEFAULT>(D, fast);
+    if (in == T_HIGH) kernel = pick_kernel<KIND, T_HIGH>(D, fast);
+  } else {
+    if (in == IN_BF16) kernel = pick_kernel<KIND, IN_BF16>(D, fast);
+  }
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem_bytes));
@@ -822,8 +1048,7 @@ int launch(const void* xa, const void* xb, long long row_stride,
   const dim3 grid = KIND == PFB ? dim3(n_tiles, C / NC)
                                 : dim3(C / NC, n_tiles);
   kernel<<<grid, NTHR, smem_bytes, s>>>(
-      static_cast<const float*>(xa), static_cast<const float*>(xb),
-      row_stride, static_cast<const long long*>(phase0),
+      xa, xb, xc, row_stride, static_cast<const long long*>(phase0),
       static_cast<const long long*>(step),
       static_cast<const float*>(h_shape), static_cast<const float*>(h_audio),
       static_cast<const int*>(mode), static_cast<const float*>(hist_i0),
@@ -845,23 +1070,26 @@ int launch(const void* xa, const void* xb, long long row_stride,
 extern "C" {
 
 // Launch the audio-fused tail on `stream`. Shapes: product planes addressed
-// as x[n * row_stride + c] for n < nd, c < C (xq points at the Q columns);
+// as x[n * row_stride + c] for n < nd, c < C (xq points at the Q columns),
+// float32, or bfloat16 where in_bf16 (8-byte aligned, row_stride % 4 == 0);
 // phase0/step [C] int64 holding uint32; h_shape/h_audio [K] reversed
-// kernels; mode [C] int32; hist_i0/hist_q0/ahist0 and the outputs hist_i/hist_q/ahist [K-1, C]; prev0/prev [2, C]; audio48
-// [nd/D, C], 16-byte aligned; power_part [n_tiles, C] scratch; power [C].
-// Returns cudaGetLastError().
+// kernels; mode [C] int32; hist_i0/hist_q0/ahist0 and the outputs
+// hist_i/hist_q/ahist [K-1, C]; prev0/prev [2, C]; audio48 [nd/D, C],
+// 16-byte aligned; power_part [n_tiles, C] scratch; power [C]. Returns
+// cudaGetLastError().
 int webradio_tail_tm_launch(
     const void* xi, const void* xq, long long row_stride, const void* phase0,
     const void* step, const void* h_shape, const void* h_audio,
     const void* mode, const void* hist_i0, const void* hist_q0,
     const void* prev0, const void* ahist0, void* audio48, void* hist_i,
     void* hist_q, void* prev, void* ahist, void* power_part, void* power,
-    int nd, int C, int taps, int D, int tile_rows, int fast, int device,
-    void* stream) {
-  return launch<AUDIO>(xi, xq, row_stride, phase0, step, h_shape, h_audio,
-                       mode, hist_i0, hist_q0, prev0, ahist0, audio48, hist_i,
-                       hist_q, prev, ahist, power_part, power, nd, C, taps, D,
-                       tile_rows, fast, device, stream);
+    int nd, int C, int taps, int D, int tile_rows, int fast, int in_bf16,
+    int device, void* stream) {
+  return launch<AUDIO>(xi, xq, nullptr, row_stride, phase0, step, h_shape,
+                       h_audio, mode, hist_i0, hist_q0, prev0, ahist0,
+                       audio48, hist_i, hist_q, prev, ahist, power_part,
+                       power, nd, C, taps, D, tile_rows, fast, in_bf16,
+                       device, stream);
 }
 
 // The tail without the audio FIR: audio [nd, C] at the channel rate; the
@@ -871,29 +1099,33 @@ int webradio_tail_tm_chanrate_launch(
     const void* step, const void* h_shape, const void* mode,
     const void* hist_i0, const void* hist_q0, const void* prev0, void* audio,
     void* hist_i, void* hist_q, void* prev, void* power_part, void* power,
-    int nd, int C, int taps, int tile_rows, int fast, int device,
-    void* stream) {
-  return launch<CHANRATE>(xi, xq, row_stride, phase0, step, h_shape, nullptr,
-                          mode, hist_i0, hist_q0, prev0, nullptr, audio,
-                          hist_i, hist_q, prev, nullptr, power_part, power,
-                          nd, C, taps, 1, tile_rows, fast, device, stream);
+    int nd, int C, int taps, int tile_rows, int fast, int in_bf16,
+    int device, void* stream) {
+  return launch<CHANRATE>(xi, xq, nullptr, row_stride, phase0, step,
+                          h_shape, nullptr, mode, hist_i0, hist_q0, prev0,
+                          nullptr, audio, hist_i, hist_q, prev, nullptr,
+                          power_part, power, nd, C, taps, 1, tile_rows, fast,
+                          in_bf16, device, stream);
 }
 
 // The audio-fused tail with the filterbank product made in the kernel:
-// frames [nd, kp2] and the packed weights [kp2, 2C] (columns [:C] make
-// mixed I, [C:] mixed Q) take the product planes' place.
+// frames [nd, kp2] float32 and the packed weights [kp2, 2C] (columns [:C]
+// make mixed I, [C:] mixed Q) take the product planes' place. tier 0
+// ("highest"): float32 weights in `weights`; 1 ("default"): the bfloat16
+// hi half in `weights`; 2 ("high"): hi in `weights`, lo in `weights_lo`;
+// all 16-byte aligned.
 int webradio_pfb_tail_tm_launch(
-    const void* frames, const void* weights, int kp2, const void* phase0,
-    const void* step, const void* h_shape, const void* h_audio,
-    const void* mode, const void* hist_i0, const void* hist_q0,
-    const void* prev0, const void* ahist0, void* audio48, void* hist_i,
-    void* hist_q, void* prev, void* ahist, void* power_part, void* power,
-    int nd, int C, int taps, int D, int tile_rows, int fast, int device,
-    void* stream) {
-  return launch<PFB>(frames, weights, kp2, phase0, step, h_shape, h_audio,
-                     mode, hist_i0, hist_q0, prev0, ahist0, audio48, hist_i,
-                     hist_q, prev, ahist, power_part, power, nd, C, taps, D,
-                     tile_rows, fast, device, stream);
+    const void* frames, const void* weights, const void* weights_lo, int kp2,
+    const void* phase0, const void* step, const void* h_shape,
+    const void* h_audio, const void* mode, const void* hist_i0,
+    const void* hist_q0, const void* prev0, const void* ahist0,
+    void* audio48, void* hist_i, void* hist_q, void* prev, void* ahist,
+    void* power_part, void* power, int nd, int C, int taps, int D,
+    int tile_rows, int fast, int tier, int device, void* stream) {
+  return launch<PFB>(frames, weights, weights_lo, kp2, phase0, step, h_shape,
+                     h_audio, mode, hist_i0, hist_q0, prev0, ahist0, audio48,
+                     hist_i, hist_q, prev, ahist, power_part, power, nd, C,
+                     taps, D, tile_rows, fast, tier, device, stream);
 }
 
 const char* webradio_tail_tm_error_string(int code) {

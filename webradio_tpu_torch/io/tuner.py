@@ -414,8 +414,8 @@ def _not_ported(driver: str):
     def make(subdevice: str = ""):
         raise NotImplementedError(
             f"tuner driver {driver!r} is not ported to webradio_tpu_torch "
-            "yet (ROADMAP.md, still to port: io/rtlsdr.py, io/soundcard.py "
-            "and the per-receiver audio sinks)")
+            "yet (ROADMAP.md, still to port: io/soundcard.py and the "
+            "per-receiver audio sinks)")
     return make
 
 
@@ -424,6 +424,17 @@ TUNER_DRIVERS = {
     "tone": ToneTuner,
     "file": FileTuner,
     "rtltcp": RtlTcpTuner,
-    "rtlsdr": _not_ported("rtlsdr"),
     "soundcard": _not_ported("soundcard"),
 }
+
+
+def _register_rtlsdr() -> None:
+    """The direct-USB librtlsdr driver (``io/rtlsdr.py``, which imports
+    this module), registered as the JAX package registers it. It builds
+    without librtlsdr or a dongle; its ``start()`` fails then."""
+    from .rtlsdr import RtlSdrTuner
+
+    TUNER_DRIVERS["rtlsdr"] = RtlSdrTuner
+
+
+_register_rtlsdr()

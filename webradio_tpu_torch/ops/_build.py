@@ -113,11 +113,11 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_library()))
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     # (pointers..., ints..., stream): see the extern "C" block of each source
-    tail = [vp] * 16 + [i32] * 7 + [vp]
+    tail = [vp] * 16 + [i32] * 8 + [vp]
     lib.webradio_tail_tm_launch.argtypes = [vp, vp, i64] + tail
-    lib.webradio_pfb_tail_tm_launch.argtypes = [vp, vp, i32] + tail
+    lib.webradio_pfb_tail_tm_launch.argtypes = [vp, vp, vp, i32] + tail
     lib.webradio_tail_tm_chanrate_launch.argtypes = (
-        [vp, vp, i64] + [vp] * 13 + [i32] * 6 + [vp])
+        [vp, vp, i64] + [vp] * 13 + [i32] * 7 + [vp])
     lib.webradio_receiver_tail_launch.argtypes = (
         [vp] * 11 + [i32] * 4 + [vp])
     for name in ("webradio_tail_tm_launch", "webradio_pfb_tail_tm_launch",

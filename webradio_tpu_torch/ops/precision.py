@@ -1,9 +1,12 @@
-"""Float32 matmul precision pinning.
+"""Matmul precision pinning.
 
-The filterbank and spectrum matmuls are true float32 (the "highest" tier).
-On a CUDA device a float32 matmul may silently run in TF32 when a caller
-has flipped the global switches; every matmul of the serving path runs
-inside :func:`full_fp32`, which pins both switches off for its duration and
+The spectrum matmuls and the "highest" filterbank tier are true float32;
+the other filterbank tiers multiply bfloat16 operands with float32 sums
+(``ops.channelizer``). On a CUDA device a float32 matmul may silently run
+in TF32 when a caller has flipped the global switches, and cuBLAS may sum a
+bfloat16 product in reduced precision unless told not to (PyTorch allows
+it by default). Every matmul of the serving path runs inside
+:func:`full_fp32`, which pins all three switches off for its duration and
 restores the caller's settings afterwards.
 """
 
@@ -16,15 +19,19 @@ import torch
 
 @contextlib.contextmanager
 def full_fp32():
-    """Pin ``allow_tf32`` off for cuBLAS and cuDNN inside the block."""
+    """Pin ``allow_tf32`` off for cuBLAS and cuDNN, and cuBLAS's
+    ``allow_bf16_reduced_precision_reduction`` off, inside the block."""
     matmul = torch.backends.cuda.matmul
-    old = (matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    old = (matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+           matmul.allow_bf16_reduced_precision_reduction)
     matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    matmul.allow_bf16_reduced_precision_reduction = False
     try:
         yield
     finally:
-        matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
+        (matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+         matmul.allow_bf16_reduced_precision_reduction) = old
 
 
 def round_tf32(x: torch.Tensor) -> torch.Tensor:

@@ -28,16 +28,26 @@ audio FIR likewise where the decimation is 5
 (``ops.fir.fir_decimate_banded_tf32x3_tm``; a float32 FMA loop for any
 other), and the filterbank product as float32 FMA chains in tap order; the
 plain versions stay true float32.
+
+The filterbank tiers (``ops.channelizer``) reach the kernels two ways. The
+packed product of the "bf16" tier is bfloat16: :func:`fused_tail_audio_tm`
+and :func:`fused_tail_tm` take it as it is (the kernels upcast at load,
+exactly; the plain versions take ``.float()`` of it), so every bound of the
+float32 product holds unchanged. :func:`fused_pfb_tail_audio_tm` makes the
+product at "highest", "default" or "high" (the JAX kernel's tiers; "u8exact"
+and "bf16" need the packed product): the two lossy tiers on the bf16 tensor
+cores from the host-split weights, and the plain version at the same law
+(``ops.channelizer.pfb_product``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from .channelizer import pfb_product
 from .demod import demodulate_tm
 from .fir import fir_decimate_toeplitz_tm, taps_of
 from .nco import nco_mix_tm, nco_mix_tm_exact
-from .precision import full_fp32
 
 #: channels per kernel tile; the JAX kernel's rule, kept so the same
 #: channel counts are accepted by both packages (a CUDA block takes 64)
@@ -64,6 +74,9 @@ KERNEL_TAPS = 64
 #: (:func:`law_sorted_columns`)
 WARP_CHANNELS = 16
 PRECISIONS = ("highest", "hx5", "hx4", "high")
+#: the filterbank tiers :func:`fused_pfb_tail_audio_tm` makes, by the
+#: kernel's tier code
+PFB_TIERS = {"highest": 0, "default": 1, "high": 2}
 
 
 def tile_rows_for(nd: int, channels: int) -> int:
@@ -176,13 +189,15 @@ def fused_pfb_tail_audio_tm_ref(
     frames, pfb_weights, phase0, phase_step, w_toep, audio_toep, decimation,
     mode, chan_hist_i, chan_hist_q, demod_prev, audio_hist,
     precision="highest", packed=True, fast=False, pfb_precision="highest",
-    mode_set=None,
+    mode_set=None, pfb_weights_split=None,
 ):
     """Plain torch version of :func:`fused_pfb_tail_audio_tm` (same
-    arguments, same returns): the filterbank matmul in true float32, then
+    arguments, same returns): the filterbank product at the tier's law
+    (``ops.channelizer.pfb_product``; true float32 for "highest"), then
     :func:`fused_tail_audio_tm_ref` on the packed product."""
-    with full_fp32():
-        y2 = frames @ pfb_weights
+    y2 = pfb_product(frames, pfb_weights,
+                     _weights_split(pfb_weights, pfb_weights_split,
+                                    pfb_precision), pfb_precision)
     return fused_tail_audio_tm_ref(
         y2, y2, phase0, phase_step, w_toep, audio_toep, decimation, mode,
         chan_hist_i, chan_hist_q, demod_prev, audio_hist, packed=True,
@@ -239,19 +254,28 @@ def _check_common(dev, nd, c, d, tile_rows, halo, phase0, phase_step, mode,
 
 
 def _planes(ci_planes, cq_planes, packed):
-    """Check the product planes; returns ``(nd, c, xi ptr, xq ptr, row
-    stride in floats)``."""
+    """Check the product planes, float32 or (the "bf16" tier) bfloat16;
+    returns ``(nd, c, xi ptr, xq ptr, row stride in elements, 1 for
+    bfloat16 else 0)``."""
     dev = ci_planes.device
     nd = ci_planes.shape[0]
     c = ci_planes.shape[1] // 2 if packed else ci_planes.shape[1]
-    _check("ci_planes", ci_planes, torch.float32,
-           (nd, 2 * c if packed else c), dev)
+    dt = ci_planes.dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"ci_planes has dtype {dt}, expected float32 or "
+                        "bfloat16")
+    _check("ci_planes", ci_planes, dt, (nd, 2 * c if packed else c), dev)
     xi = ci_planes.data_ptr()
+    in_bf16 = int(dt == torch.bfloat16)
+    if in_bf16 and xi % 8:
+        raise ValueError("a bfloat16 product must be 8-byte aligned")
     if packed:
-        # Q starts C floats (4 bytes each) into a row of 2C floats
-        return nd, c, xi, xi + 4 * c, 2 * c
-    _check("cq_planes", cq_planes, torch.float32, (nd, c), dev)
-    return nd, c, xi, cq_planes.data_ptr(), c
+        # Q starts C elements into a row of 2C
+        return nd, c, xi, xi + ci_planes.element_size() * c, 2 * c, in_bf16
+    _check("cq_planes", cq_planes, dt, (nd, c), dev)
+    if in_bf16 and cq_planes.data_ptr() % 8:
+        raise ValueError("a bfloat16 product must be 8-byte aligned")
+    return nd, c, xi, cq_planes.data_ptr(), c, in_bf16
 
 
 def _empty(dev, *shape):
@@ -261,11 +285,12 @@ def _empty(dev, *shape):
 def _launch_audio(wrapper, entry, lead, dev, nd, c, phase0, phase_step,
                   w_toep, audio_toep, decimation, mode, chan_hist_i,
                   chan_hist_q, demod_prev, audio_hist, fast, tile_rows,
-                  rows=CHUNK_ROWS):
+                  variant, rows=CHUNK_ROWS):
     """Launch an audio-fused kernel through the library's ``entry`` and
-    count it on ``wrapper``; ``lead`` is the entry point's first three
-    arguments, the product planes or the frames and weights; ``rows`` is
-    the row granule of ``nd`` and ``tile_rows``."""
+    count it on ``wrapper``; ``lead`` is the entry point's leading
+    arguments, the product planes or the frames and weights; ``variant``
+    the product's type (1: bfloat16) or the filterbank tier's code;
+    ``rows`` is the row granule of ``nd`` and ``tile_rows``."""
     from . import _build
 
     d = int(decimation)
@@ -289,7 +314,7 @@ def _launch_audio(wrapper, entry, lead, dev, nd, c, phase0, phase_step,
         demod_prev.data_ptr(), audio_hist.data_ptr(), audio48.data_ptr(),
         hist_i.data_ptr(), hist_q.data_ptr(), new_prev.data_ptr(),
         ahist.data_ptr(), power_part.data_ptr(), power.data_ptr(),
-        nd, c, k, d, tile_rows, int(bool(fast)), dev.index,
+        nd, c, k, d, tile_rows, int(bool(fast)), variant, dev.index,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, code, f"{wrapper.__name__} kernel launch")
@@ -300,17 +325,31 @@ def _launch_audio(wrapper, entry, lead, dev, nd, c, phase0, phase_step,
 def _launch(ci_planes, cq_planes, phase0, phase_step, w_toep, audio_toep,
             decimation, mode, chan_hist_i, chan_hist_q, demod_prev,
             audio_hist, packed, fast, tile_rows):
-    nd, c, xi, xq, row_stride = _planes(ci_planes, cq_planes, packed)
+    nd, c, xi, xq, row_stride, in_bf16 = _planes(ci_planes, cq_planes,
+                                                 packed)
     return _launch_audio(
         fused_tail_audio_tm, "webradio_tail_tm_launch",
         (xi, xq, row_stride), ci_planes.device, nd, c,
         phase0, phase_step, w_toep, audio_toep, decimation, mode,
-        chan_hist_i, chan_hist_q, demod_prev, audio_hist, fast, tile_rows)
+        chan_hist_i, chan_hist_q, demod_prev, audio_hist, fast, tile_rows,
+        in_bf16)
+
+
+def _weights_split(pfb_weights, pfb_weights_split, pfb_precision):
+    """The split weights a lossy tier reads as ``[2, 2K_p, 2C]``; None for
+    "highest"."""
+    if pfb_precision == "highest":
+        return None
+    if pfb_weights_split is None:
+        raise ValueError(f"the {pfb_precision!r} tier reads the split "
+                         "weights (pfb_weights_split), which are absent")
+    return pfb_weights_split.reshape(2, pfb_weights.shape[0], -1)
 
 
 def _launch_pfb(frames, pfb_weights, phase0, phase_step, w_toep, audio_toep,
                 decimation, mode, chan_hist_i, chan_hist_q, demod_prev,
-                audio_hist, fast, tile_rows):
+                audio_hist, fast, tile_rows, pfb_precision="highest",
+                pfb_weights_split=None):
     dev = frames.device
     nd, kp2 = frames.shape
     c = pfb_weights.shape[-1] // 2
@@ -319,14 +358,21 @@ def _launch_pfb(frames, pfb_weights, phase0, phase_step, w_toep, audio_toep,
     if kp2 % PFB_SLICE_TAPS:
         raise ValueError(f"the frames' width {kp2} must be a multiple of "
                          f"{PFB_SLICE_TAPS}")
-    if frames.data_ptr() % 16 or pfb_weights.data_ptr() % 16:
-        raise ValueError("frames and pfb_weights must be 16-byte aligned")
+    split = _weights_split(pfb_weights, pfb_weights_split, pfb_precision)
+    if split is None:
+        w_hi = w_lo = pfb_weights
+    else:
+        _check("pfb_weights_split", split, torch.bfloat16, (2, kp2, 2 * c),
+               dev)
+        w_hi, w_lo = split[0], split[1]
+    if any(t.data_ptr() % 16 for t in (frames, w_hi, w_lo)):
+        raise ValueError("frames and the weights must be 16-byte aligned")
     return _launch_audio(
         fused_pfb_tail_audio_tm, "webradio_pfb_tail_tm_launch",
-        (frames.data_ptr(), pfb_weights.data_ptr(), kp2), dev, nd, c,
-        phase0, phase_step, w_toep, audio_toep, decimation, mode,
+        (frames.data_ptr(), w_hi.data_ptr(), w_lo.data_ptr(), kp2), dev, nd,
+        c, phase0, phase_step, w_toep, audio_toep, decimation, mode,
         chan_hist_i, chan_hist_q, demod_prev, audio_hist, fast, tile_rows,
-        rows=PFB_GROUP_ROWS)
+        PFB_TIERS[pfb_precision], rows=PFB_GROUP_ROWS)
 
 
 def _launch_chanrate(ci_planes, cq_planes, phase0, phase_step, w_toep, mode,
@@ -336,7 +382,8 @@ def _launch_chanrate(ci_planes, cq_planes, phase0, phase_step, w_toep, mode,
 
     dev = ci_planes.device
     k = KERNEL_TAPS
-    nd, c, xi, xq, row_stride = _planes(ci_planes, cq_planes, packed)
+    nd, c, xi, xq, row_stride, in_bf16 = _planes(ci_planes, cq_planes,
+                                                 packed)
     h_shape = _reversed_kernel("w_toep", w_toep, 1, dev)
     _check_common(dev, nd, c, 1, tile_rows, k, phase0, phase_step, mode,
                   chan_hist_i, chan_hist_q, demod_prev)
@@ -354,7 +401,7 @@ def _launch_chanrate(ci_planes, cq_planes, phase0, phase_step, w_toep, mode,
         chan_hist_q.data_ptr(), demod_prev.data_ptr(), audio.data_ptr(),
         hist_i.data_ptr(), hist_q.data_ptr(), new_prev.data_ptr(),
         power_part.data_ptr(), power.data_ptr(),
-        nd, c, k, tile_rows, int(bool(fast)), dev.index,
+        nd, c, k, tile_rows, int(bool(fast)), in_bf16, dev.index,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, code, "fused_tail_tm kernel launch")
@@ -399,7 +446,8 @@ def fused_tail_audio_tm(
     Args (the JAX function's):
       ci_planes / cq_planes: ``[nd, C]`` float32 selected-bin planes; with
         ``packed=True`` both are the same ``[nd, 2C]`` filterbank product
-        (columns ``[:C]`` I, ``[C:]`` Q), read in place.
+        (columns ``[:C]`` I, ``[C:]`` Q), read in place. Bfloat16 (the
+        "bf16" tier's stored product) is read as it is and upcast.
       phase0 / phase_step: ``[C]`` int64 holding the uint32 NCO phase of
         this block's first sample and the per-sample step.
       w_toep / audio_toep: banded weights (``ops.fir.toeplitz_weights``) of
@@ -488,6 +536,7 @@ def fused_pfb_tail_audio_tm(
     fast: bool = False,
     pfb_precision: str = "highest",
     mode_set: tuple | None = None,
+    pfb_weights_split: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
            torch.Tensor, torch.Tensor]:
     """:func:`fused_tail_audio_tm` with the polyphase filterbank product
@@ -501,8 +550,14 @@ def fused_pfb_tail_audio_tm(
       pfb_weights: ``[2 K_p, 2 C]`` float32 packed filterbank weights
         (``bin_weights_for_channels`` reshaped): columns ``[:C]`` make
         mixed I, ``[C:]`` mixed Q.
-      pfb_precision: only "highest" (float32 accuracy: true float32 in
-        the plain version, float32 FMA chains in the kernel) is ported.
+      pfb_precision: "highest" (float32 accuracy: true float32 in the plain
+        version, float32 FMA chains in the kernel), "default" or "high"
+        (the ``ops.channelizer`` laws; bf16 tensor cores in the kernel).
+        "u8exact" and "bf16" raise, as the JAX configuration refuses them
+        for this kernel.
+      pfb_weights_split: the lossy tiers' bfloat16 hi/lo weights,
+        ``[2, 2K_p, 2, C]`` (``ChannelizedParams.pfb_weights_split``) or
+        ``[2, 2K_p, 2C]``; required at "default" and "high".
       packed: accepted for signature parity; frames are packed by nature.
 
     Returns what :func:`fused_tail_audio_tm` returns.
@@ -511,10 +566,10 @@ def fused_pfb_tail_audio_tm(
     counts each launch); CPU tensors to
     :func:`fused_pfb_tail_audio_tm_ref`.
     """
-    if pfb_precision != "highest":
-        raise NotImplementedError(
-            f"pfb_precision={pfb_precision!r} is not ported to "
-            "webradio_tpu_torch yet (ROADMAP.md: the pfb tiers)")
+    if pfb_precision not in PFB_TIERS:
+        raise ValueError(f"the fused filterbank makes the {tuple(PFB_TIERS)}"
+                         f" products, not {pfb_precision!r} (which needs "
+                         "the packed product)")
     if pfb_weights.shape[0] != frames.shape[1]:
         raise ValueError("frames/weights contraction mismatch")
     args = (frames, pfb_weights, phase0, phase_step, w_toep, audio_toep,
@@ -523,9 +578,11 @@ def fused_pfb_tail_audio_tm(
     if _route(frames, precision):
         return _launch_pfb(
             *args, fast,
-            tile_rows_for(frames.shape[0], pfb_weights.shape[1] // 2))
-    return fused_pfb_tail_audio_tm_ref(*args, precision=precision,
-                                       fast=fast)
+            tile_rows_for(frames.shape[0], pfb_weights.shape[1] // 2),
+            pfb_precision, pfb_weights_split)
+    return fused_pfb_tail_audio_tm_ref(
+        *args, precision=precision, fast=fast, pfb_precision=pfb_precision,
+        pfb_weights_split=pfb_weights_split)
 
 
 fused_tail_audio_tm.launches = 0

@@ -4,8 +4,12 @@ Port of ``webradio_tpu.pipeline.channelized`` — the serving step the
 server's block pump runs once per block from 16 receivers up:
 
   1. spectrum: a windowed DFT per ``fft_size`` frames (``ops.spectrum``);
-  2. filterbank: im2col frames and one ``[nd, 2K_p] x [2K_p, 2C]`` float32
-     matmul to the packed ``[nd, 2C]`` product (``ops.channelizer``);
+  2. filterbank: im2col frames and one ``[nd, 2K_p] x [2K_p, 2C]`` GEMM
+     to the packed ``[nd, 2C]`` product at the configuration's
+     ``pfb_precision`` tier (``ops.channelizer``: true float32, or a law on
+     bfloat16 operands; the "bf16" tier stores the product as bfloat16,
+     which kernels #1 and #2 read as it is and the plain tails as
+     ``.float()``);
   3. receiver tail: residual NCO mix, 64-tap shaping FIR, demod, squelch
      power and the decimating audio FIR. Every branch of the JAX step on
      one device is here, with a Hopper kernel wherever the same
@@ -23,9 +27,7 @@ server's block pump runs once per block from 16 receivers up:
 Layouts are the JAX package's, so states and parameters carry over
 (``webradio_tpu_torch.convert``). The control plane is here too:
 ``scatter_params_slots``, ``grow_channelized_state`` and the catch-up path
-``ChannelizedPipeline.process_host_many``. Still left out, raising
-NotImplementedError that names its ROADMAP.md item: every
-``pfb_precision`` but "highest" (and with it ``pfb_weights_split``).
+``ChannelizedPipeline.process_host_many``.
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ from ..ops.channelizer import (
     pfb_channelize_direct,
     pfb_channelize_direct_tm,
     pfb_frames_tm,
+    split_weights_u8,
 )
 from ..ops.demod import MODES, demodulate
 from ..ops.fir import (
@@ -74,13 +77,6 @@ from .frontend import HostPipeline, squelch_scale
 from .state import _squelch_array, expand_controls
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to webradio_tpu_torch yet "
-        f"(ROADMAP.md, still to port: {item})"
-    )
-
-
 @dataclasses.dataclass(frozen=True)
 class ChannelizedConfig:
     """Static shape of a channelized front-end (the JAX package's fields
@@ -93,7 +89,9 @@ class ChannelizedConfig:
     filterbank product made inside the kernel. ``use_pallas_tail`` takes
     the per-channel (time-minor) branch through its kernel; ``chan_hist``
     then carries the RAW pre-mix tail, so a state is not carried across
-    that flag.
+    that flag. ``pfb_precision`` picks the filterbank product's law
+    (``ops.channelizer``); "pallas_pfb" takes "highest", "default" and
+    "high" (the kernel makes the product), as in the JAX package.
     """
 
     sample_rate: int = 2_400_000
@@ -147,9 +145,6 @@ class ChannelizedConfig:
             )
         if self.fir_design not in ("reference", "sinc"):
             raise ValueError("fir_design must be 'reference' or 'sinc'")
-        if self.pfb_precision != "highest":
-            raise _not_ported(f"pfb_precision={self.pfb_precision!r}",
-                              "the pfb tiers")
 
     @property
     def num_bins(self) -> int:
@@ -187,7 +182,12 @@ class ChannelizedParams(NamedTuple):
     #: shared banded weights, present iff every channel shares the kernel
     chan_toep: torch.Tensor | None = None  # [span1, T1] float32
     audio_toep: torch.Tensor | None = None  # [span2, T2] float32
-    #: the u8exact tier's split weights; always None in this slice
+    #: host-split bfloat16 hi/lo filterbank weights ([2, 2K_p, 2, C], see
+    #: ops.channelizer.split_weights_u8), present iff cfg.pfb_precision is
+    #: not "highest": u8exact and high read both halves, default and bf16
+    #: (and kernel #3 at default) the hi half. The JAX package keeps them
+    #: for u8exact only and splits in its kernels; here the split is made
+    #: once per parameter set
     pfb_weights_split: torch.Tensor | None = None
 
 
@@ -256,6 +256,8 @@ def make_channelized_params(
 
     return ChannelizedParams(
         pfb_weights=dev(weights),
+        pfb_weights_split=(split_weights_u8(weights).to(device)
+                           if cfg.pfb_precision != "highest" else None),
         residual_step=dev(steps),
         chan_coeff=dev(chan),
         audio_coeff=dev(audio),
@@ -284,6 +286,8 @@ def scatter_params_slots(params: ChannelizedParams, idx,
     dev = params.pfb_weights.device
     idx = torch.as_tensor(idx, dtype=torch.int64, device=dev)
     params.pfb_weights[:, :, idx] = sub.pfb_weights.to(dev)
+    if params.pfb_weights_split is not None:
+        params.pfb_weights_split[:, :, :, idx] = sub.pfb_weights_split.to(dev)
     for name in ("residual_step", "chan_coeff", "audio_coeff", "mode",
                  "af_gain", "squelch"):
         getattr(params, name)[idx] = getattr(sub, name).to(dev)
@@ -377,10 +381,17 @@ def _audio_time_tile(nd: int, d: int, fir_tile: int) -> int:
     return best
 
 
+def _channelize_tm(cfg, params, pfb_hist, iq, split):
+    """The wideband stage at the configuration's tier (the JAX package's
+    ``_channelize_tm``, which off the TPU runs u8exact at HIGHEST; here
+    every tier computes its own law on every device)."""
+    return pfb_channelize_direct_tm(
+        iq, params.pfb_weights, cfg.num_bins, pfb_hist, split=split,
+        precision=cfg.pfb_precision,
+        weights_split=params.pfb_weights_split)
+
+
 def _channelized_step(cfg, params, state, iq, time_major):
-    if params.pfb_weights_split is not None:
-        raise _not_ported("pfb_weights_split (the u8exact tier)",
-                          "the pfb tiers")
     spectra = spectrum_accumulate(iq, cfg.fft_size)
     nco_phase = nco_advance(state.nco_phase, params.residual_step,
                             cfg.chan_frames)
@@ -416,11 +427,13 @@ def _channelized_step(cfg, params, state, iq, time_major):
                         state.audio_hist.T.contiguous(),
                         precision=cfg.fir_precision, fast=cfg.fast_nco,
                         pfb_precision=cfg.pfb_precision,
+                        pfb_weights_split=params.pfb_weights_split,
                     ))
             else:
-                y2, _, pfb_hist = pfb_channelize_direct_tm(
-                    iq, params.pfb_weights, cfg.num_bins, state.pfb_hist,
-                    split=False)
+                # the packed product, bfloat16 under the "bf16" tier: the
+                # kernels read it as it is
+                y2, _, pfb_hist = _channelize_tm(cfg, params, state.pfb_hist,
+                                                 iq, split=False)
                 if has_tile:
                     audio, hist_i, hist_q, demod_prev, ahist, power = (
                         fused_tail_audio_tm(
@@ -442,11 +455,13 @@ def _channelized_step(cfg, params, state, iq, time_major):
                     audio, ahist = fir_decimate_toeplitz_tm(
                         audio_tm, params.audio_toep, d, state.audio_hist.T)
         else:
-            ci, cq, pfb_hist = pfb_channelize_direct_tm(
-                iq, params.pfb_weights, cfg.num_bins, state.pfb_hist,
-                split=True)
+            ci, cq, pfb_hist = _channelize_tm(cfg, params, state.pfb_hist,
+                                              iq, split=True)
+            # the plain tail computes in float32 (the "bf16" tier's product
+            # is bfloat16)
             mix_tm = nco_mix_tm_fast if cfg.fast_nco else nco_mix_tm
-            mi, mq = mix_tm(ci, cq, state.nco_phase, params.residual_step)
+            mi, mq = mix_tm(ci.float(), cq.float(), state.nco_phase,
+                            params.residual_step)
             audio, hist_i, hist_q, demod_prev, ahist, power = (
                 tail_after_mix_tm(
                     mi, mq, params.chan_toep, params.audio_toep, d,
@@ -468,9 +483,11 @@ def _channelized_step(cfg, params, state, iq, time_major):
         ), audio, spectra
 
     # ---- per-channel fallback (slots whose bandwidths differ, or
-    # use_pallas_tail): time-minor planes [2, C, nd], channel-major carries
+    # use_pallas_tail): time-minor float32 planes [2, C, nd] at any tier,
+    # channel-major carries
     chan_in, pfb_hist = pfb_channelize_direct(
-        iq, params.pfb_weights, cfg.num_bins, state.pfb_hist)
+        iq, params.pfb_weights, cfg.num_bins, state.pfb_hist,
+        precision=cfg.pfb_precision, weights_split=params.pfb_weights_split)
     if cfg.use_pallas_tail:
         # chan_hist carries the RAW selected-bin tail in this mode
         audio_if, chan_hist, demod_prev, power = fused_receiver_tail(

@@ -26,8 +26,8 @@ host on HTTP demand. Everything runs on the current (default) CUDA stream,
 so each copy is ordered after the step that made its input.
 
 Not ported yet, each raising NotImplementedError that names its ROADMAP.md
-item: ``engine="sharded"`` and ``multihost=True`` (the multi-device layer)
-and ``pfb_precision`` other than "highest" (the pfb tiers).
+item: ``engine="sharded"`` and ``multihost=True`` (the multi-device
+layer).
 """
 
 from __future__ import annotations
@@ -346,7 +346,8 @@ class FrontEnd:
         topology), "channelized" (shared polyphase filterbank, the scalable
         path) or "auto" (channelized from CHANNELIZED_AUTO_THRESHOLD
         channels). ``fir_precision``: the channelized engine's FIR tier
-        (every tier runs float32 on the card). ``device``: None is the CUDA
+        (every tier runs float32 on the card). ``pfb_precision``: the
+        filterbank product's tier (``ops.channelizer``). ``device``: None is the CUDA
         device, and an error where there is none."""
         if engine == "sharded" or multihost:
             raise _not_ported(
@@ -354,9 +355,6 @@ class FrontEnd:
                 "the multi-device layer (parallel/*, torch.distributed)")
         if engine not in ("auto", "direct", "channelized"):
             raise ValueError(f"unknown engine {engine!r}")
-        if pfb_precision != "highest":
-            raise _not_ported(f"pfb_precision={pfb_precision!r}",
-                              "the pfb tiers")
         self.device = torch.device(device) if device is not None \
             else require_cuda()
         self.uuid = _next_uuid("frontend")

@@ -30,6 +30,7 @@ import math
 import pathlib
 import tempfile
 import threading
+import time
 
 from ..radio import Radio, Receiver
 
@@ -165,17 +166,70 @@ class StatusHandler(HttpRequestHandler):
         )
 
 
+def _blocks_served() -> int:
+    return sum(fe.block_count for fe in Radio.front_ends.values())
+
+
+def trace_event_counts(path) -> tuple[int, int]:
+    """``(kernel events, copy and memset events)`` of a Chrome trace."""
+    with open(path) as f:
+        cats = [e.get("cat", "") for e in json.load(f).get("traceEvents", [])]
+    return (sum(c == "kernel" for c in cats),
+            sum(c in ("gpu_memcpy", "gpu_memset") for c in cats))
+
+
+def check_trace_has_kernels(trace: pathlib.Path, served: int) -> int:
+    """The kernel events of a card's trace ``trace``. Where it holds none
+    although the pump served ``served`` blocks while it ran, the trace is a
+    profiler fault, not a reading: it is renamed
+    ``trace_without_kernels.json`` and RuntimeError says so."""
+    kernels, copies = trace_event_counts(trace)
+    if served and not kernels:
+        kept = trace.replace(trace.with_name("trace_without_kernels.json"))
+        raise RuntimeError(
+            f"the profiler recorded {copies} copy events but no kernel while "
+            f"the pump served {served} blocks (a profiler fault; the trace "
+            f"is kept as {kept})")
+    return kernels
+
+
+def warm_profiler() -> float:
+    """Start and stop one ``torch.profiler`` session of the card's
+    activity and return the ms it took. The first start in a process sets
+    up the profiler's CUDA side (CUPTI): 6.4-9.6 s on the H100, holding the
+    interpreter lock in stretches long enough to stall a pump past its ring
+    (``tools/torch_profiler_probe.py``); every later start takes ~2 ms. The
+    app runs this once before its pump starts, so a user's ``/profile``
+    costs the pump nothing of that."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    prof.start()
+    torch.cuda.synchronize()
+    prof.stop()
+    return 1e3 * (time.perf_counter() - t0)
+
+
 class _TraceSession:
     """One ``torch.profiler`` trace, started and stopped on a thread of its
     own (the profiler must be stopped on the thread that started it; HTTP
     requests come on any thread). Where there is a card it records the
     device's activity, every stream and thread; host operations would be
     the profiler thread's own only, so they are recorded only where there
-    is no card (the trace then holds that thread's few events)."""
+    is no card (the trace then holds that thread's few events).
+
+    ``timings_ms`` holds what ``start()``, ``stop()`` and the export took.
+    On the card :meth:`stop` raises for a trace without a kernel event
+    (:func:`check_trace_has_kernels`)."""
 
     def __init__(self, trace_dir: str):
         self.trace_dir = trace_dir
         self.error: BaseException | None = None
+        self.timings_ms: dict[str, float] = {}
+        self.kernel_events: int | None = None
+        self._blocks0 = _blocks_served()
         self._started = threading.Event()
         self._stop = threading.Event()
         self._done = threading.Event()
@@ -190,11 +244,11 @@ class _TraceSession:
         import torch
         from torch.profiler import ProfilerActivity, profile
 
-        acts = [ProfilerActivity.CUDA if torch.cuda.is_available()
-                else ProfilerActivity.CPU]
+        card = torch.cuda.is_available()
+        acts = [ProfilerActivity.CUDA if card else ProfilerActivity.CPU]
         try:
             prof = profile(activities=acts)
-            prof.start()
+            self._timed("start", prof.start)
         except BaseException as e:
             self.error = e
             self._started.set()
@@ -202,13 +256,23 @@ class _TraceSession:
         self._started.set()
         self._stop.wait()
         try:
-            prof.stop()
+            self._timed("stop", prof.stop)
+            served = _blocks_served() - self._blocks0
             path = pathlib.Path(self.trace_dir)
             path.mkdir(parents=True, exist_ok=True)
-            prof.export_chrome_trace(str(path / "trace.json"))
+            trace = path / "trace.json"
+            self._timed("export",
+                        lambda: prof.export_chrome_trace(str(trace)))
+            if card:
+                self.kernel_events = check_trace_has_kernels(trace, served)
         except BaseException as e:
             self.error = e
         self._done.set()
+
+    def _timed(self, name: str, fn) -> None:
+        t0 = time.perf_counter()
+        fn()
+        self.timings_ms[name] = 1e3 * (time.perf_counter() - t0)
 
     def stop(self) -> None:
         self._stop.set()
@@ -224,7 +288,11 @@ class ProfileHandler(HttpRequestHandler):
     POST ``{"action": "start", "dir": "..."}`` begins a trace (default dir
     ``webradio_trace`` in the temporary directory), ``{"action": "stop"}``
     ends it, writes ``<dir>/trace.json`` (Chrome trace format: Perfetto,
-    chrome://tracing) and returns the directory. GET reports the state.
+    chrome://tracing) and returns the directory, what the profiler's start,
+    stop and export took (``timings_ms``) and the trace's kernel events.
+    A trace of the card without a kernel event while blocks were served
+    answers 500 with the reason (see ``_TraceSession``). GET reports the
+    state.
     """
 
     # class-level: one trace at a time; the lock serializes the
@@ -271,10 +339,13 @@ class ProfileHandler(HttpRequestHandler):
                 try:
                     session.stop()
                 except Exception as exc:
-                    self.send_json({"error": str(exc)})
+                    self.send_json({"error": str(exc),
+                                    "timings_ms": session.timings_ms})
                     return HTTP_INTERNAL
                 return self.send_json(
-                    {"tracing": False, "trace_dir": trace_dir})
+                    {"tracing": False, "trace_dir": trace_dir,
+                     "timings_ms": session.timings_ms,
+                     "kernel_events": session.kernel_events})
         return HTTP_BAD_REQUEST
 
 
