@@ -42,7 +42,16 @@ Phases (each fails the run on error):
    C=69,632, 16 blocks of 8-bit-grid input back to back at u8exact,
    highest and bf16: ms/block, real-time factor (u8exact must be above 1),
    kernel #1 once a block, the AM and FM tones, peak device memory;
-10. the server: the port's ``RadioApp`` in this process on the card (no
+10. offline: ``pipeline.stream.run_capture_channelized`` over 16 blocks
+   and a part-block of tone-source input at C=16,384 (kernel #1 once a
+   block, its audio and state bit-equal to 16 ``process_host`` calls, the
+   AM and FM tones, its back-to-back ms/block beside ``process_host``'s),
+   and ``run_capture`` at C=16 against ``FrontEndPipeline``;
+11. the CLI: ``demod_cli.main`` on a 1 s ``.cf32`` tone capture with four
+   receivers, on the direct and the channelized engine, every WAV heard;
+12. the entry: ``entry()``'s step on the card against the same step on the
+   CPU (1e-5, the FM flip rule);
+13. the server: the port's ``RadioApp`` in this process on the card (no
    device named), HTTP on 127.0.0.1, three tone tuners for about ten
    seconds of real-time serving: tuner 0 at C=16,384 (channelized, every
    slot at the default bandwidths, so kernel #1 runs every block) with AM,
@@ -63,8 +72,15 @@ Phases (each fails the run on error):
    ms/block, the pump's longest gap in each step, and the device's idle
    share in the window. Drops of the ring and of the tone source are
    counted by span: start-up, the profiler window, the /profile trace, and
-   serving (everything else, growth and catch-up included), which must
-   drop no block.
+   serving (everything else, growth and catch-up included); serving and
+   the /profile trace must drop no block (each stretch of the trace is
+   logged with the pump's longest gap and each ring's depths and drops).
+   A fifth receiver on tuner 0 (AM) writes a ``file:`` audio sink whose
+   WAV must hold 1 kHz with no sink drop; a receiver on tuner 1 asks for
+   "pulse", which without libpulse-simple stays unbound;
+14. the soundcard tuner: a ``"soundcard"`` tuner on a libpulse-simple
+   stand-in at a 96 kHz line-in clock, served by ``RadioApp`` on the card,
+   its AM receiver heard over HTTP.
 
 Prints a ``{"kernels": [...]}`` line and, last, a ``{"ok": true, ...}``
 line. Exits non-zero, without a result, where torch sees no CUDA device.
@@ -1428,13 +1444,290 @@ def phase_headline(dev, results):
                              "real time")
 
 
-def server_config():
+OFFLINE_BLOCKS = 16  # whole blocks through the offline runner
+CLI_SECONDS = 1.0  # the CLI phase's capture
+ENTRY_BOUND = 1e-5  # the entry's card run against its CPU run
+
+
+def hear_row(tag, row, rate, want, results, skip=0.25):
+    """The dominant tone of one audio row (numpy) within 2 Hz of ``want``."""
+    x = np.asarray(row, np.float64)[int(skip * rate):]
+    if x.size < rate // 4 or np.abs(x).max() < 1e-3:
+        raise AssertionError(f"{tag}: {x.size} samples, peak "
+                             f"{np.abs(x).max(initial=0):.2e}")
+    spec = np.abs(np.fft.rfft((x - x.mean()) * np.hanning(x.size)))
+    got = float(np.argmax(spec) * rate / x.size)
+    log(f"  {tag}: dominant tone {got:.2f} Hz, expected {want:.0f}")
+    if abs(got - want) > TONE_TOLERANCE_HZ:
+        raise AssertionError(f"{tag}: heard {got:.2f} Hz, expected {want}")
+    results[tag.replace(" ", "_") + "_tone_hz"] = got
+
+
+def phase_offline(dev, results):
+    """``run_capture_channelized`` at C=16,384 over OFFLINE_BLOCKS blocks
+    and a part-block of the tone source (kernel #1 once a block), held
+    against OFFLINE_BLOCKS ``process_host`` calls on the same blocks; then
+    ``run_capture`` at the entry's C=16 against ``FrontEndPipeline``."""
+    import torch
+    from webradio_tpu_torch.pipeline import channelized as ch
+    from webradio_tpu_torch.pipeline import frontend as tfe
+    from webradio_tpu_torch.pipeline import state as tstate
+    from webradio_tpu_torch.pipeline import stream
+
+    c = WIDE_CHANNELS
+    cfg = ch.ChannelizedConfig(num_channels=c, block_frames=BLOCK_FRAMES)
+    ifs, modes = slot_controls(c)
+    params = ch.make_channelized_params(cfg, ifs, 80_000, 8_000, modes,
+                                        device=dev)
+    blocks = tone_blocks(OFFLINE_BLOCKS + 1, seed=7)
+    part = BLOCK_FRAMES // 3
+    capture = np.concatenate(blocks[:-1] + [blocks[-1][:, :part]], axis=1)
+    iq = torch.from_numpy(capture).to(dev)
+
+    # one run first: the 2.1 GB output's first allocation is not the
+    # runner's steady cost (in a process that has cached other sizes it
+    # doubled the back-to-back time once)
+    stream.run_capture_channelized(cfg, params, iq)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, audio, latest = stream.run_capture_channelized(cfg, params, iq)
+    torch.cuda.synchronize()
+    runner_ms = 1e3 * (time.perf_counter() - t0) / OFFLINE_BLOCKS
+    expect_counts("offline runner", fused_tail_audio_tm=OFFLINE_BLOCKS)
+    af = cfg.audio_frames
+    if tuple(audio.shape) != (c, OFFLINE_BLOCKS * af) or tuple(
+            latest.shape) != (OFFLINE_BLOCKS, 2, cfg.fft_size):
+        raise AssertionError(f"offline shapes {tuple(audio.shape)}, "
+                             f"{tuple(latest.shape)}")
+    if not bool(torch.isfinite(audio).all()):
+        raise AssertionError("offline audio is not finite")
+    # the serving step on the same blocks, one at a time: the same kernels
+    # in the same order, so the audio is expected bit-equal
+    pipe = ch.ChannelizedPipeline(cfg, params)
+    err = 0.0
+    for b in range(OFFLINE_BLOCKS):
+        ref, _ = pipe.process_host_sync(blocks[b])
+        err = max(err, float((audio[:, b * af:(b + 1) * af] - ref.T)
+                             .abs().max()))
+    log(f"  runner vs {OFFLINE_BLOCKS} process_host calls: max audio "
+        f"difference {err:.3e} (bit-equal expected)")
+    if err != 0.0:
+        raise AssertionError(f"offline audio differs from the serving "
+                             f"step's by {err:.3e}")
+    for name, t in zip(ch.ChannelizedState._fields, state):
+        if not torch.equal(t, getattr(pipe.state, name)):
+            raise AssertionError(f"offline state {name} differs")
+    host = audio[:2].cpu().numpy()
+    hear_row("offline C=16384 AM slot", host[0], cfg.audio_rate, 1_000,
+             results)
+    hear_row("offline C=16384 FM slot", host[1], cfg.audio_rate, 440,
+             results)
+    serving_ms = stream_ms(cfg, params, blocks[:-1], OFFLINE_BLOCKS)
+    log(f"  back to back at C={c}: runner {runner_ms:.3f} ms/block, "
+        f"process_host {serving_ms:.3f} ms/block")
+    results["offline"] = {"channels": c, "blocks": OFFLINE_BLOCKS,
+                          "runner_ms_per_block": runner_ms,
+                          "serving_ms_per_block": serving_ms,
+                          "max_audio_diff": err}
+    del audio, pipe, state, latest, params
+
+    # ---- the direct engine at the entry's C=16
+    cfg = tstate.ChainConfig(num_channels=16, block_frames=BLOCK_FRAMES)
+    ifs = [0, 100_000] + [(i - 8) * 100_000 for i in range(2, 16)]
+    modes = ["AM", "FM"] + ["USB", "LSB", "AM", "FM"] * 3 + ["USB", "LSB"]
+    params = tstate.make_receiver_params(cfg, ifs, 80_000, 8_000, modes,
+                                         device=dev)
+    n = OFFLINE_BLOCKS
+    state, audio, latest = stream.run_capture(cfg, params, iq)
+    pipe = tfe.FrontEndPipeline(cfg, params)
+    af = cfg.audio_frames
+    err = 0.0
+    for b in range(n):
+        ref, _ = pipe.process_host_sync(blocks[b])
+        err = max(err, float((audio[:, b * af:(b + 1) * af] - ref)
+                             .abs().max()))
+    log(f"  run_capture C=16 (direct) vs {n} FrontEndPipeline calls: max "
+        f"audio difference {err:.3e}")
+    if err != 0.0 or tuple(latest.shape) != (n, 2, cfg.fft_size):
+        raise AssertionError(f"run_capture differs by {err:.3e}")
+    hear_row("offline C=16 AM slot", audio[0].cpu().numpy(), cfg.audio_rate,
+             1_000, results)
+    results["offline"]["direct_max_audio_diff"] = err
+
+
+def phase_cli(results):
+    """A 1 s tone capture written as ``.cf32`` and demodulated by
+    ``demod_cli.main`` with four receivers, on both engines; every WAV
+    heard."""
+    import contextlib
+    import io
+    import tempfile
+
+    from webradio_tpu_torch import demod_cli
+
+    frames = int(CLI_SECONDS * SAMPLE_RATE)
+    z = np.concatenate([b[0] + 1j * b[1] for b in tone_blocks(
+        -(-frames // BLOCK_FRAMES), seed=9)])[:frames]
+    wants = [(0, "AM", 1_000), (100_000, "FM", 440), (0, "USB", 1_000),
+             (0, "LSB", 1_000)]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cap = f"{tmp}/tones.cf32"
+        np.stack([z.real, z.imag], -1).astype(np.float32).tofile(cap)
+        for engine in ("direct", "channelized"):
+            args = [cap, "--rate", str(SAMPLE_RATE), "--engine", engine,
+                    "-o", f"{tmp}/{engine}"]
+            for f, m, _ in wants:
+                args += ["--if-freq", str(f), "--mode", m]
+            err = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stderr(err):
+                rc = demod_cli.main(args)
+            wall = time.perf_counter() - t0
+            for line in err.getvalue().splitlines():
+                log(f"  cli {engine}: {line}")
+            if rc != 0:
+                raise AssertionError(f"demod_cli --engine {engine}: rc {rc}")
+            for i, (f, m, want) in enumerate(wants):
+                raw = open(f"{tmp}/{engine}_{i:02d}.wav", "rb").read()
+                pcm = np.frombuffer(raw[44:], "<i2") / 32767
+                hear_row(f"cli {engine} {m} at {f:+d}", pcm, 48_000, want,
+                         results)
+            out[engine] = {"wall_s": wall}
+            log(f"  cli {engine}: {wall:.2f} s for {CLI_SECONDS:.0f} s of "
+                f"capture, start-up included")
+    results["cli"] = out
+
+
+def phase_entry(dev, results):
+    """``entry()``'s ``fn`` once on the card and once on the CPU with the
+    same inputs, held within ENTRY_BOUND (the FM flip rule on FM slots)."""
+    import torch
+    from webradio_tpu_torch.entry import entry
+
+    fn, (params, state, iq0) = entry()
+    if iq0.device.type != "cuda" or params.rx.phase_step.device.type != (
+            "cuda"):
+        raise AssertionError("entry() did not place its arguments on the "
+                             "card")
+    iq = tone_blocks(1, seed=11, noise=0.3)[0]
+    audio, latest = fn(params, state, torch.from_numpy(iq).to(dev))
+    torch.cuda.synchronize()
+    fn_cpu, (p_cpu, s_cpu, _) = entry(device="cpu")
+    ref, ref_latest = fn_cpu(p_cpu, s_cpu, torch.from_numpy(iq))
+    fm = p_cpu.rx.mode == 1
+    err, flips, fm_max = audio_mismatch(
+        audio.cpu().T, ref.T, fm, float(p_cpu.rx.audio_coeff.abs().max()),
+        ENTRY_BOUND)
+    lat_err = float((latest.cpu() - ref_latest).abs().max())
+    lat_peak = float(ref_latest.abs().max())
+    log(f"  entry() C=16 card vs CPU: audio {err:.3e} off FM slots, FM "
+        f"{fm_max:.3e} ({flips} flips), latest spectrum planes "
+        f"{lat_err:.3e} of a {lat_peak:.1f} peak")
+    if not float(ref.abs().max()) > 1e-2 or not lat_err <= 1e-5 * lat_peak:
+        raise AssertionError("entry(): silent, or the spectrum differs")
+    results["entry"] = {"max_audio_err": err, "fm_max": fm_max,
+                        "fm_flips": flips, "latest_err": lat_err}
+
+
+class PulseStandIn:
+    """A libpulse-simple stand-in for the soundcard phase (this card's host
+    has no sound stack): ``pa_simple_read`` hands out stereo FLOAT32LE
+    line-in frames carrying I on the left and Q on the right, an AM
+    carrier at ``offset`` Hz modulated at 1 kHz, paced at the line-in
+    clock (``rate`` frames a second)."""
+
+    class Fn:
+        """A foreign function's stand-in (its prototype is assignable)."""
+
+        def __init__(self, impl):
+            self.impl = impl
+
+        def __call__(self, *args):
+            return self.impl(*args)
+
+    def __init__(self, rate, offset):
+        self.rate, self.offset, self.n0 = rate, offset, 0
+        self.freed, self._t0 = [], None
+        self.pa_simple_new = self.Fn(lambda *a: 0xBEEF)
+        self.pa_simple_read = self.Fn(self._read)
+        self.pa_simple_write = self.Fn(lambda *a: 0)
+        self.pa_simple_free = self.Fn(self.freed.append)
+
+    def _read(self, handle, ptr, nbytes, err):
+        import ctypes
+
+        frames = nbytes // 8
+        t = (self.n0 + np.arange(frames)) / self.rate
+        z = (1 + 0.5 * np.sin(2 * np.pi * 1_000 * t)) * np.exp(
+            2j * np.pi * self.offset * t) / 2
+        inter = np.stack([z.real, z.imag], -1).astype(np.float32).ravel()
+        ctypes.memmove(ptr, inter.ctypes.data, nbytes)
+        self.n0 += frames
+        if self._t0 is None:
+            self._t0 = time.monotonic()
+        lag = self._t0 + self.n0 / self.rate - time.monotonic()
+        if lag > 0:
+            time.sleep(lag)
+        return 0
+
+
+def phase_soundcard(results):
+    """A ``"soundcard"`` tuner served by the port's ``RadioApp`` on the card
+    (no device named) from a libpulse-simple stand-in at a 96 kHz line-in
+    clock: the pump takes its blocks, and its AM receiver is heard over
+    HTTP."""
+    from webradio_tpu_torch import app as tapp
+    from webradio_tpu_torch.io import soundcard
+    from webradio_tpu_torch.radio import Radio
+
+    rate, offset = 96_000, 12_000
+    stand_in = PulseStandIn(rate, offset)
+    real, soundcard._PA = soundcard._PA, stand_in
+    cfg = {"server": {"port": 0, "host": "127.0.0.1", "html": "html"},
+           "tuners": [{"driver": "soundcard", "subdevice": "line-in",
+                       "sample_rate": rate, "channel_rate": 48_000,
+                       "audio_rate": 8_000, "block_frames": 6_144,
+                       "capacity": 2}],
+           "receivers": [{"tuner": 0, "if_frequency": offset,
+                          "if_bandwidth": 20_000, "demodulator": "AM"}]}
+    app = tapp.RadioApp(cfg)
+    try:
+        if not app.start():
+            raise AssertionError("the soundcard server did not start")
+        fe = app.front_ends[0]
+        log(f"  soundcard tuner on a libpulse-simple stand-in ({rate} Hz "
+            f"line-in, AM at {offset:+d} Hz): {type(fe.pipeline).__name__} "
+            f"at C={fe.pipeline.cfg.num_channels} on {fe.device}")
+        got = {}
+        hear_all(app.server.port, {"soundcard_am": (
+            app.receivers[0].uuid, 1_000.0)}, 8_000, got, "")
+        results["soundcard"] = {"tone_hz": got["soundcard_am_tone_hz"],
+                                "blocks": fe.block_count,
+                                "dropped": fe.ring.dropped_blocks,
+                                "stand_in": True}
+        log(f"  soundcard: {fe.block_count} blocks, "
+            f"{fe.ring.dropped_blocks} dropped")
+        if app.failed is not None:
+            raise AssertionError(f"the pump stopped: {app.failed}")
+    finally:
+        app.close()
+        Radio.reset()
+        soundcard._PA = real
+    if not stand_in.freed:
+        raise AssertionError("the soundcard stream was not freed")
+
+
+def server_config(sink_path):
     """Tuner 0: C=16,384, "auto" (the channelized engine), four receivers
     at the default 80 / 8 kHz bandwidths; tuner 1: examples/demo_tone.json
     (capacity 4: the direct engine); tuner 2: GROW_FROM slots, channelized,
     every slot taken (:func:`slot_controls`), below the kernel's "auto"
     threshold, so one more receiver grows it across 512. Every tone tuner:
-    AM 1 kHz at IF 0, FM 440 Hz at +100 kHz."""
+    AM 1 kHz at IF 0, FM 440 Hz at +100 kHz. Last, two receivers with a
+    local audio sink: an AM one on tuner 0 writing ``sink_path`` (WAV) and
+    an AM one on tuner 1 playing on "pulse"."""
     tuner = {"driver": "tone", "centre_frequency": 124_325_000,
              "sample_rate": SAMPLE_RATE, "block_frames": BLOCK_FRAMES}
     grow = [{"tuner": 2, "if_frequency": f, "demodulator": m}
@@ -1453,6 +1746,10 @@ def server_config():
             {"tuner": 1, "if_frequency": 100_000, "demodulator": "FM",
              "af_bandwidth": 8_000},
             *grow,
+            {"tuner": 0, "if_frequency": 0, "demodulator": "AM",
+             "audio_sink": f"file:{sink_path}"},
+            {"tuner": 1, "if_frequency": 0, "demodulator": "AM",
+             "audio_sink": "pulse"},
         ],
     }
 
@@ -1568,6 +1865,8 @@ class PumpWatch:
         self.fes, self.pump = front_ends, thread_of_pump
         self.marks = [(time.monotonic(), "first blocks")]
         self.drops, self.stalls = [], []
+        #: the times at which some tuner's block count was seen to move
+        self.progress: list[float] = []
         #: step -> the longest ms without a block of any tuner in it
         self.max_gap_ms: dict[str, float] = {}
         self._stop = threading.Event()
@@ -1597,6 +1896,7 @@ class PumpWatch:
                                        1e3 * (now - mark_t),
                                        1e3 * (now - since)))
             if any(b1 != b0 for (b0, _), (b1, _) in zip(last, now_)):
+                self.progress.append(now)
                 gap = 1e3 * (now - since)
                 if gap > self.max_gap_ms.get(label, 0.0):
                     self.max_gap_ms[label] = gap
@@ -1608,6 +1908,13 @@ class PumpWatch:
                                     "".join(stack).rstrip()))
                 stack_taken = True
             last = now_
+
+    def longest_gap_ms(self, t0, t1):
+        """The longest stretch without a block of any tuner that overlaps
+        ``[t0, t1]`` (10 ms resolution)."""
+        times = self.progress
+        return 1e3 * max((b - a for a, b in zip(times, times[1:])
+                          if b >= t0 and a <= t1), default=0.0)
 
     def close(self, serving):
         """Stop; log the drops of each step, and each drop and stall in the
@@ -1626,14 +1933,106 @@ class PumpWatch:
         log("  the pump's longest gap by step (ms): " + ", ".join(
             f"{label} {ms:.0f}" for label, ms in self.max_gap_ms.items()))
         for label, after_ms, stack in self.stalls:
-            if label in serving:
+            if label in serving or label == "/profile trace":
                 log(f"  stall: no block for {1e3 * self.STALL_S:.0f} ms in "
                     f"'{label}', {after_ms:.0f} ms after it began; the pump "
                     f"at:\n{stack}")
 
 
+class TraceProbe:
+    """The rings around each stretch of the ``/profile`` trace thread (the
+    profiler's start and stop, the wait for the pump, the export). It wraps
+    ``_TraceSession._timed``, so on the trace thread itself, just before
+    and just after each stretch, it reads every tuner's Python ring
+    (depth, drops) and its tone source's native ring (drops, and the depth
+    estimated from the synthesizer's pacing: blocks made since the session
+    opened, less those taken and those dropped). While the installed
+    ``NativeToneSource.start`` is in place it notes when each session
+    opened."""
+
+    def __init__(self, fes):
+        from webradio_tpu_torch.web import handlers
+
+        self.fes, self.stretches = fes, []
+        self._cls, self._real = handlers._TraceSession, (
+            handlers._TraceSession._timed)
+        probe = self
+
+        def timed(session, name, fn):
+            before, t0 = probe.rings(), time.monotonic()
+            try:
+                return probe._real(session, name, fn)
+            finally:
+                probe.stretches.append((name, t0, time.monotonic(), before,
+                                        probe.rings()))
+
+        self._cls._timed = timed
+
+    @staticmethod
+    def note_opening():
+        """Install a ``NativeToneSource.start`` that notes the opening
+        time; returns the function that restores the real one."""
+        from webradio_tpu_torch.io import source
+
+        real = source.NativeToneSource.start
+
+        def start(src):
+            ok = real(src)
+            src.opened_at = time.monotonic()
+            return ok
+
+        source.NativeToneSource.start = start
+        return lambda: setattr(source.NativeToneSource, "start", real)
+
+    def rings(self):
+        now, out = time.monotonic(), []
+        for fe in self.fes:
+            src = fe.tuner.source
+            native_dropped = getattr(src, "dropped_blocks", 0)
+            native = None
+            if getattr(src, "opened_at", None) is not None:
+                made = int((now - src.opened_at) / fe.cfg.block_seconds)
+                native = max(0, made - fe.ring.total_blocks - native_dropped)
+            out.append((fe.ring.backlog, native, fe.ring.dropped_blocks,
+                        native_dropped))
+        return out
+
+    def records(self, watch, since: int = 0) -> list[dict]:
+        """The stretches from the ``since``-th on: each one's ms, the pump's
+        longest gap over it, each tuner's ring depths at its start and end
+        and the drops of each ring in it."""
+        out = []
+        for name, t0, t1, before, after in self.stretches[since:]:
+            out.append({
+                "stretch": name, "ms": 1e3 * (t1 - t0),
+                "pump_gap_ms": watch.longest_gap_ms(t0, t1),
+                "rings": [{"tuner": fe.uuid, "ring": [b[0], a[0]],
+                           "native": [b[1], a[1]],
+                           "ring_dropped": a[2] - b[2],
+                           "native_dropped": a[3] - b[3]}
+                          for fe, b, a in zip(self.fes, before, after)]})
+        return out
+
+    def report(self, watch, results):
+        """Log each stretch (:meth:`records`) and keep them in
+        ``results``."""
+        out = self.records(watch)
+        for r in out:
+            log(f"  /profile {r['stretch']}: {r['ms']:.1f} ms, the pump's "
+                f"longest gap over it {r['pump_gap_ms']:.0f} ms; per tuner "
+                f"[ring depth start, end] [native depth start, end (est.)] "
+                f"drops ring/native: " + "; ".join(
+                    f"{g['tuner']} {g['ring']} {g['native']} "
+                    f"{g['ring_dropped']}/{g['native_dropped']}"
+                    for g in r["rings"]))
+        results["server_trace_stretches"] = out
+
+    def close(self):
+        self._cls._timed = self._real
+
+
 def phase_server(results):
-    """The server, driven over HTTP (see the module docstring, phase 8)."""
+    """The server, driven over HTTP (see the module docstring, phase 13)."""
     import pathlib
     import shutil
     import tempfile
@@ -1641,11 +2040,19 @@ def phase_server(results):
     from webradio_tpu_torch import app as tapp
     from webradio_tpu_torch.radio import Radio
 
+    from webradio_tpu_torch.io.soundcard import pulse_available
+
     reset_counts()  # the server's launches only
-    app = tapp.RadioApp(server_config())
+    sink_dir = tempfile.mkdtemp(prefix="webradio_sink_")
+    sink_path = pathlib.Path(sink_dir) / "rx0.wav"
+    app = tapp.RadioApp(server_config(sink_path))
     t0 = time.perf_counter()
-    if not app.start():
-        raise AssertionError("the server did not start")
+    restore_start = TraceProbe.note_opening()
+    try:
+        if not app.start():
+            raise AssertionError("the server did not start")
+    finally:
+        restore_start()
     from webradio_tpu_torch.radio import CATCHUP_BLOCKS
 
     fes = list(app.front_ends)  # close() empties the app's list
@@ -1657,6 +2064,16 @@ def phase_server(results):
                     f"({type(fe.tuner.source).__name__})" for fe in fes))
     log(f"  the app's profiler warm-up before its pump: "
         f"{app.profiler_warm_ms:.0f} ms")
+    sink_rx, pulse_rx = app.receivers[-2:]
+    writer = sink_rx.audio_sink
+    log(f"  audio sinks: receiver {sink_rx.uuid} (tuner {fe0.uuid}, AM) -> "
+        f"{type(writer).__name__}({type(writer.sink).__name__}); receiver "
+        f"{pulse_rx.uuid} (tuner {fe1.uuid}) 'pulse': libpulse-simple "
+        f"{'present' if pulse_available() else 'absent'}, sink "
+        f"{'bound' if pulse_rx.audio_sink is not None else 'unbound'}")
+    results["server_pulse_available"] = pulse_available()
+    if not pulse_available() and pulse_rx.audio_sink is not None:
+        raise AssertionError("a 'pulse' sink was bound without libpulse")
     results["server_profiler_warm_ms"] = app.profiler_warm_ms
     if [type(fe.pipeline).__name__ for fe in fes] != [
             "ChannelizedPipeline", "FrontEndPipeline", "ChannelizedPipeline"
@@ -1665,6 +2082,7 @@ def phase_server(results):
                              f"channelized at {GROW_FROM}")
     served_from = time.monotonic()
     failed = watch = None
+    probe = TraceProbe(fes)
     trace_dir = tempfile.mkdtemp(prefix="webradio_trace_")
     try:
         deadline = time.monotonic() + 60
@@ -1813,6 +2231,11 @@ def phase_server(results):
         served(fe0, 10, "after the catch-up")
         results["server_catchup_blocks"] = many[0]
         m_serving = mark()  # HTTP requests, audio streams, control writes
+        # the server's own real-time factor over serving, read before this
+        # script's profiler windows: the 1 s window's trace parse holds the
+        # interpreter for ~0.9 s, and a sampled block that it stalls reads
+        # ~1 s, which then weighs on the cumulative factor in /status
+        serving_status = json.loads(http_call(port, "GET", "/status")[1])
         watch.mark("1 s profiler window")  # and the pump catching up
         # the device's idle share while serving, from the device's own
         # timeline (every stream); then the /profile endpoint's trace
@@ -1838,6 +2261,7 @@ def phase_server(results):
         results["server_profiled_busy_ms_per_block"] = (
             None if busy is None or not blocks_in else 10 * busy / blocks_in)
         watch.mark("/profile trace")  # and the pump catching up
+        rings_before_trace = probe.rings()
         status, _ = http_call(port, "POST", "/profile",
                          {"action": "start", "dir": trace_dir})
         time.sleep(0.5)
@@ -1846,20 +2270,21 @@ def phase_server(results):
         if (status, status2) != (200, 200):
             # a trace with copies but no kernel answers 500 with the reason
             raise AssertionError(f"/profile failed: {answer}")
-        trace = json.loads(
-            (pathlib.Path(trace_dir) / "trace.json").read_text())
-        kernels = sum(1 for e in trace.get("traceEvents", [])
-                      if e.get("cat") == "kernel")
-        log(f"  /profile start {status}, stop {status2}: trace.json with "
-            f"{len(trace['traceEvents'])} events, {kernels} kernel events; "
-            f"profiler start {answer['timings_ms']['start']:.1f} ms, stop "
-            f"{answer['timings_ms']['stop']:.1f} ms, export "
-            f"{answer['timings_ms']['export']:.1f} ms")
+        # the server has counted the trace's kernel events; this script
+        # reads the trace only once the server is closed (a parse here
+        # would hold the interpreter, and so the pump, inside the span)
+        kernels = answer["kernel_events"]
+        log(f"  /profile start {status}, stop {status2}: {kernels} kernel "
+            f"events; ms: " + ", ".join(
+                f"{k} {v:.1f}" for k, v in answer["timings_ms"].items()))
         results["server_trace_kernel_events"] = kernels
         results["server_profiler_ms"] = {
             "window": prof["timings_ms"], "trace": answer["timings_ms"]}
         caught_up("the /profile trace")
         m_profiled = mark()
+        trace_rings = [
+            {"ring_dropped": a[2] - b[2], "native_dropped": a[3] - b[3]}
+            for b, a in zip(rings_before_trace, probe.rings())]
         watch.mark("plain serving")
         # plain serving again, at least three seconds
         t_end = max(time.monotonic() + 3.0, served_from + SERVER_SECONDS)
@@ -1870,13 +2295,33 @@ def phase_server(results):
     except BaseException as e:
         failed = e
     finally:
+        probe.close()
         if watch is not None:
             watch.close(SERVING_STEPS)
+            probe.report(watch, results)
         app.close()
+        trace_file = pathlib.Path(trace_dir) / "trace.json"
+        if trace_file.exists():
+            events = json.loads(trace_file.read_text())["traceEvents"]
+            log(f"  trace.json: {len(events)} events")
         shutil.rmtree(trace_dir, ignore_errors=True)
         Radio.reset()
+        # the sink's writer drains its queue, then closes the WAV
+        writer._thread.join(timeout=10)
+        sink_wav = sink_path.read_bytes() if sink_path.exists() else b""
+        shutil.rmtree(sink_dir, ignore_errors=True)
     if failed is not None:
         raise failed
+    if writer._thread.is_alive() or len(sink_wav) < 44:
+        raise AssertionError("the file sink was not closed")
+    pcm = np.frombuffer(sink_wav[44:], "<i2") / 32767
+    log(f"  file sink: {pcm.size} samples ({pcm.size / 48_000:.2f} s) from "
+        f"receiver {sink_rx.uuid}, sink drops {writer.dropped}")
+    hear_row("server file sink", pcm, 48_000, 1_000, results)
+    results["server_sink"] = {"samples": int(pcm.size),
+                              "sink_dropped": writer.dropped}
+    if writer.dropped:
+        raise AssertionError(f"the file sink dropped {writer.dropped}")
     if app.failed is not None:
         raise AssertionError(f"the pump stopped: {app.failed}")
     launches = {name: fn.launches for name, fn in tail_wrappers().items()}
@@ -1897,11 +2342,14 @@ def phase_server(results):
             "dropped_startup": m_start[1][k],
             "dropped_idle_window": d_window[k] - m_serving[1][k],
             "dropped_trace": m_profiled[1][k] - d_window[k],
+            "dropped_trace_by_ring": trace_rings[k],
             "dropped_serving": serving,
             "serving_s": wall,
             "serving_throughput": served * fe.cfg.block_seconds / wall,
             "fanout_dropped": st["fanout_dropped"],
             "realtime_factor": st["realtime_factor"],
+            "realtime_factor_serving": serving_status["front_ends"][
+                fe.uuid]["realtime_factor"],
             "throughput_factor": st["throughput_factor"],
             "sampled_ms_per_block": ms, "step_samples": st["step_samples"],
             "last_dispatch_ms": st["last_dispatch_ms"],
@@ -1910,10 +2358,13 @@ def phase_server(results):
         log(f"  tuner {fe.uuid} ({st['engine']}, C={st['channel_capacity']})"
             f": {st['blocks']} blocks, drops {o['dropped_startup']} at "
             f"start-up, {o['dropped_idle_window']} in the 1 s profiler "
-            f"window, {o['dropped_trace']} around the /profile trace, "
+            f"window, {o['dropped_trace']} around the /profile trace "
+            f"(ring {trace_rings[k]['ring_dropped']}, native "
+            f"{trace_rings[k]['native_dropped']}), "
             f"{serving} in {wall:.2f} s of serving (throughput "
             f"{o['serving_throughput']:.4f}); fan-out drops "
             f"{st['fanout_dropped']}, real-time factor "
+            f"{o['realtime_factor_serving']} over serving, at the end "
             f"{st['realtime_factor']} ({ms:.3f} ms/block sampled over "
             f"{st['step_samples']} blocks, dispatch to completion), "
             f"throughput since start {st['throughput_factor']}")
@@ -1931,11 +2382,14 @@ def phase_server(results):
         raise AssertionError(f"server: launches {launches} for {served0} + "
                              f"{grown} blocks")
     out["grown_blocks"] = grown
-    if not (out[fe0.uuid]["realtime_factor"] or 0) > 1:
+    if not (out[fe0.uuid]["realtime_factor_serving"] or 0) > 1:
         raise AssertionError("tuner 0 served below real time")
     lost = {fe.uuid: out[fe.uuid]["dropped_serving"] for fe in fes}
     if any(lost.values()):
         raise AssertionError(f"blocks dropped while serving: {lost}")
+    lost = {fe.uuid: out[fe.uuid]["dropped_trace"] for fe in fes}
+    if any(lost.values()):
+        raise AssertionError(f"blocks dropped around /profile: {lost}")
     out["fused_tail_audio_tm_launches"] = launches["fused_tail_audio_tm"]
     results["server"] = out
 
@@ -2027,8 +2481,17 @@ def main() -> int:
     log(f"  after timing: sm clock, max sm clock, power draw, temp = "
         f"{clocks}")
     results["after_timing_smi"] = clocks
+    log(f"== offline: run_capture_channelized (C={WIDE_CHANNELS}) and "
+        f"run_capture (C=16)")
+    phase_offline(dev, results)
+    log("== the CLI: demod_cli on a 1 s capture, both engines")
+    phase_cli(results)
+    log("== the entry: entry()'s step on the card against the CPU")
+    phase_entry(dev, results)
     log("== the server: RadioApp over HTTP")
     phase_server(results)
+    log("== the soundcard tuner on a libpulse-simple stand-in")
+    phase_soundcard(results)
 
     tm = "webradio_tpu_torch/csrc/tail_tm.cu"
     meta = {

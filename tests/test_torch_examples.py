@@ -23,7 +23,6 @@ EXAMPLES = sorted(
     (pathlib.Path(__file__).parent.parent / "examples").glob("*.json"))
 #: the examples that raise, and the ROADMAP.md item their message names
 NOT_PORTED = {
-    "rtlsdr_usb.json": "audio sinks",
     "multichip.json": "multi-device",
     "multihost_pod.json": "multi-device",
 }
@@ -62,6 +61,30 @@ def test_example_topology_builds(path, tmp_path):
             assert fe.pfb_precision == want
             if fe.pipeline.cfg.__class__.__name__ == "ChannelizedConfig":
                 assert fe.pipeline.cfg.pfb_precision == want
+    finally:
+        app.close()
+        Radio.reset()
+        AudioStreamManager.reset()
+
+
+def test_rtlsdr_usb_builds_with_its_pulse_sink_unbound(tmp_path, caplog,
+                                                       monkeypatch):
+    """``examples/rtlsdr_usb.json`` asks for local playback ("pulse").
+    Where libpulse-simple is missing (this image, and servers) the topology
+    builds, the receiver is left without a sink, with a warning, and the
+    spec is kept for the checkpoint."""
+    from webradio_tpu_torch.io import soundcard
+
+    monkeypatch.setattr(soundcard, "_PA", None)
+    _, app = _build(pathlib.Path(__file__).parent.parent / "examples"
+                    / "rtlsdr_usb.json", tmp_path)
+    try:
+        with caplog.at_level("WARNING", logger="webradio_tpu_torch.app"):
+            app.build()
+        (rx,) = app.receivers
+        assert rx.audio_sink is None and rx.audio_sink_spec == "pulse"
+        assert "libpulse-simple not available" in caplog.text
+        assert app.snapshot()["receivers"][0]["audio_sink"] == "pulse"
     finally:
         app.close()
         Radio.reset()

@@ -15,15 +15,19 @@ its module paths so each counterpart sits at the same relative path:
                   scatter, capacity growth), the catch-up scan and the
                   double-buffered host wrappers (``FrontEndPipeline``,
                   ``ChannelizedPipeline``).
-* ``io``        — the port's own sample sources, tuner drivers, ingest ring
-                  and native ingest library (built from ``native/src`` into
-                  ``_build/`` at first use).
+* ``io``        — the port's own sample sources, tuner drivers, ingest ring,
+                  local audio I/O (``soundcard``) and native ingest library
+                  (built from ``native/src`` into ``_build/`` at first
+                  use).
 * ``radio``     — the topology: front ends, receivers, the block pump, the
                   audio fan-out, control writes applied between blocks.
 * ``web``, ``app`` — the HTTP server, the REST/streaming handlers and the
                   application (``python -m webradio_tpu_torch``).
 * ``convert``   — carry a JAX parameter or state pytree (as numpy arrays)
                   over to the port's tensors.
+* ``demod_cli``, ``entry`` — offline demodulation of a recorded capture
+                  (``python -m webradio_tpu_torch.demod_cli``) and the
+                  flagship single-card step as ``(fn, example_args)``.
 
 Nothing here imports ``jax`` or the JAX package. Entry points that place
 tensors take ``device=None`` for the CUDA device and raise where there is

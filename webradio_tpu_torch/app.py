@@ -27,9 +27,10 @@ import time
 import torch
 
 from . import require_cuda
+from .io.soundcard import FileAudioSink, PulseAudioSink, pulse_available
 from .io.tuner import TUNER_DRIVERS
 from .pipeline.state import ChainConfig
-from .radio import FrontEnd, Radio, Receiver, _not_ported
+from .radio import FrontEnd, Radio, Receiver, SinkWriter, _not_ported
 from .web.handlers import (
     AudioStreamHandler,
     ConfigHandler,
@@ -202,6 +203,7 @@ class RadioApp:
                     "demodulator": rx.demodulator,
                     "af_gain": rx.af_gain,
                     "squelch_threshold": rx.squelch_threshold,
+                    "audio_sink": rx.audio_sink_spec,
                 }
             )
         return {"tuners": tuners, "receivers": receivers}
@@ -254,10 +256,6 @@ class RadioApp:
                           device=self.device)
             self.front_ends.append(fe)
         for rcfg in self.config.get("receivers", []):
-            if rcfg.get("audio_sink"):
-                raise _not_ported("a receiver's audio_sink",
-                                  "io/soundcard.py and the per-receiver "
-                                  "audio sinks")
             rx = Receiver()
             rx.update(
                 if_frequency=rcfg.get("if_frequency", 0),
@@ -267,8 +265,50 @@ class RadioApp:
                 af_gain=rcfg.get("af_gain", 0),
                 squelch_threshold=rcfg.get("squelch_threshold"),
             )
-            rx.set_front_end(self.front_ends[rcfg.get("tuner", 0)])
+            fe = self.front_ends[rcfg.get("tuner", 0)]
+            sink_spec = rcfg.get("audio_sink")
+            if sink_spec:
+                rx.audio_sink = self._make_audio_sink(sink_spec,
+                                                      fe.cfg.audio_rate)
+                # remembered for the checkpoint: the merge rebuilds the
+                # receiver list wholesale, so the binding must round-trip
+                rx.audio_sink_spec = sink_spec
+            rx.set_front_end(fe)
             self.receivers.append(rx)
+
+    @staticmethod
+    def _make_audio_sink(spec: str, audio_rate: int):
+        """Local audio binding for a receiver: ``"pulse"`` /
+        ``"pulse:<device>"`` plays on the soundcard via libpulse-simple
+        (the reference's compiled-in-but-unrouted PulseAudioSink,
+        src/io/pulseaudio.cxx:113-152); ``"file:<path>"`` streams WAV to
+        a path or FIFO. Each is wrapped in a :class:`.radio.SinkWriter`: the
+        fan-out only enqueues, and the writer thread owns every call into
+        the sink (``pa_simple_write`` paces on the soundcard clock).
+
+        A local sink is a convenience beside the HTTP streams, not the
+        device path: a missing libpulse, a sink that does not open or an
+        unknown spec gives a warning and no binding (the spec round-trips
+        through checkpoints, so a raise here would break every later
+        restart too)."""
+        kind, _, arg = spec.partition(":")
+        try:
+            if kind == "pulse":
+                if not pulse_available():
+                    log.warning("audio_sink %r ignored: libpulse-simple not "
+                                "available", spec)
+                    return None
+                return SinkWriter(PulseAudioSink(sample_rate=audio_rate,
+                                                 device=arg or None), spec)
+            if kind == "file" and arg:
+                return SinkWriter(FileAudioSink(arg, sample_rate=audio_rate),
+                                  spec)
+        except (OSError, RuntimeError) as e:
+            log.warning("audio_sink %r failed to open (%s); ignored", spec,
+                        e)
+            return None
+        log.warning("unknown audio_sink %r ignored", spec)
+        return None
 
     # ---- routes (the 12 registrations of main.cxx:92-106) -------------
     def build_server(self) -> RadioHttpServer:

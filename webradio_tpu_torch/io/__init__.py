@@ -14,6 +14,7 @@ from .tuner import (
     FileTuner,
     RandTuner,
     RtlTcpTuner,
+    SoundcardTuner,
     ToneTuner,
     Tuner,
 )
@@ -28,6 +29,7 @@ __all__ = [
     "RandTuner",
     "ToneTuner",
     "RtlTcpTuner",
+    "SoundcardTuner",
     "TUNER_DRIVERS",
     "BlockRing",
     "CaptureThread",

@@ -233,28 +233,25 @@ class NativeRing:
             pass
 
 
-class _Session:
-    """A native capture session whose calls may run in other threads while
+class GuardedHandle:
+    """A native handle whose calls may run in other threads while
     ``close`` is called: every native call on the handle goes through
-    :meth:`_call`, which counts it as a reader; ``close`` marks the session
-    closed, waits until no reader is inside a native call (a ``pop`` waits
-    at most :attr:`POP_SLICE_S` there), and only then frees the native
-    object. A call after ``close`` does nothing and returns None. (The JAX
-    package's ``NativeToneSource`` freed the session under a reader; this
-    is the repair.)"""
+    :meth:`_call`, which counts it as a reader; ``close`` marks the handle
+    closed, waits until no reader is inside a native call, and only then
+    frees the native object with ``close_fn(handle)``. A call after
+    ``close`` does nothing and returns None. (The JAX package's
+    ``NativeToneSource`` freed the session under a reader, and its
+    soundcard source serialized read and close with a lock of its own;
+    every native session of the port goes through this instead.)"""
 
-    #: longest single native wait of a pop, so close returns promptly
-    POP_SLICE_S = 0.1
-
-    def __init__(self, lib, handle, frames: int, pop_fn, close_fn):
-        self._lib, self._h, self.frames = lib, handle, int(frames)
-        self._pop_fn, self._close_fn = pop_fn, close_fn
+    def __init__(self, handle, close_fn):
+        self._h, self._close_fn = handle, close_fn
         self._cv = threading.Condition()
         self._readers = 0
 
     def _call(self, fn, *args):
         """``fn(handle, *args)`` while the handle cannot be freed; None
-        once the session is closed."""
+        once the handle is closed."""
         with self._cv:
             if self._h is None:
                 return None
@@ -266,6 +263,34 @@ class _Session:
             with self._cv:
                 self._readers -= 1
                 self._cv.notify_all()
+
+    def close(self) -> None:
+        with self._cv:
+            h, self._h = self._h, None
+            while self._readers:
+                self._cv.wait()
+        if h:
+            self._close_fn(h)
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
+
+
+class _Session(GuardedHandle):
+    """A native capture session (a :class:`GuardedHandle`) that delivers
+    ``[2, frames]`` float32 plane blocks; a ``pop`` waits at most
+    :attr:`POP_SLICE_S` inside one native call, so ``close`` returns
+    promptly."""
+
+    #: longest single native wait of a pop, so close returns promptly
+    POP_SLICE_S = 0.1
+
+    def __init__(self, lib, handle, frames: int, pop_fn, close_fn):
+        super().__init__(handle, close_fn)
+        self._lib, self.frames, self._pop_fn = lib, int(frames), pop_fn
 
     def pop(self, timeout: float | None = None) -> np.ndarray | None:
         out = np.empty((2, self.frames), np.float32)
@@ -283,19 +308,15 @@ class _Session:
                 if left <= 0:
                     return None
 
-    def close(self) -> None:
-        with self._cv:
-            h, self._h = self._h, None
-            while self._readers:
-                self._cv.wait()
-        if h:
-            self._close_fn(h)
 
-    def __del__(self):
-        try:
-            self.close()
-        except Exception:
-            pass
+#: blocks a native capture session's ring holds before it drops the oldest
+#: (683 ms at stock rates; the JAX package's sessions hold 4, the
+#: reference's N_BUFFERS_LOG2=2). The ring is what keeps capturing while a
+#: stretch holds the interpreter, so the Python capture thread cannot move
+#: blocks on: the first ``/profile`` stop of a server held it 407-568 ms
+#: on the H100 (PERF.md). The pump takes what the rings hold, so
+#: steady-state latency does not change.
+SESSION_RING_BLOCKS = 16
 
 
 class NativeRtlTcp(_Session):
@@ -309,7 +330,8 @@ class NativeRtlTcp(_Session):
     CMD_PPM = 0x05
     CMD_AGC = 0x08
 
-    def __init__(self, host: str, port: int, frames: int, depth: int = 4):
+    def __init__(self, host: str, port: int, frames: int,
+                 depth: int = SESSION_RING_BLOCKS):
         lib = load()
         if lib is None:
             raise RuntimeError("native ingest library unavailable")
@@ -344,7 +366,8 @@ class NativeTone(_Session):
     KINDS = {"AM": 0, "FM": 1}
 
     def __init__(self, sample_rate: float, frames: int, carriers,
-                 noise: float = 0.01, seed: int = 0, depth: int = 4):
+                 noise: float = 0.01, seed: int = 0,
+                 depth: int = SESSION_RING_BLOCKS):
         lib = load()
         if lib is None:
             raise RuntimeError("native tone synthesizer unavailable")

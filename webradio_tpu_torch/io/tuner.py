@@ -16,9 +16,11 @@ Included drivers:
   dependencies (the reference links librtlsdr directly,
   src/io/rtlsdrtuner.cxx; rtl_tcp exposes the same commands over TCP).
 
-The direct-USB ``"rtlsdr"`` and the ``"soundcard"`` drivers are not ported
-yet: their entries raise NotImplementedError naming the ROADMAP.md item
-they wait for.
+* :class:`SoundcardTuner` — I/Q from a soundcard's stereo line-in
+  (``io/soundcard.py``, over libpulse-simple).
+
+The direct-USB ``"rtlsdr"`` driver lives in ``io/rtlsdr.py`` and registers
+itself here.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import threading
 
 import numpy as np
 
+from .soundcard import SoundcardIQSource
 from .source import FileSource, RandSource, SampleSource, ToneSource
 
 #: RTL2832 reference crystal (librtlsdr DEF_RTL_XTAL_FREQ)
@@ -215,6 +218,33 @@ class FileTuner(Tuner):
         super().__init__(FileSource(subdevice), name="IQ capture replay")
         self.product = "FileSource"
         self.serial = subdevice
+
+
+class SoundcardTuner(Tuner):
+    """Soundcard I/Q front end (driver "soundcard").
+
+    Wires the reference's compiled-but-unrouted ``PulseAudioSource``
+    (pulseaudio.cxx:83-92) into the tuner seam: a direct-conversion
+    receiver feeding I/Q into a stereo line-in. ``subdevice`` = the
+    PulseAudio source device name. ``centre_frequency`` tracks the
+    analog LO for display/frequency-plan purposes (the card itself has
+    no tunable oscillator); AGC/gain are accepted-and-cached like any
+    cacheable control (tuner.h:49-63). Where libpulse-simple is missing or
+    the stream does not open, ``start()`` returns False with the reason in
+    :attr:`error` (and logged); nothing is served in its place."""
+
+    driver = "soundcard"
+
+    def __init__(self, subdevice: str = ""):
+        super().__init__(SoundcardIQSource(subdevice),
+                         name="Soundcard I/Q line-in")
+        self.product = "PulseAudioSource"
+        self.serial = subdevice
+
+    @property
+    def error(self) -> str | None:
+        """Why the last ``start()`` failed, or None."""
+        return self.source.error
 
 
 class _RtlTcpSource(SampleSource):
@@ -410,21 +440,12 @@ class RtlTcpTuner(Tuner):
         self._cmd(self.CMD_GAIN, int(round(applied * 10)))
 
 
-def _not_ported(driver: str):
-    def make(subdevice: str = ""):
-        raise NotImplementedError(
-            f"tuner driver {driver!r} is not ported to webradio_tpu_torch "
-            "yet (ROADMAP.md, still to port: io/soundcard.py and the "
-            "per-receiver audio sinks)")
-    return make
-
-
 TUNER_DRIVERS = {
     "rand": RandTuner,
     "tone": ToneTuner,
     "file": FileTuner,
     "rtltcp": RtlTcpTuner,
-    "soundcard": _not_ported("soundcard"),
+    "soundcard": SoundcardTuner,
 }
 
 

@@ -254,6 +254,9 @@ class Receiver:
         # with write(row) and close()); written by the fan-out worker under
         # _sink_lock
         self.audio_sink = None
+        #: the topology's ``audio_sink`` spec it was bound from (the
+        #: checkpoint writes it back), or None
+        self.audio_sink_spec: str | None = None
         self._sink_lock = threading.Lock()
         self.front_end: FrontEnd | None = None
         Radio.receivers[self.uuid] = self

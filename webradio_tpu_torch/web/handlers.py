@@ -170,6 +170,40 @@ def _blocks_served() -> int:
     return sum(fe.block_count for fe in Radio.front_ends.values())
 
 
+#: the longest the trace thread waits for the pump after a stretch of the
+#: trace that held it (about 23 blocks at stock rates)
+PUMP_CATCH_UP_S = 1.0
+
+
+def _pump_mark() -> tuple[float, list]:
+    """Now, and each running front end with the blocks it has served and
+    the blocks its ring holds: the start of a stretch that may hold the
+    pump."""
+    return time.monotonic(), [(fe, fe.block_count, fe.ring.backlog)
+                              for fe in Radio.front_ends.values()
+                              if fe.running]
+
+
+def wait_for_pump(mark, timeout: float = PUMP_CATCH_UP_S) -> bool:
+    """Wait until every front end of ``mark`` (:func:`_pump_mark`) has
+    served what its ring held then and every block its source delivered
+    since (one per ``block_seconds``), and its ring is empty: the pump has
+    caught up with the stretch. False where ``timeout`` s passed first (a
+    front end that stopped no longer counts)."""
+    t0, front_ends = mark
+    now = time.monotonic()
+    deadline = now + timeout
+    targets = [(fe, served + held + int((now - t0) / fe.cfg.block_seconds))
+               for fe, served, held in front_ends]
+    while not all(not fe.running or (fe.block_count >= n
+                                     and not fe.ring.backlog)
+                  for fe, n in targets):
+        if time.monotonic() >= deadline:
+            return False
+        time.sleep(0.002)
+    return True
+
+
 def trace_event_counts(path) -> tuple[int, int]:
     """``(kernel events, copy and memset events)`` of a Chrome trace."""
     with open(path) as f:
@@ -220,9 +254,21 @@ class _TraceSession:
     the profiler thread's own only, so they are recorded only where there
     is no card (the trace then holds that thread's few events).
 
-    ``timings_ms`` holds what ``start()``, ``stop()`` and the export took.
-    On the card :meth:`stop` raises for a trace without a kernel event
-    (:func:`check_trace_has_kernels`)."""
+    The profiler's stop (on the card it holds up the pump's CUDA calls
+    while the capture threads run on, and at times the interpreter too),
+    its export and the trace's check (the interpreter) each stall or slow
+    the pump, for about 100 ms each under three tuners, while a front
+    end's ring holds 4 blocks (170.7 ms at stock rates) and a native
+    session's 16 (``io.native.SESSION_RING_BLOCKS``). So they are never
+    run back to back: after the stop and after the export the trace thread
+    waits until the pump has served what the rings took in meanwhile
+    (:func:`wait_for_pump`, at most :data:`PUMP_CATCH_UP_S` each).
+
+    ``timings_ms`` holds what ``start()``, ``stop()``, the export, the
+    waits for the pump (``wait_after_stop``, ``wait_after_export``) and,
+    on the card, the trace's check took. On the card :meth:`stop` raises
+    for a trace without a kernel event (:func:`check_trace_has_kernels`).
+    """
 
     def __init__(self, trace_dir: str):
         self.trace_dir = trace_dir
@@ -256,23 +302,30 @@ class _TraceSession:
         self._started.set()
         self._stop.wait()
         try:
+            mark = _pump_mark()
             self._timed("stop", prof.stop)
             served = _blocks_served() - self._blocks0
+            self._timed("wait_after_stop", lambda: wait_for_pump(mark))
             path = pathlib.Path(self.trace_dir)
             path.mkdir(parents=True, exist_ok=True)
             trace = path / "trace.json"
+            mark = _pump_mark()
             self._timed("export",
                         lambda: prof.export_chrome_trace(str(trace)))
+            self._timed("wait_after_export", lambda: wait_for_pump(mark))
             if card:
-                self.kernel_events = check_trace_has_kernels(trace, served)
+                self.kernel_events = self._timed(
+                    "check", lambda: check_trace_has_kernels(trace, served))
         except BaseException as e:
             self.error = e
         self._done.set()
 
-    def _timed(self, name: str, fn) -> None:
+    def _timed(self, name: str, fn):
         t0 = time.perf_counter()
-        fn()
-        self.timings_ms[name] = 1e3 * (time.perf_counter() - t0)
+        try:
+            return fn()
+        finally:
+            self.timings_ms[name] = 1e3 * (time.perf_counter() - t0)
 
     def stop(self) -> None:
         self._stop.set()
@@ -288,8 +341,9 @@ class ProfileHandler(HttpRequestHandler):
     POST ``{"action": "start", "dir": "..."}`` begins a trace (default dir
     ``webradio_trace`` in the temporary directory), ``{"action": "stop"}``
     ends it, writes ``<dir>/trace.json`` (Chrome trace format: Perfetto,
-    chrome://tracing) and returns the directory, what the profiler's start,
-    stop and export took (``timings_ms``) and the trace's kernel events.
+    chrome://tracing) and returns the directory, what each stretch of the
+    trace took (``timings_ms``: the profiler's start, stop and export and
+    the waits for the pump between them) and the trace's kernel events.
     A trace of the card without a kernel event while blocks were served
     answers 500 with the reason (see ``_TraceSession``). GET reports the
     state.
