@@ -80,7 +80,33 @@ Phases (each fails the run on error):
    "pulse", which without libpulse-simple stays unbound;
 14. the soundcard tuner: a ``"soundcard"`` tuner on a libpulse-simple
    stand-in at a 96 kHz line-in clock, served by ``RadioApp`` on the card,
-   its AM receiver heard over HTTP.
+   its AM receiver heard over HTTP;
+15. sharded, on virtual meshes whose every position is the one card (four
+   shards on one card: a check and a measurement of the sharded code, not
+   of scaling): the main configuration at C=16,384 on a (time=2, chan=2)
+   mesh, 8 tone-source blocks, kernel #1 launched 4 times a block, audio
+   within 3e-6 of the single-card ``ChannelizedPipeline`` (the FM flip
+   rule), tones, back-to-back ms/block beside the single card's, a
+   profiled window and the halo recompute's own device time; u8exact the
+   same; path (b)'s 9.6 kHz audio on a (1, 2) mesh at C=1,024 (kernel #2
+   twice a block); the direct sharded engine at C=16 against
+   ``FrontEndPipeline``; ``run_capture_sharded`` over 8 blocks and a
+   part-block against ``run_capture_channelized``; and
+   ``entry.dryrun_multichip(4)`` on four positions of the card;
+16. multihost: ``RadioApp`` in this process with a multihost sharded tone
+   tuner at C=2,048 on a (1, 4) virtual mesh (kernel #1 per shard, 4 a
+   block) and a ``"distributed"`` process group of one on NCCL, so the
+   control broadcast and the gathers run NCCL on the card: ~5 s of
+   serving, /status, the waterfall, the FM receiver's 440 Hz, every slot
+   filled in one round, a POST past capacity answered 409, a PUT retune
+   heard, 0 drops;
+17. two processes: two NCCL ranks on the one card (NCCL's refusal
+   logged), then two gloo ranks (``--worker`` subprocesses of this script)
+   each driving two positions of a global (2, 2) mesh at C=1,024 (kernel
+   #1 per shard, CUDA halos staged through pinned host buffers), each
+   ingesting its half of every block, their gathered audio within 3e-6 of
+   the single-card step; then the live two-process app for a few seconds
+   (rank 0 hears its FM receiver, rank 1 pumps), both killed at the end.
 
 Prints a ``{"kernels": [...]}`` line and, last, a ``{"ok": true, ...}``
 line. Exits non-zero, without a result, where torch sees no CUDA device.
@@ -761,12 +787,13 @@ def hear_tones(tag, cfg, audio, modes, results):
         results[f"{tag}slot{slot}_tone_hz"] = got
 
 
-def against(tag, audio, ref_audio, params, results, key):
+def against(tag, audio, ref_audio, params, results, key,
+            bound=STEP_AUDIO_BOUND):
     """Hold a path's audio to a reference run's (see audio_mismatch)."""
     fm = params.mode.cpu() == 1
     flip_step = float(params.audio_coeff.abs().max())
     err, flips, fm_max = audio_mismatch(audio, ref_audio, fm, flip_step,
-                                        STEP_AUDIO_BOUND)
+                                        bound)
     log(f"  {tag}: max audio err {err:.3e} off FM slots; FM {fm_max:.3e}, "
         f"{flips} of {int(fm.sum()) * len(audio)} samples moved by a "
         f"branch-cut flip (peak {float(ref_audio.abs().max()):.3f})")
@@ -1044,13 +1071,14 @@ def phase_timing(dev, results):
         torch.cuda.empty_cache()
 
 
-def stream_ms(cfg, params, blocks, n: int) -> float:
+def stream_ms(cfg, params, blocks, n: int, pipe=None) -> float:
     """Back-to-back ms/block of ``process_host`` (host clock, one
-    synchronize at the end), after two warm blocks."""
+    synchronize at the end), after two warm blocks; of a new
+    ``ChannelizedPipeline`` unless ``pipe`` is given."""
     import torch
     from webradio_tpu_torch.pipeline import channelized as ch
 
-    pipe = ch.ChannelizedPipeline(cfg, params)
+    pipe = pipe or ch.ChannelizedPipeline(cfg, params)
     for b in blocks[:2]:
         pipe.process_host(b)
     torch.cuda.synchronize()
@@ -2394,6 +2422,559 @@ def phase_server(results):
     results["server"] = out
 
 
+SHARDED_BLOCKS = 8  # blocks through each sharded run
+SHARDED_BOUND = 3e-6  # sharded against single-card audio (the FM flip rule)
+MULTIHOST_CHANNELS = 2_048  # examples/multihost_pod.json's shape, widened
+MULTIHOST_SECONDS = 5.0
+TWO_PROC_CHANNELS = 1_024
+TWO_PROC_TIMEOUT_S = 120
+#: the card every virtual mesh repeats, and the multihost phase's backend
+CARD = "cuda:0"
+MULTIHOST_BACKEND = "nccl"
+
+
+def virtual_mesh(t: int, c: int):
+    """A ``(t, c)`` mesh whose every position is the one card."""
+    from webradio_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(t, c, [CARD] * (t * c))
+
+
+def sharded_run(cfg, params, mesh, blocks):
+    """``blocks`` through ``ShardedChannelizedFrontEnd.process_host``; the
+    audio ``[t, C]`` on the host (each block's pieces joined) and the
+    front end."""
+    import torch
+    from webradio_tpu_torch.parallel.sharded_channelized import (
+        ShardedChannelizedFrontEnd,
+    )
+
+    fe = ShardedChannelizedFrontEnd(cfg, params, mesh)
+    outs = [fe.process_host(b) for b in blocks]
+    outs = outs[1:] + [fe.flush()]
+    torch.cuda.synchronize()
+    audio = torch.cat([a.full().T for a, _ in outs]).cpu()
+    if tuple(audio.shape) != (len(blocks) * cfg.audio_frames,
+                              cfg.num_channels):
+        raise AssertionError(f"sharded audio shape {tuple(audio.shape)}")
+    if not bool(torch.isfinite(audio).all()):
+        raise AssertionError("non-finite sharded audio")
+    db = outs[-1][1]
+    if db.shape != (cfg.fft_size,) or not bool(torch.isfinite(db).all()):
+        raise AssertionError("sharded spectrum row not finite")
+    return audio, fe
+
+
+def phase_sharded(dev, results, kernels):
+    """The sharded engines on virtual meshes of the one card (every
+    position on ``cuda:0``): four shards on one card, so a check and a
+    measurement of the sharded code, not of scaling."""
+    import dataclasses
+
+    import torch
+    from webradio_tpu_torch.entry import dryrun_multichip
+    from webradio_tpu_torch.ops.nco import nco_mix_tm_fast
+    from webradio_tpu_torch.parallel import sharded as tsh
+    from webradio_tpu_torch.parallel import sharded_channelized as tsc
+    from webradio_tpu_torch.pipeline import channelized as ch
+    from webradio_tpu_torch.pipeline import frontend as tfe
+    from webradio_tpu_torch.pipeline import state as tstate
+    from webradio_tpu_torch.pipeline import stream
+
+    t_start = time.perf_counter()
+    out = {}
+    c = WIDE_CHANNELS
+    cfg = ch.ChannelizedConfig(num_channels=c, block_frames=BLOCK_FRAMES)
+    ifs, modes = slot_controls(c)
+    params = ch.make_channelized_params(cfg, ifs, 80_000, 8_000, modes,
+                                        device=dev)
+    blocks = tone_blocks(SHARDED_BLOCKS, seed=13)
+    mesh = virtual_mesh(2, 2)
+    nd_local = cfg.chan_frames // 2
+    if not tsc._tm_uses_kernel(cfg, nd_local, c // 2, params):
+        raise AssertionError("the (2, 2) mesh's shards do not take #1")
+    ref, _, _ = run_pipeline(cfg, params, blocks)
+    reset_counts()
+    audio, fe = sharded_run(cfg, params, mesh, blocks)
+    expect_counts(f"sharded (2, 2) C={c}",
+                  fused_tail_audio_tm=4 * len(blocks))
+    hear_tones("sharded_", cfg, audio, modes, results)
+    against(f"sharded (2, 2) vs single card, C={c}", audio, ref, params,
+            results, "sharded_vs_single", SHARDED_BOUND)
+    del audio, ref
+    single_ms = stream_ms(cfg, params, blocks, TIMED_BLOCKS)
+    sharded_ms = stream_ms(cfg, params, blocks, TIMED_BLOCKS, pipe=fe)
+    log(f"  back to back at C={c}: single card {single_ms:.3f} ms/block, "
+        f"(2, 2) mesh on one card {sharded_ms:.3f} ms/block")
+    # a profiled window, and the halo recompute timed alone on one shard
+    reset_counts()
+    prof = device_profile(lambda i: fe.process_host(blocks[i % 8]), 4)
+    launched = tail_wrappers()["fused_tail_audio_tm"].launches
+    expect_kernel_events("sharded window", prof, launched)
+    p0 = fe.mesh.local_positions[0]
+    prm = fe._placed[p0]
+    iq0 = torch.from_numpy(blocks[0][:, :BLOCK_FRAMES // 2]).to(dev)
+    y2, _, _ = ch._channelize_tm(cfg, prm, fe.state[p0].pfb_hist, iq0,
+                                 split=False)
+    phase = fe.state[p0].nco_phase
+    # the recompute's own device time (its ~50 small launches cost the
+    # host more than the card, so CUDA events around them read the host)
+    rprof = device_profile(lambda i: tsc._tail_rows(
+        cfg, prm, nco_mix_tm_fast, y2, phase, c // 2), 20)
+    expect_kernel_events("halo recompute window", rprof, 20)
+    recompute_ms = rprof["busy"]
+    share = 4 * recompute_ms / prof["busy"] if prof["busy"] else None
+    log(f"  window: busy {prof['busy']:.3f} ms/block, idle "
+        f"{prof['idle']:.3f}; the halo recompute: {recompute_ms:.4f} device "
+        f"ms a shard ({rprof['kernels'] / 20:.0f} kernels), "
+        f"{4 * recompute_ms:.4f} a block"
+        + (f" ({100 * share:.2f}% of busy)" if share else "")
+        + "; the positions share the card, so the halo moves copy nothing")
+    out.update(channels=c, mesh=[2, 2], single_ms_per_block=single_ms,
+               sharded_ms_per_block=sharded_ms, busy_ms=prof["busy"],
+               idle=prof["idle"], window_kernel_events=prof["kernels"],
+               window_copy_events=prof["copies"],
+               recompute_ms_per_shard=recompute_ms, recompute_share=share,
+               top=prof["top"])
+    del fe
+
+    # u8exact at the full width, on 8-bit-grid blocks
+    cfg_u = dataclasses.replace(cfg, pfb_precision="u8exact")
+    params_u = ch.make_channelized_params(cfg_u, ifs, 80_000, 8_000, modes,
+                                          device=dev)
+    ub = u8_blocks(4, seed=14)
+    ref_u, _, _ = run_pipeline(cfg_u, params_u, ub)
+    reset_counts()
+    audio_u, _ = sharded_run(cfg_u, params_u, mesh, ub)
+    expect_counts("sharded u8exact", fused_tail_audio_tm=4 * len(ub))
+    against(f"sharded u8exact vs single card, C={c}", audio_u, ref_u,
+            params_u, results, "sharded_u8exact_vs_single", SHARDED_BOUND)
+    del audio_u, ref_u, params_u
+
+    # path (b)'s 9.6 kHz audio on a (1, 2) mesh: kernel #2 per shard
+    cfg_b = ch.ChannelizedConfig(num_channels=MAIN_CHANNELS,
+                                 audio_rate=9_600, block_frames=256_000)
+    ifs_b, modes_b = slot_controls(MAIN_CHANNELS)
+    params_b = ch.make_channelized_params(cfg_b, ifs_b, 80_000, 8_000,
+                                          modes_b, device=dev)
+    blocks_b = tone_blocks(4, seed=4, block_frames=cfg_b.block_frames)
+    ref_b, _, _ = run_pipeline(cfg_b, params_b, blocks_b)
+    reset_counts()
+    audio_b, _ = sharded_run(cfg_b, params_b, virtual_mesh(1, 2), blocks_b)
+    expect_counts("sharded (b) (1, 2)", fused_tail_tm=2 * len(blocks_b))
+    hear_tones("sharded_b_", cfg_b, audio_b, modes_b, results)
+    against("sharded (b) vs single card", audio_b, ref_b, params_b, results,
+            "sharded_b_vs_single", SHARDED_BOUND)
+
+    # the direct engine at the entry's C=16 against FrontEndPipeline
+    cfg_d = tstate.ChainConfig(num_channels=16, block_frames=BLOCK_FRAMES)
+    ifs_d = [0, 100_000] + [(i - 8) * 100_000 for i in range(2, 16)]
+    modes_d = ["AM", "FM"] + ["USB", "LSB", "AM", "FM"] * 3 + ["USB", "LSB"]
+    params_d = tstate.make_receiver_params(cfg_d, ifs_d, 80_000, 8_000,
+                                           modes_d, device=dev)
+    blocks_d = tone_blocks(4, seed=15)
+    pipe = tfe.FrontEndPipeline(cfg_d, params_d)
+    ref_d = torch.cat([pipe.process_host_sync(b)[0] for b in blocks_d],
+                      dim=1)
+    fe_d = tsh.ShardedFrontEnd(cfg_d, params_d, virtual_mesh(2, 2))
+    got_d = torch.cat([fe_d.process(b)[0].full() for b in blocks_d], dim=1)
+    against("direct sharded (2, 2) vs FrontEndPipeline, C=16",
+            got_d.T.cpu(), ref_d.T.cpu(), params_d.rx, results,
+            "sharded_direct_vs_single", SHARDED_BOUND)
+
+    # run_capture_sharded against run_capture_channelized
+    cap = tone_blocks(SHARDED_BLOCKS + 1, seed=16)
+    iq = torch.from_numpy(np.concatenate(
+        cap[:-1] + [cap[-1][:, :BLOCK_FRAMES // 3]], axis=1)).to(dev)
+    reset_counts()
+    _, audio_s, latest_s = tsc.run_capture_sharded(cfg, params, mesh, iq)
+    torch.cuda.synchronize()
+    expect_counts("run_capture_sharded",
+                  fused_tail_audio_tm=4 * SHARDED_BLOCKS)
+    _, audio_1, latest_1 = stream.run_capture_channelized(cfg, params, iq)
+    if audio_s.shape != audio_1.shape or latest_s.shape != latest_1.shape:
+        raise AssertionError("run_capture_sharded's shapes")
+    against("run_capture_sharded vs run_capture_channelized",
+            audio_s.T.cpu(), audio_1.T.cpu(), params, results,
+            "capture_sharded_vs_single", SHARDED_BOUND)
+    lat = float((latest_s - latest_1).abs().max() / latest_1.abs().max())
+    if not lat <= 1e-5:
+        raise AssertionError(f"latest spectra differ by {lat:.2e} of peak")
+    del audio_s, audio_1, iq
+
+    # the dry run on a 4-position virtual mesh: the kernels on the card
+    reset_counts()
+    errs = dryrun_multichip(4, devices=[dev] * 4)
+    # #1 twice single-card, four shards twice
+    expect_counts("dryrun_multichip(4)", fused_tail_audio_tm=10)
+    log(f"  dryrun_multichip(4): {json.dumps(errs)}")
+    out["dryrun"] = errs
+    out["wall_s"] = time.perf_counter() - t_start
+    log(f"  sharded phase: {out['wall_s']:.1f} s")
+    results["sharded"] = out
+
+
+def phase_multihost(results):
+    """``RadioApp`` with a multihost sharded tuner in this process: a
+    process group of one on NCCL (the control broadcast and the gathers run
+    NCCL on the card) and a (1, 4) virtual mesh of the card (the server's
+    ``visible_devices`` replaced in-process), capacity MULTIHOST_CHANNELS:
+    each shard holds 512 channels and takes kernel #1."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from webradio_tpu_torch import app as tapp
+    from webradio_tpu_torch.parallel import mesh as pmesh
+    from webradio_tpu_torch.radio import Receiver
+
+    t_start = time.perf_counter()
+    saved = pmesh.visible_devices
+    pmesh.visible_devices = lambda device=None: [torch.device(CARD)] * 4
+    rdv = tempfile.mkdtemp(prefix="webradio_pg_")
+    config = {
+        "server": {"port": 0, "host": "127.0.0.1", "html": "html"},
+        "distributed": {"coordinator": f"file://{rdv}/rendezvous",
+                        "num_processes": 1, "process_id": 0,
+                        "backend": MULTIHOST_BACKEND},
+        "tuners": [{"driver": "tone", "centre_frequency": 124_325_000,
+                    "sample_rate": SAMPLE_RATE, "block_frames": BLOCK_FRAMES,
+                    "capacity": MULTIHOST_CHANNELS, "engine": "sharded",
+                    "multihost": True}],
+        "receivers": [
+            {"tuner": 0, "if_frequency": 100_000, "demodulator": "FM"},
+            {"tuner": 0, "if_frequency": 0, "demodulator": "AM"}],
+    }
+    reset_counts()
+    app = tapp.RadioApp(config)
+    out = {}
+    try:
+        if not app.start():
+            raise AssertionError("the multihost server did not start")
+        fe = app.front_ends[0]
+        port = app.server.port
+        mesh = fe.pipeline.mesh
+        log(f"  up: process group {dist.get_backend()} of "
+            f"{dist.get_world_size()}, mesh {mesh.shape}, "
+            f"{type(fe.tuner.source).__name__}")
+        if (dist.get_backend() != MULTIHOST_BACKEND or mesh.shape !=
+                {"time": 1, "chan": 4}):
+            raise AssertionError("not NCCL on a (1, 4) mesh")
+        warm = 1  # _start_multihost's zero block
+
+        def wait_blocks(n):
+            deadline = time.monotonic() + 30
+            while fe.block_count < n:
+                if time.monotonic() > deadline or app.failed is not None:
+                    raise AssertionError(f"multihost pump: {app.failed}")
+                time.sleep(0.02)
+
+        wait_blocks(5)
+        served_from, drops0 = fe.block_count, PumpWatch.dropped(fe)
+        t_served = time.monotonic()
+        # fill every slot in one round: a burst the blob carries in
+        # several NCCL broadcasts, applied as one slot scatter
+        ifs, modes = slot_controls(MULTIHOST_CHANNELS)
+        t0 = time.perf_counter()
+        for i in range(2, MULTIHOST_CHANNELS):
+            rx = Receiver()
+            rx.update(if_frequency=ifs[i], demodulator=modes[i])
+            rx.set_front_end(fe)
+        round0 = fe._mh_round
+        wait_blocks(fe.block_count + 3)
+        log(f"  {MULTIHOST_CHANNELS - 2} receivers attached in "
+            f"{1e3 * (time.perf_counter() - t0):.0f} ms; rounds "
+            f"{round0} -> {fe._mh_round}")
+        st, body = http_call(port, "POST", "/receivers", {
+            "tuner": f"/tuners/{fe.uuid}", "if_frequency": 50_000,
+            "demodulator": "AM"})
+        log(f"  POST past capacity: {st} {body[:120]!r}")
+        if st != 409:
+            raise AssertionError(f"POST past capacity answered {st}")
+        st, body = http_call(port, "GET", "/status")
+        status = json.loads(body)["front_ends"][fe.uuid]
+        if st != 200 or status["channel_capacity"] != MULTIHOST_CHANNELS:
+            raise AssertionError(f"/status: {st} {status}")
+        http_call(port, "GET", f"/tuners/{fe.uuid}/waterfall")  # turn on
+        wait_blocks(fe.block_count + 3)
+        check_waterfall(port, fe, results)
+        fm_rx, am_rx = app.receivers[:2]
+        hear_all(port, {"FM": (fm_rx.uuid, 440.0)}, 48_000, results,
+                 "multihost_")
+        st, _ = http_call(port, "PUT", f"/receivers/{fm_rx.uuid}",
+                          {"if_frequency": 0, "demodulator": "AM"})
+        if st not in (200, 204):
+            raise AssertionError(f"PUT answered {st}")
+        wait_blocks(fe.block_count + 3)
+        hear_all(port, {"retuned AM": (fm_rx.uuid, 1_000.0)}, 48_000,
+                 results, "multihost_")
+        while time.monotonic() < t_served + MULTIHOST_SECONDS:
+            time.sleep(0.05)
+        blocks = fe.block_count - served_from
+        elapsed = time.monotonic() - t_served
+        drops = PumpWatch.dropped(fe) - drops0
+        samples = fe.step_samples
+        step_ms = fe.last_step_ns / 1e6
+    finally:
+        app.close()
+        pmesh.visible_devices = saved
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    launches = tail_wrappers()["fused_tail_audio_tm"].launches
+    log(f"  served {blocks} blocks in {elapsed:.2f} s (throughput "
+        f"{blocks * BLOCK_MS / 1e3 / elapsed:.3f}), {drops} dropped; last "
+        f"sampled step {step_ms:.2f} ms ({samples} samples); kernel #1 "
+        f"launches {launches} for {fe.block_count} blocks + {warm} warm")
+    if drops:
+        raise AssertionError(f"the multihost pump dropped {drops} blocks")
+    if launches != 4 * (fe.block_count + warm):
+        raise AssertionError("kernel #1 did not run on every shard of every "
+                             "block")
+    out.update(channels=MULTIHOST_CHANNELS, blocks=blocks,
+               elapsed_s=elapsed, drops=drops, launches=launches,
+               throughput=blocks * BLOCK_MS / 1e3 / elapsed,
+               last_step_ms=step_ms,
+               wall_s=time.perf_counter() - t_start)
+    log(f"  multihost phase: {out['wall_s']:.1f} s")
+    results["multihost"] = out
+
+
+def spawn(role: str, url: str, rank: int):
+    return subprocess.Popen(
+        [sys.executable, __file__, "--worker", role, url, str(rank)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def finish(procs, timeout):
+    """Each process's output; a process still running at ``timeout`` is
+    killed (and says so)."""
+    outs = []
+    for p in procs:
+        try:
+            out, _ = p.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            out, _ = p.communicate()
+            out += "\n(killed at the timeout)"
+        outs.append(out)
+    return outs
+
+
+def phase_two_process(results):
+    """Two processes on the one card: first NCCL with two ranks on one
+    card (expected to be refused), then the sharded step over gloo with
+    staged halos, each rank two positions of a global (2, 2) mesh at
+    C=TWO_PROC_CHANNELS, its gathered audio held to the single-card step,
+    and then the live app on both, for a few seconds."""
+    import tempfile
+    import threading
+
+    t_start = time.perf_counter()
+    rdv = tempfile.mkdtemp(prefix="webradio_pg_")
+    out = {}
+    # NCCL with two ranks on one card, beside the gloo step (its own
+    # rendezvous)
+    nccl = [spawn("nccl", f"file://{rdv}/nccl", r) for r in range(2)]
+    step = [spawn("step", f"file://{rdv}/step", r) for r in range(2)]
+    nccl_out = finish(nccl, 60)
+    step_out = finish(step, TWO_PROC_TIMEOUT_S)
+    seen = []
+    for r, text in enumerate(nccl_out):
+        lines = [ln for ln in text.splitlines()
+                 if ln.startswith(("NCCL_REFUSED", "NCCL_ACCEPTED"))]
+        note = lines[0] if lines else text.strip().splitlines()[-1:]
+        log(f"  NCCL, two ranks on one card, rank {r}: {note}")
+        seen.append(str(note))
+    out["nccl_two_ranks_one_card"] = seen
+    records = []
+    for r, (p, text) in enumerate(zip(step, step_out)):
+        lines = [ln for ln in text.splitlines() if ln.startswith("TWO_PROC ")]
+        if p.returncode != 0 or not lines:
+            raise AssertionError(f"two-process step, rank {r}: rc "
+                                 f"{p.returncode}\n{text[-3000:]}")
+        rec = json.loads(lines[0].split(" ", 1)[1])
+        log(f"  two-process step, rank {r}: {json.dumps(rec)}")
+        records.append(rec)
+    out["step"] = records
+
+    # the live app on both ranks
+    app = [spawn("app", f"file://{rdv}/app", r) for r in range(2)]
+    logs = [[], []]
+
+    def read(p, sink):
+        for ln in p.stdout:
+            sink.append(ln)
+
+    readers = [threading.Thread(target=read, args=(p, sink), daemon=True)
+               for p, sink in zip(app, logs)]
+    for t in readers:
+        t.start()
+    try:
+        deadline = time.monotonic() + TWO_PROC_TIMEOUT_S
+        done = None
+        while time.monotonic() < deadline:
+            ok = [ln for ln in logs[0] if ln.startswith("TWO_PROC_APP ")]
+            follower = [ln for ln in logs[1] if ln.startswith("FOLLOWER")]
+            if ok and len(follower) >= 2:
+                done = json.loads(ok[0].split(" ", 1)[1])
+                break
+            if any(p.poll() is not None for p in app):
+                break
+            time.sleep(0.1)
+    finally:
+        for p in app:  # both serve on until killed
+            if p.poll() is None:
+                p.kill()
+        for p in app:
+            p.wait(timeout=30)
+        for t in readers:
+            t.join(timeout=10)
+    if done is None:
+        raise AssertionError("the two-process app did not come up:\n"
+                             + "".join(logs[0])[-2500:] + "\n"
+                             + "".join(logs[1])[-2500:])
+    follower = [ln.strip() for ln in logs[1] if ln.startswith("FOLLOWER")]
+    log(f"  two-process app: rank 0 {json.dumps(done)}; rank 1 "
+        f"{follower[-1]}")
+    out["app"] = dict(done, follower=follower[-1])
+    out["wall_s"] = time.perf_counter() - t_start
+    log(f"  two-process phase: {out['wall_s']:.1f} s")
+    results["two_process"] = out
+
+
+def worker_nccl(url: str, rank: int) -> None:
+    """One of two NCCL ranks on ``cuda:0``: one all-reduce, and what NCCL
+    said."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=url, world_size=2,
+                            rank=rank,
+                            timeout=datetime.timedelta(seconds=30))
+    x = torch.ones(1, device="cuda:0")
+    try:
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        print("NCCL_ACCEPTED", float(x), flush=True)
+    except Exception as e:
+        print("NCCL_REFUSED", type(e).__name__,
+              " | ".join(str(e).split("\n"))[:400], flush=True)
+
+
+def worker_step(url: str, rank: int) -> None:
+    """One gloo rank of the two-process step: two positions of a global
+    (2, 2) mesh on ``cuda:0`` at C=TWO_PROC_CHANNELS (kernel #1 per shard),
+    this rank's half of each block ingested; the audio gathered from both
+    ranks held to the single-card step."""
+    import torch
+    from webradio_tpu_torch.parallel import multihost
+    from webradio_tpu_torch.parallel.mesh import make_mesh
+    from webradio_tpu_torch.parallel.sharded_channelized import (
+        ShardedChannelizedFrontEnd,
+    )
+    from webradio_tpu_torch.pipeline import channelized as ch
+
+    multihost.init_distributed(url, 2, rank, backend="gloo")
+    c = TWO_PROC_CHANNELS
+    cfg = ch.ChannelizedConfig(num_channels=c, block_frames=BLOCK_FRAMES)
+    ifs, modes = slot_controls(c)
+    params = ch.make_channelized_params(cfg, ifs, 80_000, 8_000, modes,
+                                        device="cpu")
+    mesh = make_mesh(2, 2, [CARD] * 2)
+    lo, hi = multihost.host_time_slice(cfg.block_frames, mesh)
+    blocks = tone_blocks(3, seed=17)
+    fe = ShardedChannelizedFrontEnd(cfg, params, mesh)
+    reset_counts()
+    got = []
+    for b in blocks:
+        audio, _ = fe.process(multihost.make_global_block(
+            b[:, lo:hi], cfg.block_frames, mesh))
+        got.append(multihost.gather_to_host(audio.fetch_rows(range(c)),
+                                            dim=-1))
+    launches = tail_wrappers()["fused_tail_audio_tm"].launches
+    single = ch.ChannelizedPipeline(
+        cfg, ch.make_channelized_params(cfg, ifs, 80_000, 8_000, modes,
+                                        device=CARD))
+    ref = [single.process_host_sync(b)[0].cpu() for b in blocks]
+    got = torch.from_numpy(np.concatenate(got, axis=1)).T
+    ref = torch.cat(ref)
+    fm = params.mode == 1
+    err, flips, fm_max = audio_mismatch(got, ref, fm,
+                                        float(params.audio_coeff.abs().max()),
+                                        SHARDED_BOUND)
+    t0 = time.perf_counter()
+    for i in range(8):
+        fe.process(multihost.make_global_block(
+            blocks[i % 3][:, lo:hi], cfg.block_frames, mesh))
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / 8
+    print("TWO_PROC " + json.dumps({
+        "rank": rank, "rows": [lo, hi], "launches": launches,
+        "max_audio_err": err, "fm_max": fm_max, "fm_flips": flips,
+        "peak": float(ref.abs().max()), "ms_per_block": ms,
+        "staged": fe.comm.staged}), flush=True)
+
+
+def worker_app(url: str, rank: int) -> None:
+    """One rank of the live two-process app: a multihost sharded tone tuner
+    at C=TWO_PROC_CHANNELS over gloo, two positions of ``cuda:0`` per rank.
+    Rank 0 hears its FM receiver over HTTP and prints ``TWO_PROC_APP``;
+    rank 1 prints ``FOLLOWER`` every ten blocks. Both serve until killed."""
+    import torch
+    from webradio_tpu_torch import app as tapp
+    from webradio_tpu_torch.parallel import mesh as pmesh
+
+    pmesh.visible_devices = lambda device=None: [torch.device(CARD)] * 2
+    config = {
+        "server": {"port": 0, "host": "127.0.0.1", "html": "html"},
+        "distributed": {"coordinator": url, "num_processes": 2,
+                        "process_id": rank, "backend": "gloo"},
+        "tuners": [{"driver": "tone", "centre_frequency": 124_325_000,
+                    "sample_rate": SAMPLE_RATE, "block_frames": BLOCK_FRAMES,
+                    "capacity": TWO_PROC_CHANNELS, "engine": "sharded",
+                    "multihost": True}],
+        "receivers": [{"tuner": 0, "if_frequency": 100_000,
+                       "demodulator": "FM"}],
+    }
+    app = tapp.RadioApp(config)
+    if not app.start():
+        raise SystemExit("the app did not start")
+    fe = app.front_ends[0]
+    if rank != 0:
+        last = 0
+        while app.failed is None:
+            if fe.block_count >= last + 10:
+                last = fe.block_count
+                print("FOLLOWER", json.dumps({
+                    "blocks": last, "mesh": fe.pipeline.mesh.shape,
+                    "drops": PumpWatch.dropped(fe)}), flush=True)
+            time.sleep(0.05)
+        raise SystemExit(f"rank 1 failed: {app.failed}")
+    while fe.block_count < 5:
+        if app.failed is not None:
+            raise SystemExit(f"rank 0 failed: {app.failed}")
+        time.sleep(0.05)
+    t0, b0 = time.monotonic(), fe.block_count
+    tone = hear(app.server.port, app.receivers[0].uuid, 48_000, seconds=1.0)
+    dt = time.monotonic() - t0
+    print("TWO_PROC_APP " + json.dumps({
+        "tone_hz": tone, "blocks": fe.block_count,
+        "throughput": (fe.block_count - b0) * BLOCK_MS / 1e3 / dt,
+        "drops": PumpWatch.dropped(fe), "mesh": fe.pipeline.mesh.shape}),
+        flush=True)
+    if abs(tone - 440.0) > TONE_TOLERANCE_HZ:
+        raise SystemExit(f"rank 0 heard {tone:.2f} Hz")
+    while app.failed is None:
+        time.sleep(0.2)
+    raise SystemExit(f"rank 0 failed: {app.failed}")
+
+
+WORKERS = {"nccl": worker_nccl, "step": worker_step, "app": worker_app}
+
+
 def check_default_device():
     """The entry points that place tensors take the card when no device is
     named."""
@@ -2417,6 +2998,10 @@ def check_default_device():
 def main() -> int:
     import torch
 
+    if sys.argv[1:2] == ["--worker"]:  # a process of the two-process phase
+        role, url, rank = sys.argv[2:5]
+        WORKERS[role](url, int(rank))
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; nothing was run",
               file=sys.stderr)
@@ -2492,6 +3077,16 @@ def main() -> int:
     phase_server(results)
     log("== the soundcard tuner on a libpulse-simple stand-in")
     phase_soundcard(results)
+    log(f"== sharded: (2, 2) virtual mesh of the card at C={WIDE_CHANNELS}, "
+        f"(1, 2) at 9.6 kHz, the direct engine, run_capture_sharded, "
+        f"dryrun_multichip(4)")
+    phase_sharded(dev, results, kernels)
+    log(f"== multihost: RadioApp on NCCL (one process), C="
+        f"{MULTIHOST_CHANNELS} on a (1, 4) virtual mesh")
+    phase_multihost(results)
+    log("== two processes on the card: NCCL's two ranks on one card, the "
+        "sharded step over gloo, the live app")
+    phase_two_process(results)
 
     tm = "webradio_tpu_torch/csrc/tail_tm.cu"
     meta = {

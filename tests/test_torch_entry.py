@@ -16,7 +16,7 @@ import torch
 import __graft_entry__
 from tests.test_torch_direct import assert_audio_close
 from webradio_tpu_torch import convert
-from webradio_tpu_torch.entry import entry
+from webradio_tpu_torch.entry import dryrun_multichip, entry
 from webradio_tpu_torch.io.source import ToneSource
 
 # The first multi-threaded call into torch's CPU vector math in a process
@@ -63,3 +63,21 @@ def test_entry_matches_the_jax_entry():
     # the port's own example arguments give the same step
     a0, _ = fn(pt, st, torch.from_numpy(iq))
     torch.testing.assert_close(a0, audio, rtol=0, atol=0)
+
+
+def test_dryrun_multichip_on_the_cpu(capsys):
+    """The twin of ``__graft_entry__.dryrun_multichip(8)`` on eight CPU
+    positions: a (time=2, chan=4) mesh; the direct and channelized engines
+    sharded against single, and the fused tail (its plain version here)
+    sharded against single and against the plain tail, under 3e-6; the
+    u8exact law against float32 under 1e-5 relative."""
+    errors = dryrun_multichip(8, devices=["cpu"] * 8)
+    names = ("direct", "channelized", "fused_vs_plain",
+             "sharded_fused_vs_single")
+    assert set(errors) == {*names, *(n + "_fm" for n in names),
+                           "u8exact_rel"}
+    assert max(errors[n] for n in names) < 3e-6
+    assert errors["u8exact_rel"] < 1e-5
+    out = capsys.readouterr().out
+    assert out.count("dryrun_multichip ok") == 3
+    assert "mesh(time=2, chan=4)" in out

@@ -22,10 +22,8 @@ from webradio_tpu_torch.web.audiostream import AudioStreamManager
 EXAMPLES = sorted(
     (pathlib.Path(__file__).parent.parent / "examples").glob("*.json"))
 #: the examples that raise, and the ROADMAP.md item their message names
-NOT_PORTED = {
-    "multichip.json": "multi-device",
-    "multihost_pod.json": "multi-device",
-}
+#: (none: the multi-device examples build since the sharded engine came)
+NOT_PORTED = {}
 
 
 def _build(path, tmp_path):
@@ -61,6 +59,11 @@ def test_example_topology_builds(path, tmp_path):
             assert fe.pfb_precision == want
             if fe.pipeline.cfg.__class__.__name__ == "ChannelizedConfig":
                 assert fe.pipeline.cfg.pfb_precision == want
+            if t.get("engine") == "sharded":
+                # on the CPU the mesh is the CPU once
+                assert type(fe.pipeline).__name__ == (
+                    "ShardedChannelizedFrontEnd")
+                assert fe.multihost == t.get("multihost", False)
     finally:
         app.close()
         Radio.reset()

@@ -20,6 +20,9 @@ names = [m.name for m in pkgutil.walk_packages(
     webradio_tpu_torch.__path__, "webradio_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+assert {"webradio_tpu_torch.parallel." + m for m in (
+    "mesh", "comm", "sharded", "sharded_channelized", "multihost")} <= set(
+    names), names
 import chip_smoke
 chip_smoke.tone_blocks(1)  # its sample source is the port's own
 print(len(names), sorted(m for m in sys.modules
@@ -46,7 +49,10 @@ def test_port_imports_no_jax():
 
 
 def test_no_source_line_imports_the_jax_package():
+    # the card's host has no JAX: the multi-process workers import neither
     files = [REPO / "chip_smoke.py",
+             REPO / "tests" / "torch_multiproc_worker.py",
+             REPO / "tests" / "torch_multiproc_app_worker.py",
              *(REPO / "webradio_tpu_torch").rglob("*.py")]
     assert len(files) > 20
     for path in files:

@@ -294,10 +294,16 @@ def test_queued_writes_apply_in_order_and_only_between_blocks(
 
 
 def test_front_end_refuses_what_is_not_ported(capture, registries):
+    """Everything is ported: the sharded engine and multihost serving build
+    (on the CPU a mesh of one position), and what the JAX front end refuses
+    is refused."""
     tuner = ttuner.FileTuner(str(capture))
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        tradio.FrontEnd(tuner, engine="sharded", device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    fe = tradio.FrontEnd(tuner, engine="sharded", device="cpu")
+    assert fe.engine == "sharded" and fe._use_channelized()
+    mh = tradio.FrontEnd(tuner, engine="sharded", multihost=True,
+                         device="cpu")
+    assert mh.multihost
+    with pytest.raises(ValueError, match="requires engine='sharded'"):
         tradio.FrontEnd(tuner, multihost=True, device="cpu")
     # the pfb tiers are ported: a front end takes every tier
     assert tradio.FrontEnd(tuner, pfb_precision="u8exact",

@@ -481,16 +481,22 @@ def test_state_file_restores_on_start(tmp_path):
     a.close()
 
 
-def test_app_refuses_what_is_not_ported():
+def test_app_refuses_what_is_not_ported(monkeypatch):
+    """Without a card the app raises unless the CPU is named; a
+    ``"distributed": true`` topology builds, and without torchrun's
+    environment it brings up no process group (one process serves)."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA device"):
             tapp.RadioApp(json.loads(json.dumps(CONFIG)))
+    for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(var, raising=False)
     config = json.loads(json.dumps(CONFIG))
     config.update(distributed=True)
     a = tapp.RadioApp(config, device="cpu")
     try:
-        with pytest.raises(NotImplementedError, match="multi-device"):
-            a.build()
+        a.build()
+        assert a.distributed is False and a._is_http_process()
+        assert len(a.front_ends) == len(CONFIG["tuners"])
     finally:
         a.close()
 

@@ -8,10 +8,17 @@ declarative dict (loadable from JSON): tuners, receivers, server — with
 defaults reproducing the reference's shipped setup on the hardware-free
 tuner seam.
 
-The server runs on one CUDA device: ``RadioApp(config)`` without a device
+The server runs on the CUDA device: ``RadioApp(config)`` without a device
 raises where torch sees no card, and nothing falls back to the CPU unless
 the caller names it (``device="cpu"``, ``--platform cpu``: tests and
 verification). A block that fails stops the server.
+
+A ``"distributed"`` topology (``true``, or a dict with the JAX package's
+``coordinator``, ``num_processes`` and ``process_id`` and the port's own
+``"backend"``, "nccl" or "gloo") brings up ``torch.distributed`` before the
+front ends are built; ``true`` reads torchrun's environment and is a no-op
+without it. Every process runs the same topology; only rank 0 serves HTTP
+and writes checkpoints.
 """
 
 from __future__ import annotations
@@ -30,7 +37,9 @@ from . import require_cuda
 from .io.soundcard import FileAudioSink, PulseAudioSink, pulse_available
 from .io.tuner import TUNER_DRIVERS
 from .pipeline.state import ChainConfig
-from .radio import FrontEnd, Radio, Receiver, SinkWriter, _not_ported
+from .parallel.mesh import world
+from .parallel.multihost import init_distributed
+from .radio import FrontEnd, Radio, Receiver, SinkWriter
 from .web.handlers import (
     AudioStreamHandler,
     ConfigHandler,
@@ -142,8 +151,11 @@ class RadioApp:
                  device: torch.device | str | None = None):
         """``device``: the torch device every front end runs on; None is
         the CUDA device, and an error where there is none."""
+        self._device_named = device is not None
         self.device = torch.device(device) if device is not None \
             else require_cuda()
+        #: True once this app brought up a torch.distributed process group
+        self.distributed = False
         self.config = config or load_config(None)
         self.state_file = pathlib.Path(state_file) if state_file else None
         self.server: RadioHttpServer | None = None
@@ -223,9 +235,17 @@ class RadioApp:
 
     # ---- topology ------------------------------------------------------
     def build(self) -> None:
+        # the process group first, before any front end picks its devices
         if self.config.get("distributed"):
-            raise _not_ported("a distributed (multi-process) topology",
-                              "the multi-device layer")
+            d = self.config["distributed"]
+            d = d if isinstance(d, dict) else {}
+            self.distributed = init_distributed(
+                d.get("coordinator"), d.get("num_processes"),
+                d.get("process_id"), backend=d.get("backend"),
+                device=self.device)
+            if self.distributed and not self._device_named:
+                # under NCCL the rank's card is cuda:LOCAL_RANK now
+                self.device = require_cuda()
         for tcfg in self.config.get("tuners", []):
             driver = TUNER_DRIVERS[tcfg.get("driver", "rand")]
             tuner = driver(tcfg.get("subdevice", ""))
@@ -347,13 +367,20 @@ class RadioApp:
         return srv
 
     # ---- lifecycle -----------------------------------------------------
+    @staticmethod
+    def _is_http_process() -> bool:
+        """HTTP and checkpoints live on rank 0 only; the other ranks run
+        the pump's collective schedule headless."""
+        return world()[0] == 0
+
     def start(self) -> bool:
         if not self.front_ends:
             self.build()
-        if self.server is None:
-            self.build_server()
-        if not self.server.start():
-            return False
+        if self._is_http_process():
+            if self.server is None:
+                self.build_server()
+            if not self.server.start():
+                return False
         if self.device.type == "cuda":
             # the profiler's one-time set-up, before any block is served
             # (a /profile request would otherwise stall the pump with it)
@@ -400,7 +427,8 @@ class RadioApp:
             now = time.monotonic()
             if now - last_profile >= 5.0:
                 Radio.profile()
-                self.checkpoint_if_changed()
+                if self._is_http_process():
+                    self.checkpoint_if_changed()
                 last_profile = now
 
     def stop(self) -> None:
@@ -484,8 +512,12 @@ def main(argv=None) -> int:
 
     signal.signal(signal.SIGINT, _sigint)
     signal.signal(signal.SIGTERM, _sigint)
-    log.info("webradio-tpu-torch up on port %d (%s)", app.server.port,
-             app.device)
+    if app.server is not None:
+        log.info("webradio-tpu-torch up on port %d (%s)", app.server.port,
+                 app.device)
+    else:
+        log.info("webradio-tpu-torch rank %d up (%s), serving no HTTP",
+                 world()[0], app.device)
     try:
         while not quit_evt.is_set() and app.failed is None:
             quit_evt.wait(1.0)

@@ -25,15 +25,17 @@ after their step in a side thread, and the spectrum row is copied to the
 host on HTTP demand. Everything runs on the current (default) CUDA stream,
 so each copy is ordered after the step that made its input.
 
-Not ported yet, each raising NotImplementedError that names its ROADMAP.md
-item: ``engine="sharded"`` and ``multihost=True`` (the multi-device
-layer).
+``engine="sharded"`` spreads a front end over a mesh of devices
+(``parallel.sharded_channelized``); ``multihost=True`` runs that engine's
+pump in lockstep on every rank of a ``torch.distributed`` group (see
+:meth:`FrontEnd._run_once_multihost`).
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import json
 import logging
 import threading
 import time
@@ -51,6 +53,10 @@ from .pipeline.channelized import (
     grow_channelized_state,
     make_channelized_params,
 )
+from .parallel import mesh as pmesh
+from .parallel import multihost as phost
+from .parallel.sharded import ShardedAudio
+from .parallel.sharded_channelized import ShardedChannelizedFrontEnd
 from .pipeline.frontend import FrontEndPipeline
 from .pipeline.state import ChainConfig, grow_state, make_receiver_params
 
@@ -69,13 +75,11 @@ CATCHUP_BLOCKS = 4
 #: overflow drops OLDEST (counted)
 FANOUT_QUEUE_DEPTH = 2
 
+#: a multihost waterfall poll keeps the per-block spectrum gather on for
+#: this long (the gather is a collective on every rank)
+SPECTRUM_WANTED_S = 2.0
+
 log = logging.getLogger(__name__)
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to webradio_tpu_torch yet "
-        f"(ROADMAP.md, still to port: {item})")
 
 
 def _to_planes(block: np.ndarray) -> np.ndarray:
@@ -99,12 +103,16 @@ def _fetch_audio_rows(audio: torch.Tensor, rows,
     """The subscribed receivers' audio rows on the host: ONE
     ``index_select`` of the rows on the device and ONE copy into pinned
     host memory, in the calling (fan-out) thread, which then waits on a
-    CUDA event recorded after the copy.
+    CUDA event recorded after the copy. A sharded engine's audio
+    (:class:`.parallel.sharded.ShardedAudio`) fetches the rows from its
+    pieces where they lie.
 
     ``time_major`` is the channelized serving layout (``[audio_frames,
     C]``, channels are columns). Returns ``[k, audio_frames]`` for one
     block, ``[blocks, k, audio_frames]`` for a catch-up scan's
     ``[blocks, C, audio_frames]``."""
+    if isinstance(audio, ShardedAudio):
+        return audio.fetch_rows(rows)
     idx = torch.as_tensor(rows, dtype=torch.int64, device=audio.device)
     src = audio.movedim(-1, -2) if time_major else audio
     sel = src.index_select(-2, idx)  # contiguous [(blocks,) k, af]
@@ -119,9 +127,9 @@ def _fetch_audio_rows(audio: torch.Tensor, rows,
 
 
 class CapacityError(RuntimeError):
-    """Attach past capacity where growth cannot run (the JAX package raises
-    it under multihost serving, which the port does not have yet; the HTTP
-    layer answers it with 409 Conflict)."""
+    """Attach past capacity where growth cannot run: under multihost
+    serving, where a growth build would run collectives off the lockstep
+    schedule (the HTTP layer answers it with 409 Conflict)."""
 
 
 #: "argument not provided" sentinel for partial control writes
@@ -331,7 +339,7 @@ class Receiver:
 
 class FrontEnd:
     """One tuner + spectrum + up to ``capacity`` receiver channels on one
-    device.
+    device, or on a mesh of devices (``engine="sharded"``).
 
     ``capacity`` is the step's channel batch width; receivers occupy slots,
     and empty slots run as muted AM channels at IF 0 (their audio is never
@@ -347,17 +355,24 @@ class FrontEnd:
                  device: torch.device | str | None = None):
         """``engine``: "direct" (per-channel NCO + FIR, the reference
         topology), "channelized" (shared polyphase filterbank, the scalable
-        path) or "auto" (channelized from CHANNELIZED_AUTO_THRESHOLD
-        channels). ``fir_precision``: the channelized engine's FIR tier
-        (every tier runs float32 on the card). ``pfb_precision``: the
-        filterbank product's tier (``ops.channelizer``). ``device``: None is the CUDA
-        device, and an error where there is none."""
-        if engine == "sharded" or multihost:
-            raise _not_ported(
-                "engine='sharded' and multihost serving",
-                "the multi-device layer (parallel/*, torch.distributed)")
-        if engine not in ("auto", "direct", "channelized"):
+        path), "sharded" (the channelized engine over a ``(time, chan)``
+        mesh of :func:`.parallel.mesh.visible_devices`, factored by
+        :func:`.parallel.mesh.mesh_shape_for`) or "auto" (channelized from
+        CHANNELIZED_AUTO_THRESHOLD channels). ``fir_precision``: the
+        channelized engine's FIR tier (every tier runs float32 on the
+        card). ``pfb_precision``: the filterbank product's tier
+        (``ops.channelizer``). ``multihost``: run the sharded engine's pump
+        in lockstep on every rank of the process group (requires
+        ``engine="sharded"``): rank 0 broadcasts the round's control
+        writes, each rank ingests its own time slice, the gathers are
+        collectives, and only rank 0 serves HTTP. Without a process group
+        the same path runs with identity collectives. ``device``: None is
+        the CUDA device, and an error where there is none."""
+        if engine not in ("auto", "direct", "channelized", "sharded"):
             raise ValueError(f"unknown engine {engine!r}")
+        self.multihost = bool(multihost)
+        if self.multihost and engine != "sharded":
+            raise ValueError("multihost serving requires engine='sharded'")
         self.device = torch.device(device) if device is not None \
             else require_cuda()
         self.uuid = _next_uuid("frontend")
@@ -409,6 +424,13 @@ class FrontEnd:
         # designed from at the last FULL build; the incremental scatter
         # requires dirty slots to keep exactly these
         self._shared_bw: tuple | None = None
+        # multihost: slots written since the last round (rank 0), every
+        # rank's mirror of the slot settings, the round counter, the time
+        # of the last waterfall poll
+        self._mh_dirty: set[int] = set()
+        self._mh_settings: list | None = None
+        self._mh_round = 0
+        self._mh_spec_wanted = float("-inf")
         Radio.front_ends[self.uuid] = self
 
     # ---- receiver slots -------------------------------------------
@@ -423,6 +445,12 @@ class FrontEnd:
                     self._slots[i] = rx
                     self.rebuild_params(slots=[i])
                     return
+            if self.multihost and self.running:
+                raise CapacityError(
+                    f"front end {self.uuid} is at capacity "
+                    f"({self.cfg.num_channels}) and capacity growth is not "
+                    "supported under multihost serving; restart with a "
+                    "larger capacity")
             # grow: double the slot table. While live, the serving
             # pipeline keeps the old width and a thread builds the wider
             # one; the pump swaps it in between blocks with carried state
@@ -464,7 +492,7 @@ class FrontEnd:
 
     # ---- parameters ------------------------------------------------
     def _use_channelized(self, width: int | None = None) -> bool:
-        if self.engine == "channelized":
+        if self.engine in ("channelized", "sharded"):
             return True
         if self.engine == "direct":
             return False
@@ -511,13 +539,14 @@ class FrontEnd:
 
     def _make_params(self, width: int, settings=None):
         """Parameters for a ``width``-channel pipeline of the engine that
-        width selects, on the front end's device."""
+        width selects, on the front end's device (on the host for the
+        sharded engine, which cuts them onto its positions)."""
         settings = settings or self._slot_settings(width)
         if self._use_channelized(width):
             return make_channelized_params(
                 self._channelized_cfg(width), *settings,
                 actual_sample_rate=self.actual_sample_rate,
-                device=self.device)
+                device="cpu" if self.engine == "sharded" else self.device)
         return make_receiver_params(
             dataclasses.replace(self.cfg, num_channels=width), *settings,
             actual_sample_rate=self.actual_sample_rate, device=self.device)
@@ -525,13 +554,31 @@ class FrontEnd:
     def _build_pipeline(self, width: int, settings=None):
         """A fresh pipeline at ``width`` channels."""
         params = self._make_params(width, settings)
+        if self.engine == "sharded":
+            return ShardedChannelizedFrontEnd(
+                self._channelized_cfg(width), params, self._mesh(width))
         if self._use_channelized(width):
             return ChannelizedPipeline(self._channelized_cfg(width), params)
         return FrontEndPipeline(
             dataclasses.replace(self.cfg, num_channels=width), params)
 
-    def _note_shared_bw(self, width: int) -> None:
-        _, ifbw, afbw, *_ = self._slot_settings(width)
+    def _mesh(self, width: int):
+        """The sharded engine's mesh: :func:`.parallel.mesh.mesh_shape_for`
+        over this rank's devices and its share of the block; across ranks
+        the time axis spans them, each rank a run of whole time rows."""
+        devices = pmesh.visible_devices(self.device)
+        _, size = pmesh.world()
+        t, c = pmesh.mesh_shape_for(len(devices), width,
+                                    self.cfg.block_frames // size,
+                                    self.cfg.fft_size)
+        mesh = pmesh.make_mesh(t * size, c, devices)
+        log.info("front end %s: sharded over a (time=%d, chan=%d) mesh, "
+                 "this rank's devices %s", self.uuid, mesh.time, mesh.chan,
+                 [str(d) for d in devices[:t * c]])
+        return mesh
+
+    def _note_shared_bw(self, width: int, settings=None) -> None:
+        _, ifbw, afbw, *_ = settings or self._slot_settings(width)
         self._shared_bw = ((ifbw[0], afbw[0])
                            if len(set(ifbw)) == 1 and len(set(afbw)) == 1
                            else None)
@@ -556,8 +603,15 @@ class FrontEnd:
                 return
             pipe = self.pipeline
             width = pipe.cfg.num_channels
+            if self.multihost and self.running:
+                # every rank applies the round's writes together (see
+                # _run_once_multihost): mark the slots for the next round
+                self._mh_dirty.update(range(width) if slots is None
+                                      else (s for s in slots if s < width))
+                return
             if (slots
-                    and isinstance(pipe, ChannelizedPipeline)
+                    and isinstance(pipe, (ChannelizedPipeline,
+                                          ShardedChannelizedFrontEnd))
                     and all(0 <= s < width for s in slots)
                     and self._shared_bw is not None):
                 settings = self._slot_settings(width)
@@ -618,6 +672,8 @@ class FrontEnd:
             if self.pipeline is None:
                 self.rebuild_params()
             self.apply_control()
+            if self.multihost:
+                return self._start_multihost()
             # one zero block through the step and the fan-out fetch before
             # capture starts: builds the CUDA kernels where the step runs
             # one (a build failure stops the start here), primes the
@@ -646,6 +702,160 @@ class FrontEnd:
         self.started_monotonic = time.monotonic()
         self._blocks_at_start = self.block_count
         return True
+
+    # ---- multihost (lockstep) serving ---------------------------------
+    # Engine "sharded" with multihost=True: every rank runs this pump in
+    # lockstep, because the sharded step and the gathers are collectives.
+    # Rank 0 owns HTTP. At the top of each round it broadcasts the slots
+    # written since the last round (width, subscribed rows, whether the
+    # waterfall is watched, the tuner, and each written slot's six
+    # settings) with a round counter; every rank, rank 0 too, then applies
+    # the same writes to its mirror of the slot settings and the same
+    # per-shard slot scatter (or, where a bandwidth leaves the shared FIR
+    # kernels, the same full rebuild from the mirror). Capture is
+    # pull-synchronous: each rank reads its block from the paced source and
+    # ingests only its own time slice.
+
+    def _start_multihost(self) -> bool:
+        pipe = self.pipeline
+        width = pipe.cfg.num_channels
+        self._mh_slice = phost.host_time_slice(self.cfg.block_frames,
+                                               pipe.mesh)
+        self._mh_settings = [list(v) for v in self._slot_settings(width)]
+        self._mh_dirty = set()
+        self._mh_round = 0
+        rank, size = pmesh.world()
+        lo, hi = self._mh_slice
+        log.info("front end %s: multihost warm (rank %d of %d, frames "
+                 "[%d, %d) of %d)", self.uuid, rank, size, lo, hi,
+                 self.cfg.block_frames)
+        t0 = time.perf_counter()
+        out = pipe.process_host_sync(phost.make_global_block(
+            np.zeros((2, hi - lo), np.float32), self.cfg.block_frames,
+            pipe.mesh))
+        phost.gather_to_host(out[1][None])  # the gather path, warm
+        phost.gather_to_host(out[0].fetch_rows([0]), dim=-1)
+        pipe.reset()
+        log.info("front end %s: multihost pipeline warm in %.1fs", self.uuid,
+                 time.perf_counter() - t0)
+        self.running = True
+        self._fault = None
+        self.started_monotonic = time.monotonic()
+        self._blocks_at_start = self.block_count
+        return True
+
+    def _control_blob(self) -> dict:
+        """Rank 0's control round: what every rank needs to step and
+        publish this block the same way."""
+        from .web.audiostream import AudioStreamManager
+
+        with self._ctrl_lock:
+            width = self.pipeline.cfg.num_channels
+            settings = self._slot_settings(width)
+            dirty, self._mh_dirty = sorted(self._mh_dirty), set()
+            rows = [i for i, rx in enumerate(self._slots[:width])
+                    if rx is not None
+                    and (AudioStreamManager.has_consumers(rx.uuid)
+                         or rx.audio_sink is not None)]
+        return {
+            "round": self._mh_round + 1,
+            "width": width,
+            "rows": rows,
+            "want_spectrum": (time.monotonic() - self._mh_spec_wanted
+                              < SPECTRUM_WANTED_S),
+            "tuner": {"centre_frequency": self.tuner.centre_frequency,
+                      "agc": self.tuner.agc, "gain_db": self.tuner.gain_db,
+                      "offset_ppm": self.tuner.offset_ppm},
+            "slots": {str(i): [v[i] for v in settings] for i in dirty},
+        }
+
+    def _apply_control_blob(self, ctl: dict) -> None:
+        """Every rank: mirror rank 0's round into this rank's tuner and
+        parameters (followers' Receiver objects are not updated; only the
+        parameters matter there)."""
+        pipe = self.pipeline
+        width = pipe.cfg.num_channels
+        if ctl["round"] != self._mh_round + 1 or ctl["width"] != width:
+            raise RuntimeError(
+                f"front end {self.uuid}: control round {ctl['round']} at "
+                f"width {ctl['width']}, expected round {self._mh_round + 1}"
+                f" at width {width}: the ranks fell out of lockstep")
+        self._mh_round += 1
+        if pmesh.world()[0] != 0:
+            t = ctl["tuner"]
+            if t["centre_frequency"] != self.tuner.centre_frequency:
+                self.tuner.set_centre_frequency(int(t["centre_frequency"]))
+            if t["offset_ppm"] != self.tuner.offset_ppm:
+                self.tuner.set_offset_ppm(int(t["offset_ppm"]))
+            if bool(t["agc"]) != self.tuner.agc:
+                self.tuner.set_agc(bool(t["agc"]))
+            if not self.tuner.agc and t["gain_db"] is not None and (
+                    float(t["gain_db"]) != self.tuner.gain_db):
+                self.tuner.set_gain_db(float(t["gain_db"]))
+        mirror = self._mh_settings
+        changed = []
+        for key, values in ctl["slots"].items():
+            i = int(key)
+            if [v[i] for v in mirror] != values:
+                for v, x in zip(mirror, values):
+                    v[i] = x
+                changed.append(i)
+        if not changed:
+            return
+        shared = self._shared_bw
+        if shared is not None and all(
+                mirror[1][i] == shared[0] and mirror[2][i] == shared[1]
+                for i in changed):
+            sub = make_channelized_params(
+                dataclasses.replace(pipe.cfg, num_channels=len(changed)),
+                *([v[i] for i in changed] for v in mirror),
+                actual_sample_rate=self.actual_sample_rate, device="cpu")
+            pipe.update_params_slots(changed, sub)
+        else:
+            # a bandwidth left (or rejoined) the shared FIR kernels: the
+            # parameters' structure changes, so rebuild from the mirror
+            self._note_shared_bw(width, mirror)
+            pipe.update_params(self._make_params(width, mirror))
+
+    def _run_once_multihost(self) -> bool:
+        """One lockstep round: the control broadcast and its writes, this
+        rank's time slice of the next block, the step, and the collective
+        gathers of the spectrum row and the subscribed audio rows (HTTP
+        delivery on rank 0)."""
+        payload = None
+        if pmesh.world()[0] == 0:
+            payload = json.dumps(self._control_blob()).encode()
+        ctl = json.loads(phost.broadcast_blob(payload))
+        self._apply_control_blob(ctl)
+        block = self.tuner.read_block()
+        if block is None:
+            self.running = False
+            return False
+        lo, hi = self._mh_slice
+        planes = _to_planes(block)[:, lo:hi]
+        t0 = time.perf_counter_ns()
+        out = self.pipeline.process_host(phost.make_global_block(
+            planes, self.cfg.block_frames, self.pipeline.mesh))
+        self.block_count += 1
+        self._maybe_sample(t0)
+        if out is not None:
+            self._publish_multihost(out, ctl["rows"], ctl["want_spectrum"])
+        self.last_dispatch_ns = time.perf_counter_ns() - t0
+        return True
+
+    def _publish_multihost(self, out, rows, want_spectrum: bool) -> None:
+        audio, latest_db = out
+        if want_spectrum:
+            # the last rank's row is the block's latest
+            spec = phost.gather_to_host(latest_db[None])[-1]
+            with self._spec_lock:
+                self._spectrum_db = torch.from_numpy(spec)
+        rows = [r for r in rows if r < audio.channels]
+        if not rows:
+            return
+        sel = phost.gather_to_host(audio.fetch_rows(rows), dim=-1)
+        if pmesh.world()[0] == 0:
+            self._deliver_rows(rows, sel)
 
     def _grow_worker(self) -> None:
         """Build the grown pipeline off the pump thread, then hand it to the
@@ -704,11 +914,13 @@ class FrontEnd:
                 new_pipe, FrontEndPipeline):
             new_pipe.state = grow_state(old.state, width)
         else:
-            # engine flip (direct -> channelized past the auto threshold):
-            # the carries do not carry over; existing channels see one
-            # FIR-length transient
-            log.info("front end %s: engine changed across growth; state "
-                     "restarts fresh", self.uuid)
+            # engine flip (direct -> channelized past the auto threshold),
+            # or the sharded engine (its mesh may change with the width;
+            # the JAX package restarts it too): the carries do not carry
+            # over; existing channels see one FIR-length transient
+            log.info("front end %s: %s across growth; state restarts fresh",
+                     self.uuid, "sharded engine" if self.engine == "sharded"
+                     else "engine changed")
         with self._ctrl_lock:
             self.pipeline = new_pipe
             self.rebuild_params()  # control writes made during the build
@@ -745,6 +957,8 @@ class FrontEnd:
             (what, fault), self._fault = self._fault, None
             raise RuntimeError(
                 f"front end {self.uuid}: {what} failed") from fault
+        if self.multihost:
+            return self._run_once_multihost()
         block = self.ring.get(timeout)
         if block is None:
             return False
@@ -765,17 +979,26 @@ class FrontEnd:
             out = self.pipeline.process_host(iq_planes)
         self.last_dispatch_ns = time.perf_counter_ns() - t0
         self.block_count += n_blocks
-        if (self.block_count == 1
-                or self.block_count % PROFILE_SAMPLE_EVERY == 0):
-            event = None
-            if self.device.type == "cuda":
-                event = torch.cuda.Event()
-                event.record()  # completes when this block's step has run
-            self._sample_step_async(t0, event)
+        self._maybe_sample(t0)
         if out is None:
             return True  # pipeline priming: results arrive next block
         self._publish(out)
         return True
+
+    def _maybe_sample(self, t0_ns: int) -> None:
+        """Sample the first and every PROFILE_SAMPLE_EVERY-th block: an
+        event recorded after its step on the device that ran its last stage
+        (the sharded engine's last time shard)."""
+        if not (self.block_count == 1
+                or self.block_count % PROFILE_SAMPLE_EVERY == 0):
+            return
+        dev = getattr(self.pipeline, "device", self.device)
+        event = None
+        if dev.type == "cuda":
+            event = torch.cuda.Event()
+            # completes when this block's step has run
+            event.record(torch.cuda.current_stream(dev))
+        self._sample_step_async(t0_ns, event)
 
     def _sample_step_async(self, t0_ns: int, event) -> None:
         """Time one block from its dispatch to the completion of the event
@@ -811,9 +1034,14 @@ class FrontEnd:
         with self._spec_lock:
             self._spectrum_db = latest_db
         # per-block channelized serving audio is time-major [af, C]; the
-        # catch-up scan [k, C, af] and the direct engine are channel-major
-        tm = audio.ndim == 2 and self.pipeline.audio_time_major
-        width = audio.shape[1] if (tm or audio.ndim == 3) else audio.shape[0]
+        # catch-up scan [k, C, af] and the direct engine are channel-major;
+        # the sharded engine's pieces know their own layout
+        if isinstance(audio, ShardedAudio):
+            tm, width = False, audio.channels
+        else:
+            tm = audio.ndim == 2 and self.pipeline.audio_time_major
+            width = (audio.shape[1] if (tm or audio.ndim == 3)
+                     else audio.shape[0])
         rows = [
             i for i, rx in enumerate(self._slots[:width])
             if rx is not None
@@ -878,7 +1106,10 @@ class FrontEnd:
     def get_spectrum_db(self) -> np.ndarray:
         """Latest dB spectrum, ascending frequency (spectrumsink.cxx:125),
         copied from the device on demand: the UI polls at 5 Hz while blocks
-        arrive at ~23 Hz."""
+        arrive at ~23 Hz. Under multihost the row is gathered by the pump,
+        and only for SPECTRUM_WANTED_S after a poll."""
+        if self.multihost:
+            self._mh_spec_wanted = time.monotonic()
         with self._spec_lock:
             spec = self._spectrum_db
         if spec is None:
