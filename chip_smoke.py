@@ -20,7 +20,16 @@ Phases (each fails the run on error):
 5. timing of the main path: ms/block at C=1,024 and C=16,384, one block at
    a time on CUDA events and back to back on the host clock, and the
    device's idle share from ``torch.profiler`` device events (a profiler
-   window that saw kernels launched but recorded no kernel event fails);
+   window that holds fewer kernel events than its graph replays launched
+   fails);
+5b. each block as one CUDA graph replay: every single-card branch (main
+   at C=1,024 and 16,384, bf16 and u8exact at 16,384, 9.6 kHz, the fused
+   filterbank, the per-channel fallback plain and through its kernel, the
+   direct engine at C=4 and 16) graphed against eager over 8 carried
+   blocks, bit for bit; graph and eager in turns at C=1,024 and 16,384
+   (ms/block one at a time and back to back, idle share, the host's launch
+   calls a block, a 4-block catch-up); the offline runner at 16,384; peak
+   device memory at C=69,632, u8exact;
 6. the other paths through ``process_host`` at C=1,024, each with its
    launch counts and its audio held against the plain tail: (a) mixed
    bandwidths through ``fused_receiver_tail`` and through the plain
@@ -62,11 +71,16 @@ Phases (each fails the run on error):
    moving tuner 0's AM receiver to FM at +100 kHz (then 440 Hz), a POST
    and a DELETE of a receiver; a POST that grows tuner 2 to 512 slots (the
    grown pipeline's warm block is the first to launch kernel #1 there; the
-   new receiver's 1 kHz heard after the swap); a forced stall of tuner 0
-   (its service held until its ring holds four blocks) that makes the pump
-   run ``process_host_many``; a 1 s torch.profiler window and a /profile
-   trace, each failing where it saw blocks served but recorded no kernel
-   event, with the profiler's start, stop and export/parse ms. Kernel #1's
+   new receiver's 1 kHz heard after the swap, captured in the growth
+   build); a forced stall of tuner 0 (its service held until its ring
+   holds four blocks) that the pump serves in one ``run_once``, a graph
+   replay a block; PUTs that move a tuner 1 receiver's bandwidth off the
+   shared FIR and back (a recapture each) and change its law twice (none);
+   a 1 s torch.profiler window and a /profile trace, each failing where it
+   holds fewer kernel events than the graph replays in it launched (or
+   none while blocks were served), with the profiler's start, stop and
+   export/parse ms. Every tuner's served blocks must be graph replays but
+   the eager warm before each capture. Kernel #1's
    launches against the blocks of tuner 0 and of the grown tuner 2, and per
    tuner the blocks, drops, the server's own real-time factor and
    ms/block, the pump's longest gap in each step, and the device's idle
@@ -114,6 +128,7 @@ line. Exits non-zero, without a result, where torch sees no CUDA device.
 
 from __future__ import annotations
 
+import gc
 import hashlib
 import json
 import statistics
@@ -243,7 +258,7 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_profile(step, n: int, cpu: bool = True) -> dict:
+def device_profile(step, n: int, cpu: bool = True, mark=None) -> dict:
     """Run ``step(i)`` for ``i < n`` back to back under ``torch.profiler``
     and read the device's own timeline: only kernel, memcpy and memset
     events (host-side ``aten::`` rows are not device time). Returns
@@ -253,7 +268,12 @@ def device_profile(step, n: int, cpu: bool = True) -> dict:
     profiler's ``start``, ``stop`` and trace ``parse`` took
     (``timings_ms``); busy, window and idle are None where the profiler
     saw no device event. ``cpu=False`` records the device alone (lighter
-    on the host, for a window of serving)."""
+    on the host, for a window of serving); with ``cpu`` the host's CUDA
+    API calls a block are counted by name (``api_per_block``), and
+    ``launch_calls_per_block`` sums the kernel and graph launches among
+    them. ``mark()``, where given, is read just after the start and just
+    before the closing synchronize (``marks``): what the window launched
+    lies between the two."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -268,17 +288,27 @@ def device_profile(step, n: int, cpu: bool = True) -> dict:
         timings[name] = 1e3 * (time.perf_counter() - t0)
         return out
 
-    timed("start", prof.start)
+    from webradio_tpu_torch.pipeline.graph import LAUNCH_LOCK
+
+    with LAUNCH_LOCK:  # no graph launch of a pump meanwhile
+        timed("start", prof.start)
+    marks = [mark() if mark else None]
     for i in range(n):
         step(i)
+    marks.append(mark() if mark else None)
     torch.cuda.synchronize()
-    timed("stop", prof.stop)
+    with LAUNCH_LOCK:
+        timed("stop", prof.stop)
     events = timed("parse", prof.events)
     spans = []
     per_name: dict[str, float] = {}
+    api: dict[str, int] = {}
     kernels = copies = 0
     for e in events:
         if e.device_type != DeviceType.CUDA:
+            if e.name.startswith(("cuda", "cu")) and not e.name.startswith(
+                    "cuda::"):
+                api[e.name] = api.get(e.name, 0) + 1
             continue
         if "annotation" in str(getattr(e, "activity_type", "")).lower():
             continue  # user ranges drawn on the device row, not device work
@@ -290,7 +320,11 @@ def device_profile(step, n: int, cpu: bool = True) -> dict:
         spans.append((t0, t1))
         per_name[e.name] = per_name.get(e.name, 0.0) + (t1 - t0)
     out = {"busy": None, "window": None, "idle": None, "top": [],
-           "kernels": kernels, "copies": copies, "timings_ms": timings}
+           "kernels": kernels, "copies": copies, "timings_ms": timings,
+           "marks": marks,
+           "api_per_block": {k: v / n for k, v in sorted(api.items())},
+           "launch_calls_per_block": sum(
+               v for k, v in api.items() if k in LAUNCH_CALLS) / n}
     if not spans:
         return out
     spans.sort()
@@ -310,17 +344,44 @@ def device_profile(step, n: int, cpu: bool = True) -> dict:
     return out
 
 
-def expect_kernel_events(tag, prof, launched):
+#: the host's CUDA API calls that launch device work a block
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaGraphLaunch")
+
+
+def graph_kernels(fes):
+    """Each pipeline's (or front end's) replayed kernel nodes so far."""
+    return {fe: fe.graph_stats()["kernels"] for fe in fes}
+
+
+def expect_kernel_events(tag, prof, launched, expected=0):
     """Fail where a profiler window saw work launched (blocks served, or a
-    wrapper's count rising) but its trace holds no kernel event: a profiler
-    fault, never a reading."""
+    wrapper's count rising) but its trace holds no kernel event, or fewer
+    than ``expected``: the kernel nodes of the graph replays launched in
+    the window (``web.handlers.expected_kernel_events`` of its marks). A
+    profiler fault, never a reading."""
     log(f"  {tag}: profiler start {prof['timings_ms']['start']:.1f} ms, "
         f"stop {prof['timings_ms']['stop']:.1f} ms, parse "
         f"{prof['timings_ms']['parse']:.1f} ms; {prof['kernels']} kernel and "
-        f"{prof['copies']} copy events for {launched} launched")
+        f"{prof['copies']} copy events for {launched} launched, "
+        f"{expected} kernel events expected of the graph replays")
     if launched and not prof["kernels"]:
         raise AssertionError(f"{tag}: the profiler saw {launched} launched "
                              f"but recorded no kernel event")
+    if prof["kernels"] < expected:
+        raise AssertionError(f"{tag}: the profiler recorded "
+                             f"{prof['kernels']} kernel events of the "
+                             f"{expected} the graph replays launched")
+    return {"kernels": prof["kernels"], "expected": expected}
+
+
+def window_expected(prof):
+    """The kernel events a window whose ``mark`` was :func:`graph_kernels`
+    must hold (one block's less per pipeline: a replay under way at the
+    start may fall before it)."""
+    from webradio_tpu_torch.web.handlers import expected_kernel_events
+
+    return expected_kernel_events(*prof["marks"])
 
 
 def tone_blocks(n: int, seed: int = 0, block_frames: int = BLOCK_FRAMES,
@@ -749,15 +810,23 @@ def phase_legacy_vs_plain(dev, results, kernels):
         min(ms, ms2), plain_ms, tail_flops(nd, c, k), io_bytes(args, got))
 
 
+def keep(out):
+    """A copy of what ``process_host`` handed back (None stays None)."""
+    return None if out is None else tuple(t.clone() for t in out)
+
+
 def run_pipeline(cfg, params, blocks):
     """``blocks`` through ``ChannelizedPipeline.process_host``; returns the
-    audio ``[t, C]`` on the host, the last spectrum row and the pipeline."""
+    audio ``[t, C]`` on the host, the last spectrum row and the pipeline's
+    graph counts (the pipeline itself goes, and with it its graphs'
+    memory)."""
     import torch
     from webradio_tpu_torch.pipeline import channelized as ch
 
     pipe = ch.ChannelizedPipeline(cfg, params)
-    outs = [pipe.process_host(b) for b in blocks]
-    outs = outs[1:] + [pipe.flush()]
+    # a graph replay rewrites its outputs two blocks on: keep copies
+    outs = [keep(pipe.process_host(b)) for b in blocks]
+    outs = outs[1:] + [keep(pipe.flush())]
     torch.cuda.synchronize()
     audio = torch.cat([a for a, _ in outs]).cpu()
     if tuple(audio.shape) != (len(blocks) * cfg.audio_frames,
@@ -768,7 +837,7 @@ def run_pipeline(cfg, params, blocks):
     db = outs[-1][1]
     if db.shape != (cfg.fft_size,) or not bool(torch.isfinite(db).all()):
         raise AssertionError("spectrum row not finite")
-    return audio, db, pipe
+    return audio, db, pipe.graph_stats()
 
 
 def hear_tones(tag, cfg, audio, modes, results):
@@ -927,7 +996,8 @@ def phase_other_paths(dev, results, kernels, main):
     if tuple(audio_many.shape) != (k, c, main_cfg.audio_frames):
         raise AssertionError(f"(d): audio shape {tuple(audio_many.shape)}")
     one = ch.ChannelizedPipeline(main_cfg, main_params)
-    outs = [one.process_host(b) for b in main_blocks[:k]][1:] + [one.flush()]
+    outs = ([keep(one.process_host(b)) for b in main_blocks[:k]][1:]
+            + [keep(one.flush())])
     err = max(float((a.T - audio_many[i]).abs().max())
               for i, (a, _) in enumerate(outs))
     err_db = float((outs[-1][1] - db_many).abs().max())
@@ -1033,10 +1103,12 @@ def phase_timing(dev, results):
         prof_blocks = 8
         launches = tail_wrappers()["fused_tail_audio_tm"].launches
         prof = device_profile(
-            lambda i: pipe.process_host(blocks[i % len(blocks)]), prof_blocks)
+            lambda i: pipe.process_host(blocks[i % len(blocks)]), prof_blocks,
+            mark=lambda: graph_kernels([pipe]))
         expect_kernel_events(
             f"C={c} profile", prof,
-            tail_wrappers()["fused_tail_audio_tm"].launches - launches)
+            tail_wrappers()["fused_tail_audio_tm"].launches - launches,
+            window_expected(prof))
         busy, window, idle, top = (prof[k] for k in ("busy", "window",
                                                      "idle", "top"))
         log(f"  C={c}: one block at a time, median {med:.3f} ms/block on "
@@ -1069,6 +1141,291 @@ def phase_timing(dev, results):
         }
         del pipe, params
         torch.cuda.empty_cache()
+
+
+GRAPH_BLOCKS = 8  # carried blocks through each branch, graph and eager
+GRAPH_TIMED_BLOCKS = 24
+GRAPH_CATCHUP_BLOCKS = 4
+#: what a dropped pipeline may leave reserved on the card (GB): the
+#: cuBLAS workspace of its capture stream
+DROP_SLACK_GB = 0.25
+
+
+def graph_branches(dev):
+    """Each single-card branch as ``name -> (make(graph) -> pipeline,
+    blocks, params, channel-major audio)``: the main path at C=1,024 and
+    16,384 at "highest", bf16 and u8exact at 16,384, 9.6 kHz audio (kernel
+    #2), the fused filterbank (kernel #3), the per-channel fallback plain
+    and through kernel #4, and the direct engine at C=4 and 16."""
+    from webradio_tpu_torch.pipeline import channelized as ch
+    from webradio_tpu_torch.pipeline import frontend as tfe
+    from webradio_tpu_torch.pipeline import state as tstate
+
+    def channelized(c, bw=80_000, blocks=None, **kw):
+        cfg = ch.ChannelizedConfig(num_channels=c, **{
+            "block_frames": BLOCK_FRAMES, **kw})
+        ifs, modes = slot_controls(c)
+        if bw != 80_000:  # mixed bandwidths: slot 0 at bw
+            ifs = [0, 100_000] + [0] * (c - 2)
+            modes = ["AM", "FM"] + ["AM"] * (c - 2)
+            bw = [bw] + [80_000] * (c - 1)
+        params = ch.make_channelized_params(cfg, ifs, bw, 8_000, modes,
+                                            device=dev)
+        return (lambda graph: ch.ChannelizedPipeline(cfg, params, graph),
+                blocks or tone_blocks(GRAPH_BLOCKS, seed=21,
+                                      block_frames=cfg.block_frames),
+                params, False)
+
+    def direct(c):
+        cfg = tstate.ChainConfig(num_channels=c, block_frames=BLOCK_FRAMES)
+        ifs = [0, 100_000] + [(i - 8) * 100_000 for i in range(2, c)]
+        modes = (["AM", "FM"] + ["USB", "LSB", "AM", "FM"] * 4)[:c]
+        params = tstate.make_receiver_params(cfg, ifs, 80_000, 8_000, modes,
+                                             device=dev)
+        return (lambda graph: tfe.FrontEndPipeline(cfg, params, graph),
+                tone_blocks(GRAPH_BLOCKS, seed=22), params.rx, True)
+
+    u8 = u8_blocks(GRAPH_BLOCKS, seed=23)
+    return {
+        "main_c1024": lambda: channelized(MAIN_CHANNELS),
+        "main_c16384": lambda: channelized(WIDE_CHANNELS),
+        "bf16_c16384": lambda: channelized(WIDE_CHANNELS, blocks=u8,
+                                           pfb_precision="bf16"),
+        "u8exact_c16384": lambda: channelized(WIDE_CHANNELS, blocks=u8,
+                                              pfb_precision="u8exact"),
+        "b_9600_c1024": lambda: channelized(MAIN_CHANNELS, audio_rate=9_600,
+                                            block_frames=256_000),
+        "c_pallas_pfb_c1024": lambda: channelized(MAIN_CHANNELS,
+                                                  tail_kernel="pallas_pfb"),
+        "a_plain_c1024": lambda: channelized(MAIN_CHANNELS, bw=12_500),
+        "a_kernel_c1024": lambda: channelized(MAIN_CHANNELS, bw=12_500,
+                                              use_pallas_tail=True),
+        "direct_c4": lambda: direct(4),
+        "direct_c16": lambda: direct(16),
+    }
+
+
+def graph_against_eager(name, make, blocks, params, channel_major):
+    """``blocks`` through a graphed and an eager pipeline, carried, each
+    block's outputs read after the next block was dispatched: the audio of
+    every block and the final state, bit for bit, or else within
+    PERF.md section 2's bounds (audio 1e-5 with the FM flip rule, carries
+    1e-6 with whole turns of raw FM rows removed); the graph's counts; the
+    wrappers' launches alike in both."""
+    import torch
+    from webradio_tpu_torch.pipeline.graph import fields
+
+    runs = {}
+    for graph in (True, False):
+        pipe = make(graph)
+        reset_counts()
+        # as the pump reads them: each block's outputs after the next
+        # block's replay (the other slot's graph) was enqueued
+        outs = [keep(pipe.process_host(b)) for b in blocks][1:]
+        outs.append(keep(pipe.flush()))
+        audio = [a if channel_major else a.T for a, _ in outs]
+        torch.cuda.synchronize()
+        runs[graph] = (torch.stack(audio).cpu(),
+                       [t.cpu() for t in fields(pipe.state)],
+                       {n: f.launches for n, f in tail_wrappers().items()},
+                       pipe.graph_stats())
+        del pipe
+    (ga, gs, gl, stats), (ea, es, el, estats) = runs[True], runs[False]
+    n = len(blocks)
+    bit = torch.equal(ga, ea) and all(torch.equal(x, y)
+                                      for x, y in zip(gs, es))
+    audio_diff = float((ga - ea).abs().max())
+    state_diff = max(float((x.double() - y.double()).abs().max())
+                     for x, y in zip(gs, es))
+    log(f"  {name}: graph against eager over {n} carried blocks: "
+        f"{'bit-equal' if bit else 'NOT bit-equal'} (audio {audio_diff:.3e}"
+        f", state {state_diff:.3e}); graph {stats}; launches {gl}")
+    if not bit:
+        # a cuBLAS algorithm picked under capture may sum in another order
+        fm = params.mode.cpu() == 1
+        flip = float(params.audio_coeff.abs().max())
+        for i in range(n):
+            audio_mismatch(ga[i].T, ea[i].T, fm, flip, STEP_AUDIO_BOUND)
+        for x, y in zip(gs, es):
+            if x.dtype == torch.int64:
+                if not torch.equal(x, y):
+                    raise AssertionError(f"{name}: NCO phases differ")
+                continue
+            err = x.double() - y.double()
+            if err.ndim >= 2 and err.shape[-2] == fm.numel():
+                err[..., fm, :] -= torch.round(err[..., fm, :])
+            if not float(err.abs().max()) <= 1e-6:
+                raise AssertionError(f"{name}: carries differ by "
+                                     f"{float(err.abs().max()):.3e}")
+    want = {"captures": 1, "replays": n - 1, "warms": 1}
+    if {k: stats[k] for k in want} != want or any(estats.values()):
+        raise AssertionError(f"{name}: graph counts {stats}, eager {estats}")
+    if gl != el or sum(gl.values()) not in (0, n):
+        raise AssertionError(f"{name}: launches graph {gl}, eager {el}")
+    return {"bit_equal": bit, "audio_diff": audio_diff,
+            "state_diff": state_diff, "graph": stats, "launches": gl}
+
+
+def graph_mode_times(cfg, params, blocks, graph: bool) -> dict:
+    """One pipeline, graphed or eager: ms/block one at a time (CUDA events,
+    median) and back to back (host clock), a profiled window (idle share,
+    the host's API calls a block, kernel events against the replays'),
+    and a catch-up of GRAPH_CATCHUP_BLOCKS blocks (``process_host_many``,
+    host clock to its end, after one to warm)."""
+    import torch
+    from webradio_tpu_torch.pipeline import channelized as ch
+
+    pipe = ch.ChannelizedPipeline(cfg, params, graph)
+    nb = len(blocks)
+    for b in blocks[:4]:
+        pipe.process_host(b)
+    torch.cuda.synchronize()
+    one = []
+    for i in range(GRAPH_TIMED_BLOCKS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        pipe.process_host(blocks[i % nb])
+        end.record()
+        end.synchronize()
+        one.append(start.elapsed_time(end))
+    t0 = time.perf_counter()
+    for i in range(GRAPH_TIMED_BLOCKS):
+        pipe.process_host(blocks[i % nb])
+    torch.cuda.synchronize()
+    stream = 1e3 * (time.perf_counter() - t0) / GRAPH_TIMED_BLOCKS
+    prof = device_profile(lambda i: pipe.process_host(blocks[i % nb]), 8,
+                          mark=lambda: graph_kernels([pipe]))
+    seen = expect_kernel_events(
+        f"C={cfg.num_channels} {'graph' if graph else 'eager'} window", prof,
+        8, window_expected(prof) if graph else 0)
+    k = GRAPH_CATCHUP_BLOCKS
+    backlog = np.stack([blocks[i % nb] for i in range(k)])
+    pipe.process_host_many(backlog)
+    torch.cuda.synchronize()
+    catch = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        pipe.process_host_many(backlog)
+        torch.cuda.synchronize()
+        catch.append(1e3 * (time.perf_counter() - t0))
+    pipe.flush()
+    return {"one_at_a_time_ms": statistics.median(one),
+            "back_to_back_ms": stream, "idle_share": prof["idle"],
+            "busy_ms_per_block": prof["busy"],
+            "launch_calls_per_block": prof["launch_calls_per_block"],
+            "api_per_block": prof["api_per_block"],
+            "window_kernels": seen,
+            "catchup_ms": statistics.median(catch),
+            "graph": pipe.graph_stats()}
+
+
+def phase_graph(dev, results):
+    """Each block as one CUDA graph replay, against the eager step: every
+    single-card branch bit for bit over GRAPH_BLOCKS carried blocks; then
+    graph and eager side by side in turns (graph, eager, eager, graph) at
+    C=1,024 and 16,384: ms/block one at a time and back to back, idle
+    share, the host's API calls a block, a 4-block catch-up; the offline
+    runner at C=16,384; peak device memory at the headline C=69,632 at
+    u8exact."""
+    import torch
+    from webradio_tpu_torch.pipeline import channelized as ch
+    from webradio_tpu_torch.pipeline import stream
+
+    out = {"branches": {}}
+    for name, build in graph_branches(dev).items():
+        out["branches"][name] = graph_against_eager(name, *build())
+        release()
+    blocks = tone_blocks(8, seed=24)
+    for c in (MAIN_CHANNELS, WIDE_CHANNELS):
+        cfg = ch.ChannelizedConfig(num_channels=c, block_frames=BLOCK_FRAMES)
+        ifs, modes = slot_controls(c)
+        params = ch.make_channelized_params(cfg, ifs, 80_000, 8_000, modes,
+                                            device=dev)
+        turns = []
+        for g in (True, False, False, True):
+            turns.append((g, graph_mode_times(cfg, params, blocks, g)))
+            release()
+        rec = {mode: [t for g, t in turns if g == (mode == "graph")]
+               for mode in ("graph", "eager")}
+        for g, t in turns:
+            log(f"  C={c} {'graph' if g else 'eager'}: one at a time "
+                f"{t['one_at_a_time_ms']:.3f} ms/block, back to back "
+                f"{t['back_to_back_ms']:.3f}, idle share "
+                f"{t['idle_share']:.3f} (busy {t['busy_ms_per_block']:.3f} "
+                f"ms/block), launch calls {t['launch_calls_per_block']:.1f} "
+                f"a block, {GRAPH_CATCHUP_BLOCKS}-block catch-up "
+                f"{t['catchup_ms']:.3f} ms; API calls a block "
+                f"{t['api_per_block']}")
+        out[f"c{c}"] = rec
+        del params
+        torch.cuda.empty_cache()
+    # the offline runner at C=16,384, in turns
+    c = WIDE_CHANNELS
+    cfg = ch.ChannelizedConfig(num_channels=c, block_frames=BLOCK_FRAMES)
+    ifs, modes = slot_controls(c)
+    params = ch.make_channelized_params(cfg, ifs, 80_000, 8_000, modes,
+                                        device=dev)
+    iq = torch.from_numpy(np.concatenate(
+        tone_blocks(OFFLINE_BLOCKS, seed=25), axis=1)).to(dev)
+    runner = {"graph": [], "eager": []}
+    for g in (True, False, False, True):
+        stream.run_capture_channelized(cfg, params, iq, graph=g)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stream.run_capture_channelized(cfg, params, iq, graph=g)
+        torch.cuda.synchronize()
+        runner["graph" if g else "eager"].append(
+            1e3 * (time.perf_counter() - t0) / OFFLINE_BLOCKS)
+    log(f"  offline runner C={c}, ms/block in turns: graph "
+        f"{runner['graph']}, eager {runner['eager']}")
+    out["offline_runner_ms_per_block"] = runner
+    del iq, params
+    torch.cuda.empty_cache()
+    # peak device memory at the headline width, u8exact
+    c = HEADLINE_CHANNELS
+    cfg = ch.ChannelizedConfig(num_channels=c, block_frames=BLOCK_FRAMES,
+                               pfb_precision="u8exact")
+    ifs, modes = slot_controls(c)
+    params = ch.make_channelized_params(cfg, ifs, 80_000, 8_000, modes,
+                                        device=dev)
+    u8 = u8_blocks(4, seed=26)
+    mem = {}
+    # no garbage collection here: a dropped pipeline must hand back its
+    # buffers and its graphs' pool as its last reference goes
+    gc.disable()
+    try:
+        for g in (True, False):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_reserved(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            pipe = ch.ChannelizedPipeline(cfg, params, g)
+            for b in u8:
+                pipe.process_host(b)
+            pipe.flush()
+            torch.cuda.synchronize()
+            rec = mem["graph" if g else "eager"] = {
+                "peak_allocated_gb": torch.cuda.max_memory_allocated(dev)
+                / 1e9,
+                "peak_reserved_gb": torch.cuda.max_memory_reserved(dev) / 1e9}
+            del pipe
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            rec["kept_after_drop_gb"] = (torch.cuda.memory_reserved(dev)
+                                         - base) / 1e9
+    finally:
+        gc.enable()
+    log(f"  peak device memory at C={c}, u8exact, 4 blocks: {mem}")
+    # a cuBLAS workspace per new stream may stay (tens of MB)
+    kept = {m: r["kept_after_drop_gb"] for m, r in mem.items()}
+    if max(kept.values()) > DROP_SLACK_GB:
+        raise AssertionError(f"a dropped pipeline kept {kept} GB reserved "
+                             f"without a garbage collection")
+    out["headline_memory"] = mem
+    del params
+    torch.cuda.empty_cache()
+    results["graph"] = out
 
 
 def stream_ms(cfg, params, blocks, n: int, pipe=None) -> float:
@@ -1109,9 +1466,11 @@ def phase_path_timing(dev, results, paths):
     fused = ch.ChannelizedConfig(tail_kernel="pallas_pfb", **kw)
     params = ch.make_channelized_params(packed, ifs, 80_000, 8_000, modes,
                                         device=dev)
-    turns = [(n, stream_ms(cfg, params, blocks, PATH_TIMED_BLOCKS))
-             for n, cfg in (("packed", packed), ("fused", fused),
-                            ("fused", fused), ("packed", packed))]
+    turns = []
+    for n, cfg in (("packed", packed), ("fused", fused), ("fused", fused),
+                   ("packed", packed)):
+        turns.append((n, stream_ms(cfg, params, blocks, PATH_TIMED_BLOCKS)))
+        release()
     log(f"  C={cw}, back to back ms/block in turns: "
         + ", ".join(f"{n} {ms:.3f}" for n, ms in turns))
     results[f"c{cw}_packed_stream_ms"] = [ms for n, ms in turns
@@ -1220,6 +1579,7 @@ def phase_tiers(dev, results, kernels):
                     f" dB vs the highest tier's"
                     if "audio_snr_vs_highest_db" in rec else ""))
             out[f"c{c}_{tier}"] = rec
+            release()
         del exact, frames, p8, highest_audio
         torch.cuda.empty_cache()
     results["tiers"] = out
@@ -1876,7 +2236,10 @@ def check_waterfall(port, fe, results):
 SERVING_STEPS = ("first blocks", "GET /status, /tuners", "waterfalls",
                  "four WAV listeners", "PUT", "one WAV listener",
                  "POST, DELETE", "growth POST", "after the swap",
-                 "catch-up", "after the catch-up", "plain serving")
+                 "catch-up", "after the catch-up", "bandwidth PUTs",
+                 "plain serving")
+#: blocks tuner 0's ring is held to before the pump drains it in one go
+CATCHUP_HOLD = 4
 
 
 class PumpWatch:
@@ -2081,7 +2444,6 @@ def phase_server(results):
             raise AssertionError("the server did not start")
     finally:
         restore_start()
-    from webradio_tpu_torch.radio import CATCHUP_BLOCKS
 
     fes = list(app.front_ends)  # close() empties the app's list
     fe0, fe1, fe2 = fes
@@ -2199,9 +2561,10 @@ def phase_server(results):
 
         def swap():
             n = fe2.block_count
-            real_swap()
+            published = real_swap()
             if fe2.pipeline.cfg.num_channels > GROW_FROM and not swapped_at:
                 swapped_at.append(n)
+            return published
 
         fe2._swap_grown_pipeline = swap
         t_grow = time.monotonic()
@@ -2227,23 +2590,26 @@ def phase_server(results):
                  "server_")
 
         # ---- a forced stall: tuner 0's service held until its ring holds
-        # CATCHUP_BLOCKS blocks (more than three blocks of signal), so the
-        # pump runs them as one process_host_many catch-up
+        # CATCHUP_HOLD blocks (more than three blocks of signal); the pump
+        # then serves the whole backlog in one run_once, a replay a block
         watch.mark("catch-up")
-        pipe0, many = fe0.pipeline, []
-        real_many, real_get = pipe0.process_host_many, fe0.ring.get
+        many = []
+        real_get, real_drain = fe0.ring.get, fe0.ring.drain
+        replays0 = fe0.graph_stats()["replays"]
 
-        def counted_many(blocks):
-            many.append(len(blocks))
-            return real_many(blocks)
+        def once_drain(n):
+            fe0.ring.drain = real_drain
+            got = real_drain(n)
+            many.append(1 + len(got))
+            return got
 
         def held_get(timeout=None):
-            if fe0.ring.backlog < CATCHUP_BLOCKS:
+            if fe0.ring.backlog < CATCHUP_HOLD:
                 return None
             fe0.ring.get = real_get
+            fe0.ring.drain = once_drain
             return real_get(timeout)
 
-        pipe0.process_host_many = counted_many
         t_hold = time.monotonic()
         fe0.ring.get = held_get
         while not many:
@@ -2251,13 +2617,36 @@ def phase_server(results):
                 raise AssertionError(f"no catch-up ({app.failed})")
             time.sleep(0.005)
         log(f"  catch-up: tuner {fe0.uuid} held "
-            f"{1e3 * (time.monotonic() - t_hold):.0f} ms, then "
-            f"process_host_many on {many[0]} blocks")
-        if many != [CATCHUP_BLOCKS]:
+            f"{1e3 * (time.monotonic() - t_hold):.0f} ms, then one run_once "
+            f"served {many[0]} blocks")
+        if many[0] < CATCHUP_HOLD:
             raise AssertionError(f"catch-up ran on {many} blocks")
         watch.mark("after the catch-up")
         served(fe0, 10, "after the catch-up")
+        if fe0.graph_stats()["replays"] - replays0 < many[0]:
+            raise AssertionError("the catch-up's blocks were not replays: "
+                                 f"{fe0.graph_stats()}")
         results["server_catchup_blocks"] = many[0]
+
+        # ---- recapture where the step's structure changes, and only
+        # there: tuner 1's AM receiver leaves the shared channel FIR (its
+        # own 12.5 kHz), comes back, then changes law twice
+        watch.mark("bandwidth PUTs")
+        rx_bw = app.receivers[4].uuid
+        captures = []
+        for body in ({"if_bandwidth": 12_500}, {"if_bandwidth": 80_000},
+                     {"demodulator": "USB"}, {"demodulator": "AM"}):
+            status, _ = http_call(port, "PUT", f"/receivers/{rx_bw}", body)
+            if status != 204:
+                raise AssertionError(f"PUT {body} answered {status}")
+            served(fe1, 3, f"after PUT {body}")
+            captures.append(fe1.graph_stats()["captures"])
+        log(f"  tuner {fe1.uuid}: graph captures after the PUTs (off the "
+            f"shared FIR, back, two law changes): {captures}")
+        if captures != [2, 3, 3, 3]:
+            raise AssertionError(f"recaptures {captures}: one for each "
+                                 "bandwidth PUT, none for a law change")
+        results["server_recaptures"] = captures
         m_serving = mark()  # HTTP requests, audio streams, control writes
         # the server's own real-time factor over serving, read before this
         # script's profiler windows: the 1 s window's trace parse holds the
@@ -2268,9 +2657,11 @@ def phase_server(results):
         # the device's idle share while serving, from the device's own
         # timeline (every stream); then the /profile endpoint's trace
         b0 = sum(fe.block_count for fe in fes)
-        prof = device_profile(lambda i: time.sleep(0.1), 10, cpu=False)
+        prof = device_profile(lambda i: time.sleep(0.1), 10, cpu=False,
+                              mark=lambda: graph_kernels(fes))
         blocks_in = sum(fe.block_count for fe in fes) - b0
-        expect_kernel_events("1 s profiler window", prof, blocks_in)
+        results["server_window_kernels"] = expect_kernel_events(
+            "1 s profiler window", prof, blocks_in, window_expected(prof))
         busy, window, idle, top = (prof[k] for k in ("busy", "window",
                                                      "idle", "top"))
         if busy is None:
@@ -2303,9 +2694,11 @@ def phase_server(results):
         # would hold the interpreter, and so the pump, inside the span)
         kernels = answer["kernel_events"]
         log(f"  /profile start {status}, stop {status2}: {kernels} kernel "
-            f"events; ms: " + ", ".join(
+            f"events of {answer['expected_kernel_events']} expected of the "
+            f"graph replays; ms: " + ", ".join(
                 f"{k} {v:.1f}" for k, v in answer["timings_ms"].items()))
-        results["server_trace_kernel_events"] = kernels
+        results["server_trace_kernel_events"] = {
+            "kernels": kernels, "expected": answer["expected_kernel_events"]}
         results["server_profiler_ms"] = {
             "window": prof["timings_ms"], "trace": answer["timings_ms"]}
         caught_up("the /profile trace")
@@ -2410,6 +2803,23 @@ def phase_server(results):
         raise AssertionError(f"server: launches {launches} for {served0} + "
                              f"{grown} blocks")
     out["grown_blocks"] = grown
+    # every served block a graph replay but the eager warm before each
+    # capture: the start's (one each), the growth build's (off the pump),
+    # and tuner 1's two recaptures on the pump
+    for fe, off_pump in ((fe0, 1), (fe1, 1), (fe2, 2)):
+        st = fe.graph_stats()
+        log(f"  tuner {fe.uuid}: {fe.block_count} blocks served, graph "
+            f"{st}, {fe.graph_kernels_per_block()} kernel nodes a replay")
+        out[fe.uuid]["graph"] = st
+        if st["replays"] != fe.block_count - (st["warms"] - off_pump):
+            raise AssertionError(f"tuner {fe.uuid}: {st['replays']} replays "
+                                 f"for {fe.block_count} blocks, "
+                                 f"{st['warms']} warms")
+    if (fe0.graph_stats()["captures"], fe2.pipeline.graph_captures) != (1, 1):
+        raise AssertionError(
+            f"captures: tuner 0 {fe0.graph_stats()}, the grown pipeline "
+            f"{fe2.pipeline.graph_stats()} (one each: no recapture for a law "
+            "change or a slot scatter, the growth's in its build)")
     if not (out[fe0.uuid]["realtime_factor_serving"] or 0) > 1:
         raise AssertionError("tuner 0 served below real time")
     lost = {fe.uuid: out[fe.uuid]["dropped_serving"] for fe in fes}
@@ -2574,8 +2984,8 @@ def phase_sharded(dev, results, kernels):
                                            modes_d, device=dev)
     blocks_d = tone_blocks(4, seed=15)
     pipe = tfe.FrontEndPipeline(cfg_d, params_d)
-    ref_d = torch.cat([pipe.process_host_sync(b)[0] for b in blocks_d],
-                      dim=1)
+    ref_d = torch.cat([pipe.process_host_sync(b)[0].clone()
+                       for b in blocks_d], dim=1)
     fe_d = tsh.ShardedFrontEnd(cfg_d, params_d, virtual_mesh(2, 2))
     got_d = torch.cat([fe_d.process(b)[0].full() for b in blocks_d], dim=1)
     against("direct sharded (2, 2) vs FrontEndPipeline, C=16",
@@ -2995,6 +3405,19 @@ def check_default_device():
     log("  entry points place tensors on the card when no device is named")
 
 
+def release():
+    """Between phases: collect the reference cycles a phase left (an app's
+    threads and front ends hold their own), so that no collection lands
+    inside a later phase's timed or drop-counted stretch, and hand the
+    cached memory back to the card. A dropped pipeline needs neither to
+    free its buffers and its graphs' pool: ``phase_graph`` holds that with
+    the collector off."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -3006,6 +3429,10 @@ def main() -> int:
         print("chip_smoke: torch sees no CUDA device; nothing was run",
               file=sys.stderr)
         return 1
+    import faulthandler
+
+    # a run that outlasts 900 s dumps every thread's stack to stderr
+    faulthandler.dump_traceback_later(900)
     from webradio_tpu_torch import require_cuda
     from webradio_tpu_torch.ops import _build
 
@@ -3051,17 +3478,23 @@ def main() -> int:
     # this order
     log("== timing of the main path")
     phase_timing(dev, results)
+    log("== each block as one CUDA graph replay, against the eager step")
+    phase_graph(dev, results)
+    release()
     log("== the other paths through process_host")
     paths = phase_other_paths(dev, results, kernels, main_run)
     del main_run
     log("== timing of the other paths")
     phase_path_timing(dev, results, paths)
     del paths
+    release()
     log("== the filterbank tiers (C=1024, C=16384) and their kernel variants")
     phase_tiers(dev, results, kernels)
+    release()
     log(f"== the headline topology: C={HEADLINE_CHANNELS}, "
         f"{', '.join(HEADLINE_TIERS)}")
     phase_headline(dev, results)
+    release()
     clocks = nvidia_smi("clocks.sm,clocks.max.sm,power.draw,temperature.gpu")
     log(f"  after timing: sm clock, max sm clock, power draw, temp = "
         f"{clocks}")
@@ -3069,6 +3502,7 @@ def main() -> int:
     log(f"== offline: run_capture_channelized (C={WIDE_CHANNELS}) and "
         f"run_capture (C=16)")
     phase_offline(dev, results)
+    release()
     log("== the CLI: demod_cli on a 1 s capture, both engines")
     phase_cli(results)
     log("== the entry: entry()'s step on the card against the CPU")
@@ -3081,6 +3515,7 @@ def main() -> int:
         f"(1, 2) at 9.6 kHz, the direct engine, run_capture_sharded, "
         f"dryrun_multichip(4)")
     phase_sharded(dev, results, kernels)
+    release()
     log(f"== multihost: RadioApp on NCCL (one process), C="
         f"{MULTIHOST_CHANNELS} on a (1, 4) virtual mesh")
     phase_multihost(results)

@@ -5,7 +5,8 @@ Both packages' ``FrontEnd`` read the same file through their own
 ``FileTuner`` (a ``.cu8`` capture quantized from the tone source's AM and
 FM carriers plus noise, made from a seed); the test pushes each block into
 both front ends' rings, calls ``run_once``, and hands what each queued for
-its fan-out to its own ``_fetch_audio_rows`` / ``_deliver_rows``. Every
+its fan-out to its own ``_rows_to_host`` (the JAX package's
+``_fetch_audio_rows``) and ``_deliver_rows``. Every
 receiver carries a capturing audio sink, so the rows compared are the rows
 a consumer gets. Bounds as in ``tests/test_torch_direct.py``: audio 1e-5
 (FM slots under the branch-cut flip rule), waterfall 1e-3 dB on bins within
@@ -102,7 +103,11 @@ def _pump(mod, fe, block):
     fe.ring.put(block)
     assert fe.run_once(timeout=1.0)
     item = fe._fanout.get(timeout=0)
-    if item is not None:
+    if item is not None and mod is tradio:
+        # the port's pump hands on the rows it gathered, block by block
+        for gathered, rows in item:
+            fe._deliver_rows(rows, tradio._rows_to_host(gathered))
+    elif item is not None:
         audio, rows, tm = item
         fe._deliver_rows(rows, mod._fetch_audio_rows(audio, rows, tm))
     return fe.get_spectrum_db()
@@ -257,7 +262,9 @@ def test_control_writes_never_mix_parameter_sets(capture, registries):
     try:
         for k in range(24):
             block = ft.tuner.read_block()
-            state0 = ft.pipeline.state
+            # the pipeline writes its state in place: keep the input state
+            state = ft.pipeline.state
+            state0 = type(state)(*(t.clone() for t in state))
             _pump(tradio, ft, block)
             # the receivers' columns (empty slots take the first occupied
             # slot's law in a full build, which a slot write leaves alone:

@@ -46,6 +46,12 @@ class PumpedFrontEnd:
     def backlog(self) -> int:
         return self.delivered() - self.block_count
 
+    def graph_stats(self) -> dict:
+        return {"captures": 0, "replays": 0, "warms": 0, "kernels": 0}
+
+    def graph_kernels_per_block(self) -> int:
+        return 0
+
     def delivered(self, at=None) -> int:
         return int(((at or time.monotonic()) - self._t0) / BLOCK_S)
 

@@ -25,7 +25,7 @@ import pytest
 import torch
 
 from webradio_tpu_torch import app as tapp
-from webradio_tpu_torch.radio import CATCHUP_BLOCKS, Radio
+from webradio_tpu_torch.radio import Radio
 from webradio_tpu_torch.web import encoders
 from webradio_tpu_torch.web.audiostream import AudioStreamManager
 from webradio_tpu_torch.web.handlers import ConfigHandler
@@ -282,10 +282,10 @@ def test_receiver_lifecycle_post_put_delete(app):
     rx_id = created["uri"].rsplit("/", 1)[1]
     slot = fe.slots_of(Radio.receivers[rx_id])[0]
     blocks = fe.block_count
-    # the write applies at the top of the next run_once; a run_once already
-    # under way (a catch-up scan serves up to CATCHUP_BLOCKS at once) may
-    # still add its blocks, so wait past those for one that began after it
-    wait_for(lambda: fe.block_count >= blocks + CATCHUP_BLOCKS + 1,
+    # the write applies before the next block the pump begins, within a
+    # catch-up too; the block under way may still count, so wait past it
+    # for one that began after the write
+    wait_for(lambda: fe.block_count >= blocks + 2,
              what="a block served after the write")
     assert int(fe.pipeline.params.rx.mode[slot]) == 3  # LSB, applied
     assert request(app, "DELETE", created["uri"])[0] == 204

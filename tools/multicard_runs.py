@@ -85,7 +85,9 @@ def single_card(cfg, params, blocks):
     from webradio_tpu_torch.pipeline import channelized as ch
 
     pipe = ch.ChannelizedPipeline(cfg, params)
-    outs = [pipe.process_host(b) for b in blocks][1:] + [pipe.flush()]
+    # a graph replay rewrites its outputs two blocks on: keep copies
+    outs = [chip_smoke.keep(pipe.process_host(b)) for b in blocks][1:] + [
+        chip_smoke.keep(pipe.flush())]
     ref = torch.cat([a for a, _ in outs]).cpu()
     return ref, back_to_back(pipe.process_host, blocks)
 

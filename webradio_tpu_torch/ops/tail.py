@@ -20,6 +20,7 @@ import torch
 
 from .demod import demodulate
 from .fir import fir_decimate
+from .launches import count_launch
 from .nco import PHASE_MASK, nco_mix
 from .tail_tm import KERNEL_TAPS, _check, _empty
 
@@ -83,7 +84,7 @@ def _launch(chan_in, phase0, phase_step, chan_coeff, mode, raw_hist,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, code, "fused_receiver_tail kernel launch")
-    fused_receiver_tail.launches += 1
+    count_launch(fused_receiver_tail)
     return audio, chan_in[:, :, nd - (k - 1):].contiguous(), new_prev, power
 
 

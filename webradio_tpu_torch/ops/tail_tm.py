@@ -47,6 +47,7 @@ import torch
 from .channelizer import pfb_product
 from .demod import demodulate_tm
 from .fir import fir_decimate_toeplitz_tm, taps_of
+from .launches import count_launch
 from .nco import nco_mix_tm, nco_mix_tm_exact
 
 #: channels per kernel tile; the JAX kernel's rule, kept so the same
@@ -318,7 +319,7 @@ def _launch_audio(wrapper, entry, lead, dev, nd, c, phase0, phase_step,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, code, f"{wrapper.__name__} kernel launch")
-    wrapper.launches += 1
+    count_launch(wrapper)
     return audio48, hist_i, hist_q, new_prev, ahist, power
 
 
@@ -405,7 +406,7 @@ def _launch_chanrate(ci_planes, cq_planes, phase0, phase_step, w_toep, mode,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, code, "fused_tail_tm kernel launch")
-    fused_tail_tm.launches += 1
+    count_launch(fused_tail_tm)
     return audio, hist_i, hist_q, new_prev, power
 
 

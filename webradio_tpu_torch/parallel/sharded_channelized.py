@@ -352,7 +352,11 @@ class ShardedChannelizedFrontEnd(HostPipeline):
     ``update_params_slots``, a per-shard slot scatter). Per-block audio is
     a :class:`.sharded.ShardedAudio`; ``latest_db`` is this rank's last
     time shard's last spectrum row. ``device`` is the device of this
-    rank's last time shard, where the host block is staged."""
+    rank's last time shard, where the host block is staged.
+
+    It overrides ``process_host`` and ``process_host_many`` and stays
+    eager: no CUDA graph is captured (one graph and one launching thread
+    per card are not made yet)."""
 
     def __init__(self, cfg: ChannelizedConfig, params: ChannelizedParams,
                  mesh: Mesh, comm: Comm | None = None):

@@ -28,6 +28,14 @@ Layouts are the JAX package's, so states and parameters carry over
 (``webradio_tpu_torch.convert``). The control plane is here too:
 ``scatter_params_slots``, ``grow_channelized_state`` and the catch-up path
 ``ChannelizedPipeline.process_host_many``.
+
+State: the functional :func:`channelized_step` returns a new state, as the
+JAX step does. ``ChannelizedPipeline`` keeps its state in persistent buffers
+and copies each step's carries into them in place where the JAX package
+donates the state to its jitted step (``donate_argnames=("state",)``); on
+the card the step, its H2D copy and its outputs run as one captured CUDA
+graph per block (``pipeline.graph``). The kernels' fresh carry outputs are
+copied back, never aliased with the carries they read.
 """
 
 from __future__ import annotations
@@ -553,15 +561,15 @@ class ChannelizedPipeline(HostPipeline):
 
     audio_time_major = True
 
-    def __init__(self, cfg: ChannelizedConfig, params: ChannelizedParams):
-        super().__init__(cfg, params, params.pfb_weights.device)
+    def __init__(self, cfg: ChannelizedConfig, params: ChannelizedParams,
+                 graph: bool = True):
+        super().__init__(cfg, params, params.pfb_weights.device, graph)
 
     def _init_state(self) -> ChannelizedState:
         return init_channelized_state(self.cfg, self.device)
 
-    def _serving_step(self, iq):
-        return channelized_step_serving(self.cfg, self.params, self.state,
-                                        iq)
+    def _block(self, iq):
+        return _channelized_step(self.cfg, self.params, self.state, iq, True)
 
     def update_params_slots(self, idx, sub: ChannelizedParams,
                             mode_set: tuple | None = None) -> None:
@@ -569,5 +577,6 @@ class ChannelizedPipeline(HostPipeline):
         slots' columns (:func:`scatter_params_slots`), IN PLACE. The caller
         must not run it while a step that reads these parameters is being
         dispatched on another thread. ``mode_set`` is accepted for
-        signature parity (see :func:`mode_set_of`)."""
+        signature parity (see :func:`mode_set_of`). The addresses stay, so
+        a captured graph goes on serving (no recapture)."""
         self.params = scatter_params_slots(self.params, idx, sub)

@@ -17,10 +17,16 @@ channelized engine's slot scatter writes its tensors in place, so a write
 made from another thread while a step is being dispatched could give one
 block half old and half new parameters; the queue rules that out.
 
-Device work never waits on the pump thread for the whole device: audio
-leaves the card only in the fan-out thread (one ``index_select`` of the
-subscribed rows, one copy into pinned host memory, a wait on a CUDA event
-recorded after that copy), profile samples wait on an event recorded
+Device work never waits on the pump thread for the whole device: the
+pump gathers the subscribed rows of each block's audio (one
+``index_select`` over an index it keeps on the device and copies there
+without a wait when the rows change) and a copy of its spectrum row on
+its stream as it
+publishes the block, so both are ordered before the replay that rewrites
+those outputs (each block is a CUDA graph replay into fixed outputs,
+``pipeline.graph``); audio leaves the card only in the fan-out thread (one
+copy of the gathered rows into pinned host memory, a wait on a CUDA event
+recorded after that copy); profile samples wait on an event recorded
 after their step in a side thread, and the spectrum row is copied to the
 host on HTTP demand. Everything runs on the current (default) CUDA stream,
 so each copy is ordered after the step that made its input.
@@ -68,11 +74,20 @@ CHANNELIZED_AUTO_THRESHOLD = 16
 #: /status, on a side thread (see FrontEnd._sample_step_async)
 PROFILE_SAMPLE_EVERY = 16
 
-#: ring backlog that triggers the catch-up scan (and the blocks per scan)
-CATCHUP_BLOCKS = 4
+#: blocks a front end's ingest ring holds on the card (682.7 ms at stock
+#: rates): deep enough to ride out a 200-570 ms stall of the pump (a
+#: profiler's stop holds it in a CUDA call). The pump serves the whole
+#: backlog at its next block (:meth:`FrontEnd.run_once`), a graph replay a
+#: block, several times faster than real time, so no backlog stands
+RING_BLOCKS = 16
+#: the same on the CPU, the reference's depth (rtlsdrtuner.cxx:33-34): an
+#: eager CPU pump may keep barely real time, and a deeper ring then turns
+#: a start-up backlog into one that stands (a ring of 16 kept one for over
+#: 10 s under a loaded test run); no CUPTI stop stalls it there
+CPU_RING_BLOCKS = 4
 
-#: device audio tensors the fan-out worker may hold while it fetches;
-#: overflow drops OLDEST (counted)
+#: hand-offs (one run_once's gathered audio rows) the fan-out worker may
+#: hold while it fetches; overflow drops OLDEST (counted)
 FANOUT_QUEUE_DEPTH = 2
 
 #: a multihost waterfall poll keeps the per-block spectrum gather on for
@@ -98,25 +113,40 @@ def _to_planes(block: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(block.view(np.float32).reshape(-1, 2).T)
 
 
-def _fetch_audio_rows(audio: torch.Tensor, rows,
-                      time_major: bool = False) -> np.ndarray:
-    """The subscribed receivers' audio rows on the host: ONE
-    ``index_select`` of the rows on the device and ONE copy into pinned
-    host memory, in the calling (fan-out) thread, which then waits on a
-    CUDA event recorded after the copy. A sharded engine's audio
-    (:class:`.parallel.sharded.ShardedAudio`) fetches the rows from its
-    pieces where they lie.
+def _row_index(rows, device: torch.device) -> torch.Tensor:
+    """``rows`` as an index on ``device``; to the card from pinned memory
+    without a wait (a blocking copy would hold the calling thread until
+    everything queued on the stream has run)."""
+    idx = torch.tensor(rows, dtype=torch.int64)
+    if device.type != "cuda":
+        return idx.to(device)
+    return idx.pin_memory().to(device, non_blocking=True)
 
+
+def _gather_rows(audio: torch.Tensor, rows, time_major: bool = False,
+                 idx: torch.Tensor | None = None) -> torch.Tensor:
+    """ONE ``index_select`` of the subscribed receivers' rows on the
+    device: ``[k, audio_frames]`` of one block, ``[blocks, k,
+    audio_frames]`` of a catch-up's ``[blocks, C, audio_frames]``.
     ``time_major`` is the channelized serving layout (``[audio_frames,
-    C]``, channels are columns). Returns ``[k, audio_frames]`` for one
-    block, ``[blocks, k, audio_frames]`` for a catch-up scan's
-    ``[blocks, C, audio_frames]``."""
-    if isinstance(audio, ShardedAudio):
-        return audio.fetch_rows(rows)
-    idx = torch.as_tensor(rows, dtype=torch.int64, device=audio.device)
+    C]``, channels are columns). ``idx`` is ``rows`` on the device where
+    the caller keeps it."""
+    if idx is None:
+        idx = _row_index(rows, audio.device)
     src = audio.movedim(-1, -2) if time_major else audio
-    sel = src.index_select(-2, idx)  # contiguous [(blocks,) k, af]
-    if audio.device.type != "cuda":
+    return src.index_select(-2, idx)
+
+
+def _rows_to_host(sel) -> np.ndarray:
+    """Gathered rows on the host: ONE copy into pinned host memory, then a
+    wait on a CUDA event recorded after it, in the calling (fan-out)
+    thread. A sharded engine's audio
+    (:class:`.parallel.sharded.ShardedAudio`) is a ``(audio, rows)`` pair
+    whose rows are fetched from its pieces where they lie."""
+    if isinstance(sel, tuple):
+        audio, rows = sel
+        return audio.fetch_rows(rows)
+    if sel.device.type != "cuda":
         return sel.numpy()
     host = torch.empty(sel.shape, dtype=sel.dtype, pin_memory=True)
     host.copy_(sel, non_blocking=True)
@@ -124,6 +154,14 @@ def _fetch_audio_rows(audio: torch.Tensor, rows,
     done.record()
     done.synchronize()
     return host.numpy()
+
+
+def _fetch_audio_rows(audio, rows, time_major: bool = False) -> np.ndarray:
+    """The subscribed receivers' audio rows on the host
+    (:func:`_gather_rows`, then :func:`_rows_to_host`)."""
+    if isinstance(audio, ShardedAudio):
+        return audio.fetch_rows(rows)
+    return _rows_to_host(_gather_rows(audio, rows, time_major))
 
 
 class CapacityError(RuntimeError):
@@ -399,7 +437,12 @@ class FrontEnd:
         self._growth_lock = threading.Lock()
         self._grow_thread: threading.Thread | None = None
         self._pending_swap = None
-        self.ring = BlockRing()
+        # graph counts of the pipelines swapped out by growth
+        self._retired_graph_stats: dict[str, int] = {}
+        # the subscribed rows of the last publish, their device and their
+        # index there: made again only when they change
+        self._rows_on_device: tuple = ((), None, None)
+        self.ring = BlockRing(self.ring_blocks)
         self._capture: CaptureThread | None = None
         self.running = False
         # latest spectrum dB row (on the device) for HTTP readers
@@ -432,6 +475,11 @@ class FrontEnd:
         self._mh_round = 0
         self._mh_spec_wanted = float("-inf")
         Radio.front_ends[self.uuid] = self
+
+    @property
+    def ring_blocks(self) -> int:
+        """The depth of this front end's ingest ring."""
+        return RING_BLOCKS if self.device.type == "cuda" else CPU_RING_BLOCKS
 
     # ---- receiver slots -------------------------------------------
     @property
@@ -677,7 +725,8 @@ class FrontEnd:
             # one zero block through the step and the fan-out fetch before
             # capture starts: builds the CUDA kernels where the step runs
             # one (a build failure stops the start here), primes the
-            # pinned staging buffers and the allocator
+            # pinned staging buffers and the allocator, and on the card
+            # captures the step's graphs (after the app's profiler warm)
             log.info("front end %s: warming pipeline", self.uuid)
             t0 = time.perf_counter()
             out = self.pipeline.process_host_sync(
@@ -689,7 +738,7 @@ class FrontEnd:
         except BaseException:
             self.tuner.stop()
             raise
-        self.ring = BlockRing()
+        self.ring = BlockRing(self.ring_blocks)
         self._capture = CaptureThread(self.tuner, self.ring)
         self._capture.start()
         self.running = True
@@ -874,6 +923,9 @@ class FrontEnd:
                 with self._ctrl_lock:
                     settings = self._slot_settings(target)
                 pipe = self._build_pipeline(target, settings)
+                # the warm block, and on the card the graphs' capture, on
+                # this thread while the pump serves: a capture is
+                # thread-local and on a stream of its own (pipeline.graph)
                 pipe.process_host_sync(
                     np.zeros((2, self.cfg.block_frames), np.float32))
                 pipe.reset()
@@ -887,32 +939,35 @@ class FrontEnd:
                 return
             with self._growth_lock:
                 if self.cfg.num_channels == target:
-                    self._pending_swap = pipe
+                    self._pending_swap = (pipe, settings)
                     self._grow_thread = None
                     log.info("front end %s: %d-channel pipeline ready in "
                              "%.1fs, swapping at the next block", self.uuid,
                              target, time.perf_counter() - t0)
                     return
 
-    def _swap_grown_pipeline(self) -> None:
+    def _swap_grown_pipeline(self) -> list:
         """Pump-thread half of growth: publish the old pipeline's in-flight
-        block, carry its DSP state into the grown one (new slots start from
-        zeros), swap, and rebuild from the current settings."""
+        block (returns what :meth:`_publish` returns), carry its DSP state
+        into the grown one (new slots start from zeros), swap, and apply
+        the control writes made since the build's settings were taken."""
         with self._growth_lock:
-            new_pipe, self._pending_swap = self._pending_swap, None
-        if new_pipe is None:
-            return
+            pending, self._pending_swap = self._pending_swap, None
+        if pending is None:
+            return []
+        new_pipe, built_from = pending
         old = self.pipeline
         leftover = old.flush()
-        if leftover is not None:
-            self._publish(leftover)  # in the OLD pipeline's audio layout
+        # in the OLD pipeline's audio layout
+        gathered = [] if leftover is None else self._publish(leftover)
         width = new_pipe.cfg.num_channels
+        # into the grown pipeline's own buffers: its graphs stay valid
         if isinstance(old, ChannelizedPipeline) and isinstance(
                 new_pipe, ChannelizedPipeline):
-            new_pipe.state = grow_channelized_state(old.state, width)
+            new_pipe.load_state(grow_channelized_state(old.state, width))
         elif isinstance(old, FrontEndPipeline) and isinstance(
                 new_pipe, FrontEndPipeline):
-            new_pipe.state = grow_state(old.state, width)
+            new_pipe.load_state(grow_state(old.state, width))
         else:
             # engine flip (direct -> channelized past the auto threshold),
             # or the sharded engine (its mesh may change with the width;
@@ -921,9 +976,41 @@ class FrontEnd:
             log.info("front end %s: %s across growth; state restarts fresh",
                      self.uuid, "sharded engine" if self.engine == "sharded"
                      else "engine changed")
+        for name, n in self._graph_stats_of(old).items():
+            self._retired_graph_stats[name] = (
+                self._retired_graph_stats.get(name, 0) + n)
         with self._ctrl_lock:
             self.pipeline = new_pipe
-            self.rebuild_params()  # control writes made during the build
+            # control writes made during the build: only the slots whose
+            # settings moved since, so that an unchanged slot table keeps
+            # the parameters the grown pipeline's graphs were captured on
+            self._note_shared_bw(width, built_from)
+            now = self._slot_settings(width)
+            moved = [i for i in range(width)
+                     if any(a[i] != b[i] for a, b in zip(now, built_from))]
+            if moved:
+                self.rebuild_params(slots=moved)
+        return gathered
+
+    @staticmethod
+    def _graph_stats_of(pipe) -> dict[str, int]:
+        stats = getattr(pipe, "graph_stats", None)
+        return stats() if stats is not None else {}
+
+    def graph_kernels_per_block(self) -> int:
+        """The kernel nodes one served block's graph holds (0 without)."""
+        per_block = getattr(self.pipeline, "graph_kernels_per_block", None)
+        return per_block() if per_block is not None else 0
+
+    def graph_stats(self) -> dict[str, int]:
+        """The CUDA graphs' counts over this front end's pipelines
+        (:meth:`.pipeline.frontend.HostPipeline.graph_stats`):
+        ``captures``, ``replays``, ``warms`` (eager blocks before a
+        capture) and ``kernels`` (the kernel nodes of every replayed graph,
+        summed)."""
+        now = self._graph_stats_of(self.pipeline)
+        return {name: self._retired_graph_stats.get(name, 0) + now.get(name, 0)
+                for name in ("captures", "replays", "warms", "kernels")}
 
     def stop(self) -> None:
         if not self.running:
@@ -948,9 +1035,14 @@ class FrontEnd:
 
     # ---- the block pump ---------------------------------------------
     def run_once(self, timeout: float = 1.0) -> bool:
-        """Process one block: control writes -> ingest -> step -> fan out
-        audio/spectrum. Blocks until the capture ring has a block
-        (rtlsdrtuner.cxx:265-285). An error of the step, or of the fan-out
+        """Serve the next block and everything the ring holds behind it:
+        per block, growth swap -> control writes -> step -> publish, then
+        one hand-off of the blocks' gathered audio to the fan-out. Blocks
+        until the capture ring has a block (rtlsdrtuner.cxx:265-285). A
+        backlog (a stall of the pump) is drained whole here, block after
+        block: on the card each is one graph replay, so the catch-up costs
+        the host a replay a block (the JAX package scans a fixed number of
+        blocks in one dispatch). An error of the step, or of the fan-out
         worker or a growth build since the last block, propagates: nothing
         here carries on past a failed device step."""
         if self._fault is not None:
@@ -962,27 +1054,21 @@ class FrontEnd:
         block = self.ring.get(timeout)
         if block is None:
             return False
-        if self._pending_swap is not None:
-            self._swap_grown_pipeline()
-        self.apply_control()
-        iq_planes = _to_planes(block)
-        t0 = time.perf_counter_ns()
-        n_blocks = 1
-        if self.ring.backlog >= CATCHUP_BLOCKS - 1:
-            # a backlog built up (a stall): run it as one catch-up scan.
-            # Torch compiles nothing, so the scan is always ready.
-            extra = self.ring.drain(CATCHUP_BLOCKS - 1)
-            blocks = np.stack([iq_planes] + [_to_planes(b) for b in extra])
-            out = self.pipeline.process_host_many(blocks)
-            n_blocks = blocks.shape[0]
-        else:
+        gathered = []
+        for blk in [block] + self.ring.drain(self.ring.depth):
+            if self._pending_swap is not None:
+                gathered.extend(self._swap_grown_pipeline())
+            self.apply_control()
+            iq_planes = _to_planes(blk)
+            t0 = time.perf_counter_ns()
             out = self.pipeline.process_host(iq_planes)
-        self.last_dispatch_ns = time.perf_counter_ns() - t0
-        self.block_count += n_blocks
-        self._maybe_sample(t0)
-        if out is None:
-            return True  # pipeline priming: results arrive next block
-        self._publish(out)
+            self.last_dispatch_ns = time.perf_counter_ns() - t0
+            self.block_count += 1
+            self._maybe_sample(t0)
+            if out is not None:  # None: pipeline priming
+                gathered.extend(self._publish(out))
+        if gathered:
+            self._fanout.put(gathered)
         return True
 
     def _maybe_sample(self, t0_ns: int) -> None:
@@ -1021,35 +1107,43 @@ class FrontEnd:
                                          name=f"profile-{self.uuid}")
         self._sampler.start()
 
-    def _publish(self, out) -> None:
-        """Hand (audio, spectrum) to HTTP readers. The audio stays on the
-        device: the pump records which rows have consumers and queues the
-        tensor for the fan-out worker; with no consumers nothing is queued
-        (the reference's zero-consumer no-op, audiostream.cxx:67-68). The
-        queue holds the tensor, so its memory is not reused before the
-        worker's gather has read it."""
+    def _publish(self, out) -> list:
+        """Hand (audio, spectrum) to HTTP readers, on the pump's stream
+        before the next block: the spectrum row is copied, and the rows of
+        the receivers with consumers are gathered from the audio (a graph
+        replay two blocks on rewrites both). Returns ``[(gathered, rows)]``
+        for the fan-out, empty with no consumer (the reference's
+        zero-consumer no-op, audiostream.cxx:67-68). A sharded engine's
+        audio is not rewritten: its rows are fetched in the fan-out."""
         from .web.audiostream import AudioStreamManager
 
         audio, latest_db = out
+        latest_db = latest_db.clone()
         with self._spec_lock:
             self._spectrum_db = latest_db
         # per-block channelized serving audio is time-major [af, C]; the
-        # catch-up scan [k, C, af] and the direct engine are channel-major;
-        # the sharded engine's pieces know their own layout
+        # direct engine's is channel-major; the sharded engine's pieces
+        # know their own layout
         if isinstance(audio, ShardedAudio):
             tm, width = False, audio.channels
         else:
             tm = audio.ndim == 2 and self.pipeline.audio_time_major
             width = (audio.shape[1] if (tm or audio.ndim == 3)
                      else audio.shape[0])
-        rows = [
+        rows = tuple(
             i for i, rx in enumerate(self._slots[:width])
             if rx is not None
             and (AudioStreamManager.has_consumers(rx.uuid)
-                 or rx.audio_sink is not None)
-        ]
-        if rows:
-            self._fanout.put((audio, tuple(rows), tm))
+                 or rx.audio_sink is not None))
+        if not rows:
+            return []
+        if isinstance(audio, ShardedAudio):
+            return [((audio, rows), rows)]
+        if self._rows_on_device[:2] != (rows, audio.device):
+            self._rows_on_device = (rows, audio.device,
+                                    _row_index(rows, audio.device))
+        return [(_gather_rows(audio, rows, tm, self._rows_on_device[2]),
+                 rows)]
 
     def _fanout_worker(self) -> None:
         """Audio fan-out off the pump thread (see _publish)."""
@@ -1059,18 +1153,19 @@ class FrontEnd:
                 if self._fanout.closed or not self.running:
                     return
                 continue
-            audio, rows, tm = item
-            try:
-                sel = _fetch_audio_rows(audio, rows, tm)
-            except BaseException as e:
-                log.exception("front end %s: fan-out fetch failed", self.uuid)
-                self._fault = ("audio fan-out", e)
-                return
-            if sel.ndim == 3:  # catch-up scan: [blocks, k, af]
-                for b in range(sel.shape[0]):
-                    self._deliver_rows(rows, sel[b])
-            else:
-                self._deliver_rows(rows, sel)
+            for gathered, rows in item:
+                try:
+                    sel = _rows_to_host(gathered)
+                except BaseException as e:
+                    log.exception("front end %s: fan-out fetch failed",
+                                  self.uuid)
+                    self._fault = ("audio fan-out", e)
+                    return
+                if sel.ndim == 3:  # a backlog's [blocks, k, af]
+                    for b in range(sel.shape[0]):
+                        self._deliver_rows(rows, sel[b])
+                else:
+                    self._deliver_rows(rows, sel)
 
     def _deliver_rows(self, rows, sel) -> None:
         """Push fetched audio rows to stream consumers and local sinks."""

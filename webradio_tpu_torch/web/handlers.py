@@ -32,6 +32,7 @@ import tempfile
 import threading
 import time
 
+from ..pipeline.graph import LAUNCH_LOCK
 from ..radio import Radio, Receiver
 
 HTTP_OK = 200
@@ -142,6 +143,9 @@ class StatusHandler(HttpRequestHandler):
                 # arithmetic quality tiers
                 "fir_precision": fe.fir_precision,
                 "pfb_precision": fe.pfb_precision,
+                # CUDA graphs (pipeline.graph): capture events, replays,
+                # eager warm blocks, replayed kernel nodes
+                "graph": fe.graph_stats(),
                 "receivers": sorted(fe.receivers),
             }
         return self.send_json(
@@ -168,6 +172,25 @@ class StatusHandler(HttpRequestHandler):
 
 def _blocks_served() -> int:
     return sum(fe.block_count for fe in Radio.front_ends.values())
+
+
+def _graph_kernels() -> dict:
+    """Each front end's replayed kernel nodes so far (``graph_stats()``'s
+    ``kernels``): what a trace of the card must hold of them."""
+    return {fe: fe.graph_stats()["kernels"]
+            for fe in list(Radio.front_ends.values())}
+
+
+def expected_kernel_events(before: dict, after: dict) -> int:
+    """The kernel events a trace must hold for the graph replays between
+    two :func:`_graph_kernels` readings: each front end's replayed kernels
+    less one block's (a replay under way as the trace started may fall
+    before it)."""
+    total = 0
+    for fe, k1 in after.items():
+        per_block = fe.graph_kernels_per_block()
+        total += max(0, k1 - before.get(fe, k1) - per_block)
+    return total
 
 
 #: the longest the trace thread waits for the pump after a stretch of the
@@ -212,11 +235,14 @@ def trace_event_counts(path) -> tuple[int, int]:
             sum(c in ("gpu_memcpy", "gpu_memset") for c in cats))
 
 
-def check_trace_has_kernels(trace: pathlib.Path, served: int) -> int:
+def check_trace_has_kernels(trace: pathlib.Path, served: int,
+                            expected: int = 0) -> int:
     """The kernel events of a card's trace ``trace``. Where it holds none
-    although the pump served ``served`` blocks while it ran, the trace is a
-    profiler fault, not a reading: it is renamed
-    ``trace_without_kernels.json`` and RuntimeError says so."""
+    although the pump served ``served`` blocks while it ran, or fewer than
+    the ``expected`` kernels the pump's graph replays launched in it
+    (:func:`expected_kernel_events`), the trace is a profiler fault, not a
+    reading: it is renamed ``trace_without_kernels.json`` (none) or
+    ``trace_missing_kernels.json`` (some) and RuntimeError says so."""
     kernels, copies = trace_event_counts(trace)
     if served and not kernels:
         kept = trace.replace(trace.with_name("trace_without_kernels.json"))
@@ -224,6 +250,12 @@ def check_trace_has_kernels(trace: pathlib.Path, served: int) -> int:
             f"the profiler recorded {copies} copy events but no kernel while "
             f"the pump served {served} blocks (a profiler fault; the trace "
             f"is kept as {kept})")
+    if kernels < expected:
+        kept = trace.replace(trace.with_name("trace_missing_kernels.json"))
+        raise RuntimeError(
+            f"the profiler recorded {kernels} kernel events of the "
+            f"{expected} the pump's graph replays launched while it ran (a "
+            f"profiler fault; the trace is kept as {kept})")
     return kernels
 
 
@@ -240,9 +272,11 @@ def warm_profiler() -> float:
 
     t0 = time.perf_counter()
     prof = profile(activities=[ProfilerActivity.CUDA])
-    prof.start()
+    with LAUNCH_LOCK:
+        prof.start()
     torch.cuda.synchronize()
-    prof.stop()
+    with LAUNCH_LOCK:
+        prof.stop()
     return 1e3 * (time.perf_counter() - t0)
 
 
@@ -266,8 +300,12 @@ class _TraceSession:
 
     ``timings_ms`` holds what ``start()``, ``stop()``, the export, the
     waits for the pump (``wait_after_stop``, ``wait_after_export``) and,
-    on the card, the trace's check took. On the card :meth:`stop` raises
-    for a trace without a kernel event (:func:`check_trace_has_kernels`).
+    on the card, the trace's check took. On the card the kernel nodes the
+    pump's graphs replayed are read after the start and before the stop,
+    the card is synchronized before the stop (every counted replay has
+    then run), and :meth:`stop` raises for a trace that holds no kernel
+    event, or fewer than those replays launched
+    (:func:`check_trace_has_kernels`).
     """
 
     def __init__(self, trace_dir: str):
@@ -275,6 +313,7 @@ class _TraceSession:
         self.error: BaseException | None = None
         self.timings_ms: dict[str, float] = {}
         self.kernel_events: int | None = None
+        self.expected_kernel_events: int | None = None
         self._blocks0 = _blocks_served()
         self._started = threading.Event()
         self._stop = threading.Event()
@@ -294,7 +333,9 @@ class _TraceSession:
         acts = [ProfilerActivity.CUDA if card else ProfilerActivity.CPU]
         try:
             prof = profile(activities=acts)
-            self._timed("start", prof.start)
+            with LAUNCH_LOCK:  # no graph launch meanwhile (graph.py)
+                self._timed("start", prof.start)
+            kernels0 = _graph_kernels()
         except BaseException as e:
             self.error = e
             self._started.set()
@@ -303,7 +344,11 @@ class _TraceSession:
         self._stop.wait()
         try:
             mark = _pump_mark()
-            self._timed("stop", prof.stop)
+            expected = expected_kernel_events(kernels0, _graph_kernels())
+            if card:
+                self._timed("sync", torch.cuda.synchronize)
+            with LAUNCH_LOCK:
+                self._timed("stop", prof.stop)
             served = _blocks_served() - self._blocks0
             self._timed("wait_after_stop", lambda: wait_for_pump(mark))
             path = pathlib.Path(self.trace_dir)
@@ -314,8 +359,10 @@ class _TraceSession:
                         lambda: prof.export_chrome_trace(str(trace)))
             self._timed("wait_after_export", lambda: wait_for_pump(mark))
             if card:
+                self.expected_kernel_events = expected
                 self.kernel_events = self._timed(
-                    "check", lambda: check_trace_has_kernels(trace, served))
+                    "check",
+                    lambda: check_trace_has_kernels(trace, served, expected))
         except BaseException as e:
             self.error = e
         self._done.set()
@@ -342,11 +389,13 @@ class ProfileHandler(HttpRequestHandler):
     ``webradio_trace`` in the temporary directory), ``{"action": "stop"}``
     ends it, writes ``<dir>/trace.json`` (Chrome trace format: Perfetto,
     chrome://tracing) and returns the directory, what each stretch of the
-    trace took (``timings_ms``: the profiler's start, stop and export and
-    the waits for the pump between them) and the trace's kernel events.
-    A trace of the card without a kernel event while blocks were served
-    answers 500 with the reason (see ``_TraceSession``). GET reports the
-    state.
+    trace took (``timings_ms``: the profiler's start, the card's
+    synchronize, the stop and export and the waits for the pump between
+    them), the trace's kernel events and the kernel events the pump's
+    graph replays launched in it (``expected_kernel_events``). A trace of
+    the card without a kernel event while blocks were served, or with
+    fewer than the replays launched, answers 500 with the reason (see
+    ``_TraceSession``). GET reports the state.
     """
 
     # class-level: one trace at a time; the lock serializes the
@@ -393,13 +442,17 @@ class ProfileHandler(HttpRequestHandler):
                 try:
                     session.stop()
                 except Exception as exc:
-                    self.send_json({"error": str(exc),
-                                    "timings_ms": session.timings_ms})
+                    self.send_json({
+                        "error": str(exc), "timings_ms": session.timings_ms,
+                        "expected_kernel_events":
+                            session.expected_kernel_events})
                     return HTTP_INTERNAL
                 return self.send_json(
                     {"tracing": False, "trace_dir": trace_dir,
                      "timings_ms": session.timings_ms,
-                     "kernel_events": session.kernel_events})
+                     "kernel_events": session.kernel_events,
+                     "expected_kernel_events":
+                         session.expected_kernel_events})
         return HTTP_BAD_REQUEST
 
 
