@@ -97,30 +97,39 @@ Phases (each fails the run on error):
    its AM receiver heard over HTTP;
 15. sharded, on virtual meshes whose every position is the one card (four
    shards on one card: a check and a measurement of the sharded code, not
-   of scaling): the main configuration at C=16,384 on a (time=2, chan=2)
-   mesh, 8 tone-source blocks, kernel #1 launched 4 times a block, audio
-   within 3e-6 of the single-card ``ChannelizedPipeline`` (the FM flip
-   rule), tones, back-to-back ms/block beside the single card's, a
-   profiled window and the halo recompute's own device time; u8exact the
-   same; path (b)'s 9.6 kHz audio on a (1, 2) mesh at C=1,024 (kernel #2
-   twice a block); the direct sharded engine at C=16 against
-   ``FrontEndPipeline``; ``run_capture_sharded`` over 8 blocks and a
-   part-block against ``run_capture_channelized``; and
+   of scaling), each block one CUDA graph replay
+   (``parallel/graphs.py``): the main configuration at C=16,384 on a
+   (time=2, chan=2) mesh, graph and eager in turns (graph, eager, eager,
+   graph), 8 tone-source blocks each, kernel #1 launched 4 times a block,
+   the graphs' audio bit-equal to the eager stages' and within 3e-6 of
+   the single-card ``ChannelizedPipeline`` (the FM flip rule), tones,
+   back-to-back ms/block beside the single card's, a profiled window
+   (busy, idle share, launch calls a block: one on graphs; kernel events
+   at least the replays' kernel nodes) and the halo recompute's own
+   device time; u8exact on graphs; path (b)'s 9.6 kHz audio on a (1, 2)
+   mesh at C=1,024 (kernel #2 twice a block); the direct sharded engine at
+   C=16 against ``FrontEndPipeline`` and bit-equal to its eager stages;
+   ``run_capture_sharded`` over 8 blocks and a part-block against
+   ``run_capture_channelized`` and its eager loop, twice (the second call
+   replays the kept front end's graphs: no warm, no capture); and
    ``entry.dryrun_multichip(4)`` on four positions of the card;
 16. multihost: ``RadioApp`` in this process with a multihost sharded tone
    tuner at C=2,048 on a (1, 4) virtual mesh (kernel #1 per shard, 4 a
    block) and a ``"distributed"`` process group of one on NCCL, so the
-   control broadcast and the gathers run NCCL on the card: ~5 s of
-   serving, /status, the waterfall, the FM receiver's 440 Hz, every slot
-   filled in one round, a POST past capacity answered 409, a PUT retune
-   heard, 0 drops;
+   control broadcast, the sharded step's collectives between its graph
+   segments and the gathers run NCCL on the card: ~5 s of serving,
+   /status, the waterfall, the FM receiver's 440 Hz, every slot filled in
+   one round, a POST past capacity answered 409, a PUT retune heard, 0
+   drops, every served block a round of replays of one capture;
 17. two processes: two NCCL ranks on the one card (NCCL's refusal
    logged), then two gloo ranks (``--worker`` subprocesses of this script)
-   each driving two positions of a global (2, 2) mesh at C=1,024 (kernel
-   #1 per shard, CUDA halos staged through pinned host buffers), each
-   ingesting its half of every block, their gathered audio within 3e-6 of
-   the single-card step; then the live two-process app for a few seconds
-   (rank 0 hears its FM receiver, rank 1 pumps), both killed at the end.
+   each driving two positions of a global (2, 2) mesh at C=1,024 on graph
+   segments (kernel #1 per shard, CUDA halos staged through pinned host
+   buffers between replays), each ingesting its half of every block,
+   their gathered audio within 3e-6 of the single-card step; then the
+   live two-process app for a few seconds (rank 0 hears its FM receiver
+   and must drop no block while it listens, rank 1 pumps), both killed at
+   the end.
 
 Prints a ``{"kernels": [...]}`` line and, last, a ``{"ok": true, ...}``
 line. Exits non-zero, without a result, where torch sees no CUDA device.
@@ -1377,9 +1386,11 @@ def phase_graph(dev, results):
         torch.cuda.synchronize()
         runner["graph" if g else "eager"].append(
             1e3 * (time.perf_counter() - t0) / OFFLINE_BLOCKS)
-    log(f"  offline runner C={c}, ms/block in turns: graph "
-        f"{runner['graph']}, eager {runner['eager']}")
+    log(f"  offline runner C={c}, ms/block in turns (each a second call: "
+        f"the kept pipeline): graph {runner['graph']}, eager "
+        f"{runner['eager']}")
     out["offline_runner_ms_per_block"] = runner
+    stream.KEPT.clear()
     del iq, params
     torch.cuda.empty_cache()
     # peak device memory at the headline width, u8exact
@@ -1874,7 +1885,9 @@ def phase_offline(dev, results):
 
     # one run first: the 2.1 GB output's first allocation is not the
     # runner's steady cost (in a process that has cached other sizes it
-    # doubled the back-to-back time once)
+    # doubled the back-to-back time once), and its pipeline is kept: the
+    # second call replays its graphs with no warm and no capture
+    stream.KEPT.clear()
     stream.run_capture_channelized(cfg, params, iq)
     reset_counts()
     torch.cuda.synchronize()
@@ -1883,6 +1896,15 @@ def phase_offline(dev, results):
     torch.cuda.synchronize()
     runner_ms = 1e3 * (time.perf_counter() - t0) / OFFLINE_BLOCKS
     expect_counts("offline runner", fused_tail_audio_tm=OFFLINE_BLOCKS)
+    (kept,) = stream.KEPT.entries.values()
+    runner_graphs = kept.graph_stats()
+    del kept
+    log(f"  the kept pipeline after two calls: {runner_graphs}")
+    if runner_graphs["captures"] != 1 or runner_graphs["replays"] != (
+            2 * OFFLINE_BLOCKS - 1):
+        raise AssertionError(f"the offline runner captured again: "
+                             f"{runner_graphs}")
+    stream.KEPT.clear()
     af = cfg.audio_frames
     if tuple(audio.shape) != (c, OFFLINE_BLOCKS * af) or tuple(
             latest.shape) != (OFFLINE_BLOCKS, 2, cfg.fft_size):
@@ -1917,7 +1939,26 @@ def phase_offline(dev, results):
     results["offline"] = {"channels": c, "blocks": OFFLINE_BLOCKS,
                           "runner_ms_per_block": runner_ms,
                           "serving_ms_per_block": serving_ms,
-                          "max_audio_diff": err}
+                          "max_audio_diff": err,
+                          "runner_graph": runner_graphs}
+    # a dropped kept pipeline hands its graphs' memory back at once, with
+    # no garbage collection
+    gc.disable()
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_reserved(dev)
+        stream.run_capture_channelized(cfg, params, iq)
+        stream.KEPT.clear()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        kept_gb = (torch.cuda.memory_reserved(dev) - base) / 1e9
+    finally:
+        gc.enable()
+    log(f"  a dropped kept pipeline left {kept_gb:.3f} GB reserved")
+    if kept_gb > DROP_SLACK_GB:
+        raise AssertionError(f"a dropped kept pipeline kept {kept_gb:.3f} GB")
+    results["offline"]["kept_after_drop_gb"] = kept_gb
     del audio, pipe, state, latest, params
 
     # ---- the direct engine at the entry's C=16
@@ -1942,6 +1983,7 @@ def phase_offline(dev, results):
     hear_row("offline C=16 AM slot", audio[0].cpu().numpy(), cfg.audio_rate,
              1_000, results)
     results["offline"]["direct_max_audio_diff"] = err
+    stream.KEPT.clear()
 
 
 def phase_cli(results):
@@ -2850,20 +2892,24 @@ def virtual_mesh(t: int, c: int):
     return make_mesh(t, c, [CARD] * (t * c))
 
 
-def sharded_run(cfg, params, mesh, blocks):
+def sharded_run(cfg, params, mesh, blocks, graph: bool = True):
     """``blocks`` through ``ShardedChannelizedFrontEnd.process_host``; the
-    audio ``[t, C]`` on the host (each block's pieces joined) and the
-    front end."""
+    audio ``[t, C]`` on the host (each block's pieces joined as it is
+    handed back: a graph replay rewrites them two blocks on) and the front
+    end."""
     import torch
     from webradio_tpu_torch.parallel.sharded_channelized import (
         ShardedChannelizedFrontEnd,
     )
 
-    fe = ShardedChannelizedFrontEnd(cfg, params, mesh)
-    outs = [fe.process_host(b) for b in blocks]
-    outs = outs[1:] + [fe.flush()]
+    fe = ShardedChannelizedFrontEnd(cfg, params, mesh, graph=graph)
+    outs = []
+    for b in blocks + [None]:
+        out = fe.process_host(b) if b is not None else fe.flush()
+        if out is not None:
+            outs.append((out[0].full().T, out[1].clone()))
     torch.cuda.synchronize()
-    audio = torch.cat([a.full().T for a, _ in outs]).cpu()
+    audio = torch.cat([a for a, _ in outs]).cpu()
     if tuple(audio.shape) != (len(blocks) * cfg.audio_frames,
                               cfg.num_channels):
         raise AssertionError(f"sharded audio shape {tuple(audio.shape)}")
@@ -2873,6 +2919,37 @@ def sharded_run(cfg, params, mesh, blocks):
     if db.shape != (cfg.fft_size,) or not bool(torch.isfinite(db).all()):
         raise AssertionError("sharded spectrum row not finite")
     return audio, fe
+
+
+def sharded_turn(cfg, params, mesh, blocks, graph: bool) -> dict:
+    """One sharded front end, on graphs or eager: the blocks' audio (kernel
+    #1 once a shard a block), back-to-back ms/block, and a profiled window
+    (busy, idle share, launch calls a block, kernel events against the
+    replays' kernel nodes)."""
+    tag = (f"sharded {tuple(mesh.shape.values())} C={cfg.num_channels} "
+           f"{'graph' if graph else 'eager'}")
+    reset_counts()
+    audio, fe = sharded_run(cfg, params, mesh, blocks, graph)
+    expect_counts(tag, fused_tail_audio_tm=mesh.size * len(blocks))
+    ms = stream_ms(cfg, params, blocks, TIMED_BLOCKS, pipe=fe)
+    prof = device_profile(lambda i: fe.process_host(blocks[i % len(blocks)]),
+                          4, mark=lambda: graph_kernels([fe]))
+    seen = expect_kernel_events(f"{tag} window", prof, 4,
+                                window_expected(prof) if graph else 0)
+    calls = prof["launch_calls_per_block"]
+    log(f"  {tag}: back to back {ms:.3f} ms/block, busy {prof['busy']:.3f} "
+        f"ms/block, idle {prof['idle']:.3f}, launch calls {calls:.1f} a "
+        f"block; graphs {fe.graph_stats()}, "
+        f"{fe.graph_kernels_per_block()} kernel nodes a block")
+    if graph and calls != 1:
+        raise AssertionError(f"{tag}: {calls} launch calls a block, not one")
+    return {"audio": audio, "fe": fe, "back_to_back_ms": ms,
+            "busy_ms_per_block": prof["busy"], "idle_share": prof["idle"],
+            "launch_calls_per_block": calls,
+            "api_per_block": prof["api_per_block"], "window_kernels": seen,
+            "graph": fe.graph_stats(),
+            "kernel_nodes_per_block": fe.graph_kernels_per_block(),
+            "top": prof["top"]}
 
 
 def phase_sharded(dev, results, kernels):
@@ -2904,23 +2981,32 @@ def phase_sharded(dev, results, kernels):
     if not tsc._tm_uses_kernel(cfg, nd_local, c // 2, params):
         raise AssertionError("the (2, 2) mesh's shards do not take #1")
     ref, _, _ = run_pipeline(cfg, params, blocks)
-    reset_counts()
-    audio, fe = sharded_run(cfg, params, mesh, blocks)
-    expect_counts(f"sharded (2, 2) C={c}",
-                  fused_tail_audio_tm=4 * len(blocks))
-    hear_tones("sharded_", cfg, audio, modes, results)
-    against(f"sharded (2, 2) vs single card, C={c}", audio, ref, params,
-            results, "sharded_vs_single", SHARDED_BOUND)
-    del audio, ref
     single_ms = stream_ms(cfg, params, blocks, TIMED_BLOCKS)
-    sharded_ms = stream_ms(cfg, params, blocks, TIMED_BLOCKS, pipe=fe)
-    log(f"  back to back at C={c}: single card {single_ms:.3f} ms/block, "
-        f"(2, 2) mesh on one card {sharded_ms:.3f} ms/block")
-    # a profiled window, and the halo recompute timed alone on one shard
-    reset_counts()
-    prof = device_profile(lambda i: fe.process_host(blocks[i % 8]), 4)
-    launched = tail_wrappers()["fused_tail_audio_tm"].launches
-    expect_kernel_events("sharded window", prof, launched)
+    release()
+    # graph and eager in turns: graph, eager, eager, graph
+    turns = []
+    for g in (True, False, False, True):
+        turn = sharded_turn(cfg, params, mesh, blocks, g)
+        audio = turn.pop("audio")
+        if not turns:
+            first = audio
+            hear_tones("sharded_", cfg, audio, modes, results)
+            against(f"sharded (2, 2) vs single card, C={c}", audio, ref,
+                    params, results, "sharded_vs_single", SHARDED_BOUND)
+        elif not torch.equal(audio, first):
+            diff = float((audio - first).abs().max())
+            raise AssertionError(f"sharded {'graph' if g else 'eager'} turn "
+                                 f"differs from the first graph turn by "
+                                 f"{diff:.3e}")
+        turns.append(turn)
+        fe = turn.pop("fe")
+        if len(turns) < 4:
+            del fe
+            release()
+    log(f"  graph against eager at C={c} on (2, 2): audio bit-equal in "
+        f"every turn; single card {single_ms:.3f} ms/block")
+    del ref, first, audio
+    # the halo recompute timed alone on one shard
     p0 = fe.mesh.local_positions[0]
     prm = fe._placed[p0]
     iq0 = torch.from_numpy(blocks[0][:, :BLOCK_FRAMES // 2]).to(dev)
@@ -2933,20 +3019,21 @@ def phase_sharded(dev, results, kernels):
         cfg, prm, nco_mix_tm_fast, y2, phase, c // 2), 20)
     expect_kernel_events("halo recompute window", rprof, 20)
     recompute_ms = rprof["busy"]
-    share = 4 * recompute_ms / prof["busy"] if prof["busy"] else None
-    log(f"  window: busy {prof['busy']:.3f} ms/block, idle "
-        f"{prof['idle']:.3f}; the halo recompute: {recompute_ms:.4f} device "
-        f"ms a shard ({rprof['kernels'] / 20:.0f} kernels), "
-        f"{4 * recompute_ms:.4f} a block"
-        + (f" ({100 * share:.2f}% of busy)" if share else "")
-        + "; the positions share the card, so the halo moves copy nothing")
+    busy = statistics.median(t["busy_ms_per_block"] for t in turns
+                             if t["graph"]["replays"])
+    share = 4 * recompute_ms / busy if busy else None
+    log(f"  the halo recompute: {recompute_ms:.4f} device ms a shard "
+        f"({rprof['kernels'] / 20:.0f} kernels), {4 * recompute_ms:.4f} a "
+        f"block" + (f" ({100 * share:.2f}% of the graphs' busy)"
+                    if share else ""))
+    modes_of = ["graph" if t["graph"]["replays"] else "eager" for t in turns]
     out.update(channels=c, mesh=[2, 2], single_ms_per_block=single_ms,
-               sharded_ms_per_block=sharded_ms, busy_ms=prof["busy"],
-               idle=prof["idle"], window_kernel_events=prof["kernels"],
-               window_copy_events=prof["copies"],
-               recompute_ms_per_shard=recompute_ms, recompute_share=share,
-               top=prof["top"])
-    del fe
+               turns=[dict(t, mode=m) for t, m in zip(turns, modes_of)],
+               sharded_ms_per_block={
+                   m: [t["back_to_back_ms"] for t, n in zip(turns, modes_of)
+                       if n == m] for m in ("graph", "eager")},
+               recompute_ms_per_shard=recompute_ms, recompute_share=share)
+    del fe, y2, iq0
 
     # u8exact at the full width, on 8-bit-grid blocks
     cfg_u = dataclasses.replace(cfg, pfb_precision="u8exact")
@@ -2976,6 +3063,29 @@ def phase_sharded(dev, results, kernels):
     against("sharded (b) vs single card", audio_b, ref_b, params_b, results,
             "sharded_b_vs_single", SHARDED_BOUND)
 
+    # the stage body (one slot off the shared FIR kernels: a move between
+    # every stage) on graphs against its eager stages and the single card
+    cfg_s = ch.ChannelizedConfig(num_channels=MAIN_CHANNELS,
+                                 block_frames=BLOCK_FRAMES)
+    ifbw = [40_000] + [80_000] * (MAIN_CHANNELS - 1)
+    params_s = ch.make_channelized_params(cfg_s, ifs_b, ifbw, 8_000, modes_b,
+                                          device=dev)
+    blocks_s = tone_blocks(4, seed=18)
+    ref_s, _, _ = run_pipeline(cfg_s, params_s, blocks_s)
+    stage = {g: sharded_run(cfg_s, params_s, mesh, blocks_s, g)
+             for g in (True, False)}
+    if stage[True][1].time_major or stage[True][1].graph_stats()[
+            "replays"] != len(blocks_s) - 1:
+        raise AssertionError(f"the stage body on graphs: "
+                             f"{stage[True][1].graph_stats()}")
+    if not torch.equal(stage[True][0], stage[False][0]):
+        raise AssertionError("the stage body's graphs differ from its eager "
+                             "stages")
+    against("sharded stage body (2, 2) on graphs vs single card, C="
+            f"{MAIN_CHANNELS}", stage[True][0], ref_s, params_s, results,
+            "sharded_stage_vs_single", SHARDED_BOUND)
+    del stage, ref_s, params_s
+
     # the direct engine at the entry's C=16 against FrontEndPipeline
     cfg_d = tstate.ChainConfig(num_channels=16, block_frames=BLOCK_FRAMES)
     ifs_d = [0, 100_000] + [(i - 8) * 100_000 for i in range(2, 16)]
@@ -2986,22 +3096,53 @@ def phase_sharded(dev, results, kernels):
     pipe = tfe.FrontEndPipeline(cfg_d, params_d)
     ref_d = torch.cat([pipe.process_host_sync(b)[0].clone()
                        for b in blocks_d], dim=1)
-    fe_d = tsh.ShardedFrontEnd(cfg_d, params_d, virtual_mesh(2, 2))
-    got_d = torch.cat([fe_d.process(b)[0].full() for b in blocks_d], dim=1)
-    against("direct sharded (2, 2) vs FrontEndPipeline, C=16",
-            got_d.T.cpu(), ref_d.T.cpu(), params_d.rx, results,
+    got_d = {}
+    for g in (True, False):
+        fe_d = tsh.ShardedFrontEnd(cfg_d, params_d, virtual_mesh(2, 2),
+                                   graph=g)
+        got_d[g] = torch.cat([fe_d.process(b)[0].full() for b in blocks_d],
+                             dim=1)
+        if g and fe_d.graph_stats()["replays"] != len(blocks_d) - 1:
+            raise AssertionError(f"direct sharded graphs: "
+                                 f"{fe_d.graph_stats()}")
+    if not torch.equal(got_d[True], got_d[False]):
+        raise AssertionError("the direct sharded engine's graphs differ from "
+                             "its eager stages")
+    against("direct sharded (2, 2) on graphs vs FrontEndPipeline, C=16",
+            got_d[True].T.cpu(), ref_d.T.cpu(), params_d.rx, results,
             "sharded_direct_vs_single", SHARDED_BOUND)
 
-    # run_capture_sharded against run_capture_channelized
+    # run_capture_sharded against run_capture_channelized and its eager
+    # loop; a second call replays the kept front end's graphs
     cap = tone_blocks(SHARDED_BLOCKS + 1, seed=16)
     iq = torch.from_numpy(np.concatenate(
         cap[:-1] + [cap[-1][:, :BLOCK_FRAMES // 3]], axis=1)).to(dev)
+    tsc.KEPT.clear()
     reset_counts()
     _, audio_s, latest_s = tsc.run_capture_sharded(cfg, params, mesh, iq)
     torch.cuda.synchronize()
     expect_counts("run_capture_sharded",
                   fused_tail_audio_tm=4 * SHARDED_BLOCKS)
+    capture_ms = {}
+    for g in (True, False):
+        t0 = time.perf_counter()
+        _, again, _ = tsc.run_capture_sharded(cfg, params, mesh, iq, graph=g)
+        torch.cuda.synchronize()
+        capture_ms["graph" if g else "eager"] = (
+            1e3 * (time.perf_counter() - t0) / SHARDED_BLOCKS)
+        if not torch.equal(again, audio_s):
+            raise AssertionError(f"run_capture_sharded (graph={g}) differs "
+                                 f"from its first call")
+        del again
+    (kept,) = [f for k, f in tsc.KEPT.entries.items() if k[2]]
+    if kept.graph_stats()["captures"] != 1 or kept.graph_stats()[
+            "replays"] != 2 * SHARDED_BLOCKS - 1:
+        raise AssertionError(f"the kept front end captured again: "
+                             f"{kept.graph_stats()}")
+    del kept
+    tsc.KEPT.clear()
     _, audio_1, latest_1 = stream.run_capture_channelized(cfg, params, iq)
+    stream.KEPT.clear()
     if audio_s.shape != audio_1.shape or latest_s.shape != latest_1.shape:
         raise AssertionError("run_capture_sharded's shapes")
     against("run_capture_sharded vs run_capture_channelized",
@@ -3010,6 +3151,9 @@ def phase_sharded(dev, results, kernels):
     lat = float((latest_s - latest_1).abs().max() / latest_1.abs().max())
     if not lat <= 1e-5:
         raise AssertionError(f"latest spectra differ by {lat:.2e} of peak")
+    log(f"  run_capture_sharded, second call (kept front end) ms/block: "
+        f"{capture_ms}; bit-equal to its eager loop")
+    out["capture_ms_per_block"] = capture_ms
     del audio_s, audio_1, iq
 
     # the dry run on a 4-position virtual mesh: the kernels on the card
@@ -3125,6 +3269,9 @@ def phase_multihost(results):
         drops = PumpWatch.dropped(fe) - drops0
         samples = fe.step_samples
         step_ms = fe.last_step_ns / 1e6
+        served = fe.block_count
+        graphs = fe.pipeline.graph_stats()
+        nodes = fe.pipeline.graph_kernels_per_block()
     finally:
         app.close()
         pmesh.visible_devices = saved
@@ -3135,15 +3282,21 @@ def phase_multihost(results):
         f"{blocks * BLOCK_MS / 1e3 / elapsed:.3f}), {drops} dropped; last "
         f"sampled step {step_ms:.2f} ms ({samples} samples); kernel #1 "
         f"launches {launches} for {fe.block_count} blocks + {warm} warm")
+    log(f"  graphs: {graphs}, {nodes} kernel nodes a block")
     if drops:
         raise AssertionError(f"the multihost pump dropped {drops} blocks")
+    # the warm captured once; every block served since was replays
+    if graphs["captures"] != 1 or graphs["replays"] < served:
+        raise AssertionError(f"the multihost pump's blocks were not graph "
+                             f"replays of one capture: {graphs} for "
+                             f"{served} blocks")
     if launches != 4 * (fe.block_count + warm):
         raise AssertionError("kernel #1 did not run on every shard of every "
                              "block")
     out.update(channels=MULTIHOST_CHANNELS, blocks=blocks,
                elapsed_s=elapsed, drops=drops, launches=launches,
                throughput=blocks * BLOCK_MS / 1e3 / elapsed,
-               last_step_ms=step_ms,
+               last_step_ms=step_ms, graph=graphs,
                wall_s=time.perf_counter() - t_start)
     log(f"  multihost phase: {out['wall_s']:.1f} s")
     results["multihost"] = out
@@ -3204,6 +3357,10 @@ def phase_two_process(results):
                                  f"{p.returncode}\n{text[-3000:]}")
         rec = json.loads(lines[0].split(" ", 1)[1])
         log(f"  two-process step, rank {r}: {json.dumps(rec)}")
+        # 3 + 8 blocks: one warm, then replays of one capture
+        if rec["graph"]["captures"] != 1 or rec["graph"]["replays"] != 10:
+            raise AssertionError(f"two-process step, rank {r}: graphs "
+                                 f"{rec['graph']}")
         records.append(rec)
     out["step"] = records
 
@@ -3246,6 +3403,12 @@ def phase_two_process(results):
     follower = [ln.strip() for ln in logs[1] if ln.startswith("FOLLOWER")]
     log(f"  two-process app: rank 0 {json.dumps(done)}; rank 1 "
         f"{follower[-1]}")
+    if done["drops"]:
+        raise AssertionError(f"the two-process app dropped {done['drops']} "
+                             f"blocks while rank 0 listened")
+    if done["graph"]["captures"] != 1 or not done["graph"]["replays"]:
+        raise AssertionError(f"the two-process app's blocks were not graph "
+                             f"replays: {done['graph']}")
     out["app"] = dict(done, follower=follower[-1])
     out["wall_s"] = time.perf_counter() - t_start
     log(f"  two-process phase: {out['wall_s']:.1f} s")
@@ -3325,7 +3488,8 @@ def worker_step(url: str, rank: int) -> None:
         "rank": rank, "rows": [lo, hi], "launches": launches,
         "max_audio_err": err, "fm_max": fm_max, "fm_flips": flips,
         "peak": float(ref.abs().max()), "ms_per_block": ms,
-        "staged": fe.comm.staged}), flush=True)
+        "staged": fe.comm.staged, "segmented": fe.segmented,
+        "graph": fe.graph_stats()}), flush=True)
 
 
 def worker_app(url: str, rank: int) -> None:
@@ -3367,14 +3531,16 @@ def worker_app(url: str, rank: int) -> None:
         if app.failed is not None:
             raise SystemExit(f"rank 0 failed: {app.failed}")
         time.sleep(0.05)
-    t0, b0 = time.monotonic(), fe.block_count
+    t0, b0, d0 = time.monotonic(), fe.block_count, PumpWatch.dropped(fe)
     tone = hear(app.server.port, app.receivers[0].uuid, 48_000, seconds=1.0)
     dt = time.monotonic() - t0
     print("TWO_PROC_APP " + json.dumps({
         "tone_hz": tone, "blocks": fe.block_count,
         "throughput": (fe.block_count - b0) * BLOCK_MS / 1e3 / dt,
-        "drops": PumpWatch.dropped(fe), "mesh": fe.pipeline.mesh.shape}),
-        flush=True)
+        "drops": PumpWatch.dropped(fe) - d0,
+        "drops_since_start": PumpWatch.dropped(fe),
+        "mesh": fe.pipeline.mesh.shape,
+        "graph": fe.pipeline.graph_stats()}), flush=True)
     if abs(tone - 440.0) > TONE_TOLERANCE_HZ:
         raise SystemExit(f"rank 0 heard {tone:.2f} Hz")
     while app.failed is None:

@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_graph_standin import RecordedGraph
 from webradio_tpu.pipeline import channelized as jch
 from webradio_tpu.pipeline import frontend as jfe
 from webradio_tpu.pipeline import state as jstate
@@ -38,11 +39,7 @@ from webradio_tpu_torch import radio as tradio
 from webradio_tpu_torch.io import tuner as ttuner
 from webradio_tpu_torch.io.source import ToneSource
 from webradio_tpu_torch.ops import tail_tm
-from webradio_tpu_torch.ops.launches import (
-    add_launches,
-    count_launch,
-    recording,
-)
+from webradio_tpu_torch.ops.launches import add_launches, count_launch
 from webradio_tpu_torch.pipeline import channelized as tch
 from webradio_tpu_torch.pipeline import frontend as tfe
 from webradio_tpu_torch.pipeline import graph as tgraph
@@ -58,28 +55,6 @@ AUDIO_BOUND, CARRY_BOUND, RAW_FM_MAX = 1e-5, 1e-6, 1e-3
 CARRIERS = ((0.0, "AM", 1_000.0), (100_000.0, "FM", 440.0),
             (-450_000.0, "FM", 700.0), (700_000.0, "AM", 1_300.0))
 LAWS = ("AM", "FM", "USB", "LSB")
-
-
-class RecordedGraph(tgraph.StepGraph):
-    """A stand-in for a CUDA graph on the CPU. Capturing runs ``fn`` once
-    and puts back what it wrote (a capture runs nothing); a replay runs
-    ``fn`` again, and what it writes lands in the same tensors, as a
-    graph's does. The launches a run counts stay out of the wrappers'
-    counts (a replay runs no Python: :class:`..graph.StepGraph` adds the
-    capture's tally)."""
-
-    kernel_nodes = 7
-
-    def _capture(self, fn, carried, stream, pool):
-        saved = [t.clone() for t in carried]
-        fn()
-        for t, s in zip(carried, saved):
-            t.copy_(s)
-        self.fn = fn
-
-    def _replay(self):
-        with recording():
-            self.fn()
 
 
 def _blocks(n, block, rate=2_400_000, seed=0):

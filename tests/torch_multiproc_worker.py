@@ -4,8 +4,10 @@ one rank of a two-process ``torch.distributed`` group on gloo.
 Each rank drives two CPU positions of a global (time=2, chan=2) mesh and
 ingests only ITS time slice of a capture made from a seed
 (``multihost.host_time_slice`` / ``make_global_block``); two blocks go
-through the sharded channelized step, each block's audio rows are gathered
-across the ranks, and the gathered audio and the carried state are held to
+through the sharded channelized step (its segmented plan on a stand-in
+graph, ``tests/torch_graph_standin.RecordedGraph``: a graph a segment, the
+collectives between replays), each block's audio rows are gathered across
+the ranks, and the gathered audio and the carried state are held to
 the port's single-device step on the whole capture (3e-6 audio with the FM
 flip rule of PERF.md §2, 1e-6 carries). Then rank 0 broadcasts a control
 blob three times ``CONTROL_BLOB_BYTES`` long, which must arrive whole.
@@ -38,6 +40,8 @@ def main() -> None:
     )
     from webradio_tpu_torch.pipeline import channelized as ch
 
+    from tests.torch_graph_standin import RecordedGraph
+
     assert multihost.init_distributed(url, num, rank, backend="gloo")
     assert world() == (rank, num)
     cfg = ch.ChannelizedConfig(sample_rate=1_024_000, channel_rate=128_000,
@@ -63,6 +67,8 @@ def main() -> None:
     lo, hi = multihost.host_time_slice(cfg.block_frames, mesh)
     assert (lo, hi) == (rank * 5_120, (rank + 1) * 5_120)
     fe = ShardedChannelizedFrontEnd(cfg, params, mesh)
+    fe.graph_class = RecordedGraph
+    assert fe.segmented  # a process group runs the moves
     state = ch.init_channelized_state(cfg, "cpu")
     fm = np.array([m == "FM" for m in modes])
     flip = float(params.audio_coeff.abs().max())
@@ -79,6 +85,7 @@ def main() -> None:
         assert err[~fm].max() <= BOUND, err[~fm].max()
         assert (err[fm] > BOUND).sum() <= max(1, 1e-4 * err[fm].size)
         assert err[fm].max() <= 2 * flip + BOUND
+    assert fe.graph_stats()["replays"] == len(blocks) - 1, fe.graph_stats()
     carried = fe.gathered_state()
     np.testing.assert_array_equal(carried.nco_phase.numpy(),
                                   state.nco_phase.numpy())

@@ -1,5 +1,6 @@
 """The sharded channelized engine over several real cards of one host, and
-the multi-process step with NCCL, each process driving two cards.
+the multi-process step with NCCL, each process driving two cards: each on
+CUDA graphs and with ``graph=False`` beside it.
 
     python3 tools/multicard_runs.py [out.json]
     python3 tools/multicard_runs.py --cpu   # a rehearsal on CPU positions
@@ -7,19 +8,22 @@ the multi-process step with NCCL, each process driving two cards.
 Needs four CUDA devices (exits 1 with fewer). In one process: the main
 configuration (stock rates, C=16,384, every slot at 80 / 8 kHz, laws
 cycling) on (time, chan) meshes (1, 4), (2, 2) and (4, 1) of cuda:0..3,
-each over 8 tone-source blocks: its audio held to the single-card
-``ChannelizedPipeline`` on cuda:0 (3e-6, the FM flip rule of PERF.md §2),
-its tail-kernel launches, and its back-to-back ms/block (host clock, every
-card synchronized at the end) beside the single card's. Then two NCCL
-processes (this script with ``--worker``), each driving two cards of a
-global (2, 2) mesh and ingesting its half of every block: the audio of
-every seventh channel gathered across both and held to the single-card
-step, each rank's back-to-back ms/block, and a control blob three
-broadcast frames long. Prints one JSON line per reading and writes them
-all to ``out.json`` when given.
+each over 8 tone-source blocks, on graphs (a graph a card and segment,
+the peer copies between replays) and eagerly: its audio held to the
+single-card ``ChannelizedPipeline`` on cuda:0 (3e-6, the FM flip rule of
+PERF.md §2) and the graphs' to the eager stages' bit for bit, its
+tail-kernel launches, its graph counts and its back-to-back ms/block
+(host clock, every card synchronized at the end) beside the single
+card's. Then two NCCL processes (this script with ``--worker``), each
+driving two cards of a global (2, 2) mesh and ingesting its half of every
+block, graph and eager: the audio of every seventh channel gathered across
+both and held to the single-card step, each rank's back-to-back ms/block,
+and a control blob three broadcast frames long. Prints one JSON line per
+reading and writes them all to ``out.json`` when given.
 
 ``--cpu`` runs the same code on four CPU positions with gloo at C=1,024 (no
-kernels, no timing worth reading): a rehearsal of the control flow only.
+kernels, no graphs, no timing worth reading): a rehearsal of the control
+flow only.
 """
 
 from __future__ import annotations
@@ -114,21 +118,33 @@ def in_process(records):
     print(json.dumps(records[-1]), flush=True)
     for t, c in MESHES:
         mesh = make_mesh(t, c, devices())
-        fe = ShardedChannelizedFrontEnd(cfg, params, mesh)
-        chip_smoke.reset_counts()
-        outs = [fe.process_host(b) for b in blocks][1:] + [fe.flush()]
-        got = torch.cat([a.full(torch.device("cpu")).T for a, _ in outs])
-        counted = launches()
-        err, flips, fm_max = chip_smoke.audio_mismatch(
-            got, ref, fm, flip, chip_smoke.SHARDED_BOUND)
-        records.append({
-            "what": "one process", "mesh": [t, c], "channels": CHANNELS,
-            "launches": counted, "blocks": BLOCKS,
-            "max_audio_err": err, "fm_max": fm_max, "fm_flips": flips,
-            "peak": float(ref.abs().max()),
-            "ms_per_block": back_to_back(fe.process_host, blocks)})
-        print(json.dumps(records[-1]), flush=True)
-        del fe
+        audio = {}
+        for graph in (True, False):
+            fe = ShardedChannelizedFrontEnd(cfg, params, mesh, graph=graph)
+            chip_smoke.reset_counts()
+            got = []
+            for b in blocks + [None]:
+                out = fe.process_host(b) if b is not None else fe.flush()
+                if out is not None:  # joined now: a replay rewrites it
+                    got.append(out[0].full(torch.device("cpu")).T)
+            got = audio[graph] = torch.cat(got)
+            counted = launches()
+            err, flips, fm_max = chip_smoke.audio_mismatch(
+                got, ref, fm, flip, chip_smoke.SHARDED_BOUND)
+            records.append({
+                "what": "one process", "mesh": [t, c], "graph": graph,
+                "segmented": fe.segmented, "channels": CHANNELS,
+                "launches": counted, "blocks": BLOCKS,
+                "max_audio_err": err, "fm_max": fm_max, "fm_flips": flips,
+                "peak": float(ref.abs().max()),
+                "ms_per_block": back_to_back(fe.process_host, blocks),
+                "graph_stats": fe.graph_stats(),
+                "kernel_nodes_per_block": fe.graph_kernels_per_block()})
+            if not graph:
+                records[-1]["graph_bit_equal_to_eager"] = bool(
+                    torch.equal(audio[True], audio[False]))
+            print(json.dumps(records[-1]), flush=True)
+            del fe
 
 
 def worker(url: str, rank: int) -> None:
@@ -149,36 +165,39 @@ def worker(url: str, rank: int) -> None:
     mesh = make_mesh(2, 2, mine)
     lo, hi = multihost.host_time_slice(cfg.block_frames, mesh)
     blocks = chip_smoke.tone_blocks(4, seed=17)
-    fe = ShardedChannelizedFrontEnd(cfg, params, mesh)
     rows = list(range(0, CHANNELS, 7))  # every law (7 is prime to 4)
-    chip_smoke.reset_counts()
-    got = []
-    for b in blocks:
-        audio, _ = fe.process(multihost.make_global_block(
-            b[:, lo:hi], cfg.block_frames, mesh))
-        got.append(multihost.gather_to_host(audio.fetch_rows(rows), dim=-1))
-    counted = launches()
     _, ref_params = setup(mine[0])
     ref, _ = single_card(cfg, ref_params, blocks)
+    ref = ref[:, rows]
     import numpy as np
 
-    got = torch.from_numpy(np.concatenate(got, axis=1)).T
-    ref = ref[:, rows]
-    err, flips, fm_max = chip_smoke.audio_mismatch(
-        got, ref, params.mode[rows] == 1,
-        float(params.audio_coeff.abs().max()), chip_smoke.SHARDED_BOUND)
-    ms = back_to_back(lambda b: fe.process(multihost.make_global_block(
-        b[:, lo:hi], cfg.block_frames, mesh)), blocks)
-    blob = bytes(np.random.default_rng(3).integers(
-        0, 256, 3 * multihost.CONTROL_BLOB_BYTES, np.uint8))
-    same = multihost.broadcast_blob(blob if rank == 0 else None) == blob
-    print("RANK " + json.dumps({
-        "what": "two processes", "rank": rank, "devices": mine,
-        "mesh": [2, 2], "rows": [lo, hi], "channels": CHANNELS,
-        "launches": counted, "max_audio_err": err, "fm_max": fm_max,
-        "fm_flips": flips, "compared_rows": len(rows),
-        "peak": float(ref.abs().max()), "ms_per_block": ms,
-        "staged": fe.comm.staged, "blob_3_frames_ok": same}), flush=True)
+    for graph in (True, False):
+        fe = ShardedChannelizedFrontEnd(cfg, params, mesh, graph=graph)
+        chip_smoke.reset_counts()
+        got = []
+        for b in blocks:
+            audio, _ = fe.process(multihost.make_global_block(
+                b[:, lo:hi], cfg.block_frames, mesh))
+            got.append(multihost.gather_to_host(audio.fetch_rows(rows),
+                                                dim=-1))
+        counted = launches()
+        got = torch.from_numpy(np.concatenate(got, axis=1)).T
+        err, flips, fm_max = chip_smoke.audio_mismatch(
+            got, ref, params.mode[rows] == 1,
+            float(params.audio_coeff.abs().max()), chip_smoke.SHARDED_BOUND)
+        ms = back_to_back(lambda b: fe.process_host(b[:, lo:hi]), blocks)
+        blob = bytes(np.random.default_rng(3).integers(
+            0, 256, 3 * multihost.CONTROL_BLOB_BYTES, np.uint8))
+        same = multihost.broadcast_blob(blob if rank == 0 else None) == blob
+        print("RANK " + json.dumps({
+            "what": "two processes", "rank": rank, "devices": mine,
+            "mesh": [2, 2], "graph": graph, "rows": [lo, hi],
+            "channels": CHANNELS, "launches": counted, "max_audio_err": err,
+            "fm_max": fm_max, "fm_flips": flips, "compared_rows": len(rows),
+            "peak": float(ref.abs().max()), "ms_per_block": ms,
+            "staged": fe.comm.staged, "graph_stats": fe.graph_stats(),
+            "blob_3_frames_ok": same}), flush=True)
+        del fe
 
 
 def two_processes(records):
@@ -194,8 +213,9 @@ def two_processes(records):
         if p.returncode != 0 or not lines:
             raise AssertionError(f"rank {r}: rc {p.returncode}\n"
                                  f"{text[-3000:]}")
-        records.append(json.loads(lines[0].split(" ", 1)[1]))
-        print(json.dumps(records[-1]), flush=True)
+        for ln in lines:
+            records.append(json.loads(ln.split(" ", 1)[1]))
+            print(json.dumps(records[-1]), flush=True)
 
 
 def main(argv) -> int:

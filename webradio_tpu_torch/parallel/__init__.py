@@ -13,16 +13,16 @@ Two mesh axes (SURVEY §2.7):
 
 ``mesh`` builds the grid, ``comm`` moves the halos and carries (within a
 process, or across ranks of a ``torch.distributed`` group), ``sharded``
-and ``sharded_channelized`` are the two engines' sharded steps and
-``multihost`` the multi-process serving helpers.
+and ``sharded_channelized`` are the two engines' sharded pipelines,
+``graphs`` runs their blocks as CUDA graph replays and ``multihost`` holds
+the multi-process serving helpers.
 """
 
 from .mesh import make_mesh, mesh_shape_for
-from .sharded import ShardedFrontEnd, sharded_frontend_step
+from .sharded import ShardedFrontEnd
 
 __all__ = [
     "make_mesh",
     "mesh_shape_for",
     "ShardedFrontEnd",
-    "sharded_frontend_step",
 ]

@@ -1,6 +1,8 @@
 """The direct front-end step over a ``(time, chan)`` mesh (port of
-``webradio_tpu.parallel.sharded``), and the placement of values on a
-mesh's positions that both sharded engines share.
+``webradio_tpu.parallel.sharded``), and what both sharded engines share:
+the placement of values on a mesh's positions, their audio
+(:class:`ShardedAudio`) and their host pipeline (:class:`ShardedPipeline`,
+each block a round of CUDA graph replays, ``parallel.graphs``).
 
 The single-card step (:func:`..pipeline.frontend.frontend_step`) runs per
 shard with explicit halo exchange:
@@ -12,18 +14,20 @@ shard with explicit halo exchange:
   (lowpass.cxx:133-142, demodulator.cxx:110-111): ``K-1`` mixed input
   frames (channel-FIR history), the last channel-rate sample (FM
   discriminator) and ``K-1`` demodulated samples (audio-FIR history), each
-  moved by :meth:`.comm.Comm.shift_right`; shard 0 takes the carried block
-  state. The NCO phase is computed, not moved: ``(phase0 + shard_start *
-  step) mod 2^31``. The spectrum has no carry (whole FFT groups per
-  shard).
+  moved by :meth:`.comm.Comm.shift_right_into`; shard 0 takes the carried
+  block state. The NCO phase is computed, not moved: ``(phase0 +
+  shard_start * step) mod 2^31``. The spectrum has no carry (whole FFT
+  groups per shard).
 
 The next block's carries are the last time shard's
-(:meth:`.comm.Comm.from_last`), and the squelch gate reads the whole
-block's power (:meth:`.comm.Comm.mean_time`). Outputs stay on the
+(:meth:`.comm.Comm.from_last_into`), and the squelch gate reads the whole
+block's power (:meth:`.comm.Comm.mean_time_into`). Outputs stay on the
 positions that computed them (:class:`ShardedAudio`).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -31,8 +35,9 @@ import torch
 from ..ops.demod import demodulate
 from ..ops.fir import fir_dispatch, overlap_save_decimate
 from ..ops.nco import PHASE_MASK, nco_advance, nco_mix
-from ..ops.spectrum import spectrum_accumulate
-from ..pipeline.frontend import squelch_scale
+from ..ops.spectrum import spectrum_accumulate, spectrum_db
+from ..pipeline.frontend import HostPipeline, squelch_scale
+from ..pipeline.graph import CudaStepGraph, carry, fields, layout, same_shapes
 from ..pipeline.state import (
     ChainConfig,
     FrontEndParams,
@@ -42,6 +47,7 @@ from ..pipeline.state import (
     init_state,
 )
 from .comm import Comm
+from .graphs import BlockProgram, Local, Move
 from .mesh import Mesh
 
 #: the channel axis of each field (None: replicated on every position)
@@ -73,15 +79,28 @@ def place(nt, axes, mesh: Mesh, c_local: int) -> dict:
     return out
 
 
+def distinct(placed: dict) -> list[int]:
+    """One position for each distinct placed value (positions of one
+    column on one device share theirs)."""
+    seen, out = set(), []
+    for p, value in placed.items():
+        key = tuple(t.data_ptr() for t in fields(value) if t is not None)
+        if key not in seen:
+            seen.add(key)
+            out.append(p)
+    return out
+
+
 def gather_columns(placed: dict, axes, mesh: Mesh, device) -> tuple:
-    """The named tuple again, whole, on ``device``: the columns of this
-    rank's first time row joined on their channel axes."""
+    """The named tuple again, whole, on ``device`` (a copy of its own):
+    the columns of this rank's first time row joined on their channel
+    axes."""
     row = mesh.local_rows[0]
     cols = [placed[row * mesh.chan + c] for c in range(mesh.chan)]
     first = cols[0]
     return type(first)(*(
         None if x is None else
-        (x.to(device) if ax is None else
+        (x.to(device, copy=True) if ax is None else
          torch.cat([col[i].to(device) for col in cols], dim=ax))
         for i, (x, ax) in enumerate(zip(first, axes))))
 
@@ -116,13 +135,67 @@ def _wait(devices) -> None:
         event.synchronize()
 
 
+@functools.lru_cache(maxsize=256)
+def _row_index(rows: tuple, device: torch.device) -> torch.Tensor:
+    """``rows`` as an index on ``device``, copied from pinned memory
+    without a wait (kept: the subscribed rows change rarely)."""
+    idx = torch.tensor(rows, dtype=torch.int64)
+    if device.type != "cuda":
+        return idx
+    return idx.pin_memory().to(device, non_blocking=True)
+
+
+class SelectedRows:
+    """Some channels of a :class:`ShardedAudio`, copied out of its pieces
+    on their devices (one ``index_select`` a piece, in stream order, so
+    the pieces may be rewritten after it); :meth:`to_host` brings them to
+    the host."""
+
+    def __init__(self, audio: ShardedAudio, rows):
+        m = audio.mesh
+        by_col: dict[int, list] = {}
+        for k, r in enumerate(rows):
+            by_col.setdefault(r // audio.c_local, []).append(
+                (k, r % audio.c_local))
+        self.shape = (len(audio.blocks), len(rows),
+                      len(m.local_rows) * audio.af_local)
+        self.af_local = audio.af_local
+        self.picks = []
+        for b, pieces in enumerate(audio.blocks):
+            for i, t in enumerate(m.local_rows):
+                for c, picks in by_col.items():
+                    piece = pieces[t * m.chan + c]
+                    src = piece.T if audio.time_major else piece
+                    idx = _row_index(tuple(j for _, j in picks),
+                                     piece.device)
+                    self.picks.append((b, i, [k for k, _ in picks],
+                                       src.index_select(0, idx)))
+
+    def to_host(self) -> np.ndarray:
+        """``[k, af]`` for one block, ``[blocks, k, af]`` for several: one
+        copy into pinned memory a piece, then one wait a device."""
+        out = np.empty(self.shape, np.float32)
+        copies, devs = [], []
+        for b, i, ks, sel in self.picks:
+            cuda = sel.device.type == "cuda"
+            host = torch.empty(sel.shape, dtype=sel.dtype, pin_memory=cuda)
+            host.copy_(sel, non_blocking=cuda)
+            copies.append((b, i, ks, host))
+            devs.append(sel.device)
+        _wait(devs)
+        af = self.af_local
+        for b, i, ks, host in copies:
+            out[b, ks, i * af:(i + 1) * af] = host.numpy()
+        return out[0] if self.shape[0] == 1 else out
+
+
 class ShardedAudio:
     """The audio of one block, or of a catch-up's blocks, as the shards
     made it: one piece per block and local position, on that position's
     device, ``[c_local, af_local]`` or (``time_major``) ``[af_local,
     c_local]``. Nothing joins the pieces on one device unless asked
-    (:meth:`full`); the server fetches the subscribed rows only
-    (:meth:`fetch_rows`)."""
+    (:meth:`full`); the server takes the subscribed rows only
+    (:meth:`select_rows`, :meth:`fetch_rows`)."""
 
     def __init__(self, mesh: Mesh, blocks: list, time_major: bool):
         self.mesh = mesh
@@ -133,39 +206,14 @@ class ShardedAudio:
             piece.shape[::-1] if time_major else piece.shape)
         self.channels = self.c_local * mesh.chan
 
+    def select_rows(self, rows) -> SelectedRows:
+        """The channels ``rows``, copied on the devices."""
+        return SelectedRows(self, rows)
+
     def fetch_rows(self, rows) -> np.ndarray:
         """This rank's time shards of the channels ``rows`` on the host:
-        ``[k, af]`` for one block, ``[blocks, k, af]`` for several. One
-        ``index_select`` and one copy into pinned memory per piece, then one
-        wait per device."""
-        m = self.mesh
-        by_col: dict[int, list] = {}
-        for k, r in enumerate(rows):
-            by_col.setdefault(r // self.c_local, []).append(
-                (k, r % self.c_local))
-        n_rows = len(m.local_rows)
-        out = np.empty((len(self.blocks), len(rows),
-                        n_rows * self.af_local), np.float32)
-        copies, devs = [], []
-        for b, pieces in enumerate(self.blocks):
-            for i, t in enumerate(m.local_rows):
-                for c, picks in by_col.items():
-                    piece = pieces[t * m.chan + c]
-                    src = piece.T if self.time_major else piece
-                    idx = torch.tensor([j for _, j in picks],
-                                       device=piece.device)
-                    sel = src.index_select(0, idx)
-                    cuda = sel.device.type == "cuda"
-                    host = torch.empty(sel.shape, dtype=sel.dtype,
-                                       pin_memory=cuda)
-                    host.copy_(sel, non_blocking=cuda)
-                    copies.append((b, i, [k for k, _ in picks], host))
-                    devs.append(sel.device)
-        _wait(devs)
-        af = self.af_local
-        for b, i, ks, host in copies:
-            out[b, ks, i * af:(i + 1) * af] = host.numpy()
-        return out[0] if len(self.blocks) == 1 else out
+        ``[k, af]`` for one block, ``[blocks, k, af]`` for several."""
+        return self.select_rows(rows).to_host()
 
     def write_into(self, out: torch.Tensor, block: int = 0) -> None:
         """Copy one block's audio, this rank's time shards, into ``out``
@@ -199,70 +247,273 @@ def gather_spectra(spectra: dict, mesh: Mesh, device) -> torch.Tensor:
                       for t in mesh.local_rows], dim=1)
 
 
+# ---- the host pipeline of both engines -----------------------------------
+def _copied_into(placed: dict, new: dict) -> dict:
+    """``new`` copied into ``placed`` (once per distinct value) where every
+    position has the same layout, and ``placed`` kept; else ``new``."""
+    if not all(same_shapes(placed[p], new[p]) for p in new):
+        return new
+    for p in distinct(placed):
+        carry(placed[p], new[p])
+    return placed
+
+
+class ShardedPipeline(HostPipeline):
+    """A sharded engine on :class:`..pipeline.frontend.HostPipeline`'s
+    contract (``process_host``, ``process_host_many``, ``flush``,
+    ``process_host_sync``, ``reset``, ``load_state``, ``update_params``),
+    plus :meth:`process`. Per-block audio is a :class:`ShardedAudio`;
+    ``latest_db`` is this rank's last time shard's last spectrum row.
+    ``device`` is the device of this rank's last position.
+
+    The parameters and state are placed per position once and kept in
+    those tensors: a parameter set of the same layout is copied into them
+    (:meth:`update_params`), the carries are written into the state's
+    (:meth:`load_state` copies too). Each block is a
+    :class:`.graphs.BlockProgram` round on one of two slots: on the card
+    the graph replays of its stages (one graph a block where every local
+    position is on one device and no process group runs the moves, else
+    a graph a device and segment with the moves between replays:
+    ``segmented``), on the CPU or with ``graph=False`` the stages run
+    eagerly. The audio pieces and spectra handed back for a block are the
+    slot's outputs, rewritten two blocks on: a caller that keeps them
+    longer copies them. A program is made anew where :meth:`graph_key`
+    changes (the configuration, the body, the address of a placed
+    parameter or state tensor); its first block is an eager warm, then
+    both slots are captured. ``graph_stats()`` counts what the graphs did
+    over every device (one replay a block, its kernels summed over the
+    round's graphs)."""
+
+    #: the body: time-major audio pieces ``[af_local, c_local]``
+    time_major = False
+
+    def __init__(self, cfg, params, mesh: Mesh, comm: Comm | None = None,
+                 graph: bool = True, _segmented: bool | None = None):
+        self.mesh = mesh
+        self.c_local = cfg.num_channels // mesh.chan
+        self.comm = comm or Comm(mesh)
+        devices = {mesh.devices[p] for p in mesh.local_positions}
+        #: a graph a device and segment, the moves between replays (else
+        #: one graph a block); a test may force it
+        self.segmented = (len(devices) > 1 or self.comm.grouped
+                          if _segmented is None else _segmented)
+        self._devices = devices
+        self._streams: dict = {}
+        self._program: BlockProgram | None = None
+        self._last = mesh.local_rows[-1] * mesh.chan
+        super().__init__(cfg, params, mesh.devices[mesh.local_positions[-1]],
+                         graph)
+        self._placed = self._place_params(params)
+
+    def _place_params(self, params) -> dict:
+        raise NotImplementedError
+
+    def _stages(self) -> list:
+        raise NotImplementedError
+
+    # ---- parameters and state --------------------------------------
+    def update_params(self, params) -> None:
+        """Take a whole new parameter set (on any device) at the next
+        block: each shard's columns copied into its placed tensors where
+        the layout is the same, else placed anew (the next block captures
+        again)."""
+        self._placed = _copied_into(self._placed, self._place_params(params))
+        self.params = params
+
+    def load_state(self, state: dict) -> None:
+        """Carry a placed state in: copied into the persistent buffers
+        where it has their shapes, else taking their place."""
+        self.state = _copied_into(self.state, state)
+
+    # ---- graphs -------------------------------------------------------
+    def graphed(self) -> bool:
+        return self.use_graph and (
+            all(d.type == "cuda" for d in self._devices)
+            or self.graph_class is not CudaStepGraph)
+
+    def graph_key(self) -> tuple:
+        pos = self.mesh.local_positions
+        return (self.cfg, self.mesh, self.time_major, self.segmented,
+                layout(tuple(self._placed[p] for p in pos)),
+                layout(tuple(self.state[p] for p in pos)))
+
+    def graph_kernels_per_block(self) -> int:
+        return self._program.kernels_per_block if self._program else 0
+
+    def capture_stream(self, dev: torch.device):
+        """The side stream of ``dev`` that warms and captures (None on the
+        CPU)."""
+        if dev not in self._streams:
+            self._streams[dev] = (torch.cuda.Stream(dev)
+                                  if dev.type == "cuda" else None)
+        return self._streams[dev]
+
+    # ---- blocks --------------------------------------------------------
+    def _run(self, block) -> dict:
+        """One block (this rank's ``[2, frames]``, numpy or tensor, or a
+        block placed on the mesh) through the program of the current key:
+        the slot's outputs (``audio`` and ``spectra`` per position,
+        ``latest`` and ``latest_db`` at this rank's last time row)."""
+        key = self.graph_key()
+        if self._program is None or self._program.key != key:
+            self._program = BlockProgram(self, key, self._stages(),
+                                         self.graphed(), self.segmented)
+        program = self._program
+        return program.run(self, program.fill(self, block))
+
+    def process(self, iq):
+        """One block -> ``(ShardedAudio, spectra [2, groups, fft])``."""
+        out = self._run(iq)
+        return (ShardedAudio(self.mesh, [out["audio"]], self.time_major),
+                gather_spectra(out["spectra"], self.mesh, self.device))
+
+    def process_host(self, iq_planes):
+        """``iq_planes``: this rank's ``[2, frames]`` float32 (numpy), or a
+        block placed on the mesh (``multihost.make_global_block``)."""
+        out = self._run(iq_planes)
+        return self._swap_pending(
+            ShardedAudio(self.mesh, [out["audio"]], self.time_major),
+            out["latest_db"][self._last])
+
+    def process_host_many(self, blocks):
+        """Catch-up: ``[k, 2, frames]`` block by block; the audio handed
+        back holds the ``k`` blocks, each a copy of its own (a slot's
+        outputs are rewritten two blocks on)."""
+        kept = []
+        for block in blocks:
+            out = self._run(block)
+            kept.append({p: a.clone() for p, a in out["audio"].items()})
+        return self._swap_pending(
+            ShardedAudio(self.mesh, kept, self.time_major),
+            out["latest_db"][self._last])
+
+
+# ---- the stages both bodies share ----------------------------------------
+def shift(name: str) -> Move:
+    """The move of halo ``name``: each position's left neighbour's."""
+    def fn(ws):
+        ws.comm.shift_right_into(ws.sent(name), ws.recv(name))
+    return Move(fn)
+
+
+def _gate_and_carry_moves(ws) -> None:
+    ws.comm.mean_time_into(ws.sent("power"), ws.recv("power"))
+    ws.comm.from_last_into(ws.sent("carries"), ws.recv("carries"))
+
+
+#: the whole block's squelch power and the last time shard's carries
+FINISH_MOVE = Move(_gate_and_carry_moves)
+
+
+def spectra_out(ws, p: int, iq: torch.Tensor) -> None:
+    """A time row's spectra into the slot's outputs, and at this rank's
+    last row the latest row, raw and in dB."""
+    spectra = spectrum_accumulate(iq, ws.cfg.fft_size)
+    ws.output("spectra", p, spectra)
+    if p == ws.mesh.local_rows[-1] * ws.mesh.chan:
+        raw = spectra[:, -1, :]
+        ws.output("latest", p, raw)
+        ws.output("latest_db", p, spectrum_db(raw))
+
+
+def gated_audio_out(ws, pos, rx, time_major: bool) -> None:
+    """Each position's audio, gated on the whole block's power, into the
+    slot's outputs (``rx`` picks the receiver fields of a parameter
+    set)."""
+    power = ws.recv("power")
+    for p in pos:
+        prm = rx(ws.params[p])
+        scale = squelch_scale(power[p][0], prm.af_gain, prm.squelch)
+        ws.output("audio", p, ws.audio[p] * (scale[None, :] if time_major
+                                             else scale[:, None]))
+
+
+def fir_stages(rx, fir, chan_decim) -> list:
+    """The stages after the mix that the direct body and the channelized
+    stage body share, each halo moved from its materialized output: the
+    channel FIR (``chan_decim(cfg)``; the shaping FIR), the demodulator
+    and the audio FIR on ``ws.mixed`` into ``ws.audio``, with the power
+    and the carries ``ws.carries_head + [chan_hist, prev, audio_hist]``
+    sent. ``rx`` picks the receiver fields of a parameter set or state;
+    ``fir(cfg, x, coeff, toep, decim, hist)``."""
+    def channel(ws, pos):
+        cfg = ws.cfg
+        for p in pos:
+            prm, st = rx(ws.params[p]), rx(ws.state[p])
+            halo = ws.recv("mixed").get(p)
+            ws.chan[p], ws.chan_hist[p] = fir(
+                cfg, ws.mixed[p], prm.chan_coeff, prm.chan_toep,
+                chan_decim(cfg), st.chan_hist if halo is None else halo[0])
+            ws.send("chan", p, [ws.chan[p][:, :, -1]])
+
+    def demod(ws, pos):
+        k = ws.cfg.fir_length
+        for p in pos:
+            prm, st = rx(ws.params[p]), rx(ws.state[p])
+            halo = ws.recv("chan").get(p)
+            ws.audio_if[p], ws.prev[p] = demodulate(
+                ws.chan[p], prm.mode,
+                st.demod_prev if halo is None else halo[0])
+            ws.send("audio_if", p, [ws.audio_if[p][:, -(k - 1):]])
+
+    def audio(ws, pos):
+        cfg = ws.cfg
+        for p in pos:
+            prm, st = rx(ws.params[p]), rx(ws.state[p])
+            halo = ws.recv("audio_if").get(p)
+            ws.audio[p], audio_hist = fir(
+                cfg, ws.audio_if[p], prm.audio_coeff, prm.audio_toep,
+                cfg.audio_decim, st.audio_hist if halo is None else halo[0])
+            chan = ws.chan[p]
+            ws.send("power", p, [(chan[0] ** 2 + chan[1] ** 2).mean(dim=-1)])
+            ws.send("carries", p, ws.carries_head.get(p, []) + [
+                ws.chan_hist[p], ws.prev[p], audio_hist])
+
+    return [shift("mixed"), Local(channel), shift("chan"), Local(demod),
+            shift("audio_if"), Local(audio), FINISH_MOVE]
+
+
 # ---- the direct engine ---------------------------------------------------
-def _shard_body(cfg: ChainConfig, mesh: Mesh, comm: Comm, params: dict,
-                state: dict, iq: dict):
-    c_n = mesh.chan
-    n_local = cfg.block_frames // mesh.time
+def _direct_fir(cfg, x, coeff, toep, decim, hist):
+    if cfg.use_overlap_save:
+        return overlap_save_decimate(x, coeff, decim, hist)
+    return fir_dispatch(x, coeff, toep, decim, hist)
+
+
+def _direct_mix(ws, pos):
+    """The spectrum and each position's NCO mix (closed-form start phase
+    per shard, no communication)."""
+    cfg, m = ws.cfg, ws.mesh
+    n_local = cfg.block_frames // m.time
     k = cfg.fir_length
-    pos = mesh.local_positions
-    rxp = {p: params[p].rx for p in pos}
-    rxs = {p: state[p].rx for p in pos}
-
-    def fir(x, coeff, toep, decim, hist):
-        if cfg.use_overlap_save:
-            return overlap_save_decimate(x, coeff, decim, hist)
-        return fir_dispatch(x, coeff, toep, decim, hist)
-
-    spectra = {p: spectrum_accumulate(iq[p], cfg.fft_size)
-               for p in pos if p % c_n == 0}
-    # NCO: closed-form start phase per shard, no communication
-    mixed = {}
     for p in pos:
-        start = (p // c_n) * n_local
-        phase = (rxs[p].nco_phase + start * rxp[p].phase_step) & PHASE_MASK
-        mixed[p] = nco_mix(iq[p][:, None, :], phase, rxp[p].phase_step)
+        rxp, rxs, iq = ws.params[p].rx, ws.state[p].rx, ws.iq[p]
+        if p % m.chan == 0:
+            spectra_out(ws, p, iq)
+        start = (p // m.chan) * n_local
+        phase = (rxs.nco_phase + start * rxp.phase_step) & PHASE_MASK
+        ws.mixed[p] = nco_mix(iq[:, None, :], phase, rxp.phase_step)
+        ws.send("mixed", p, [ws.mixed[p][:, :, -(k - 1):]])
 
-    # channel FIR: history halo = the left neighbour's last K-1 mixed frames
-    halo = comm.shift_right({p: [mixed[p][:, :, -(k - 1):]] for p in pos})
-    chan, chan_hist = {}, {}
-    for p in pos:
-        hist = rxs[p].chan_hist if halo[p] is None else halo[p][0]
-        chan[p], chan_hist[p] = fir(mixed[p], rxp[p].chan_coeff,
-                                    rxp[p].chan_toep, cfg.chan_decim, hist)
 
-    # demod: the previous-sample halo at the channel rate
-    halo = comm.shift_right({p: [chan[p][:, :, -1]] for p in pos})
-    audio_if, prev = {}, {}
-    for p in pos:
-        before = rxs[p].demod_prev if halo[p] is None else halo[p][0]
-        audio_if[p], prev[p] = demodulate(chan[p], rxp[p].mode, before)
+def _direct_finish(ws, pos):
+    """Gate every shard on the whole block's power; the next block's
+    carries (the last time shard's) into the state, once per copy."""
+    gated_audio_out(ws, pos, lambda x: x.rx, time_major=False)
+    new = ws.recv("carries")
+    for p in distinct({p: ws.state[p] for p in pos}):
+        rxs, rxp = ws.state[p].rx, ws.params[p].rx
+        chan_hist, prev, audio_hist = new[p]
+        carry(rxs, ReceiverState(
+            nco_phase=nco_advance(rxs.nco_phase, rxp.phase_step,
+                                  ws.cfg.block_frames),
+            chan_hist=chan_hist, demod_prev=prev, audio_hist=audio_hist))
 
-    # audio FIR: history halo at the channel rate
-    halo = comm.shift_right({p: [audio_if[p][:, -(k - 1):]] for p in pos})
-    audio, audio_hist, power = {}, {}, {}
-    for p in pos:
-        hist = rxs[p].audio_hist if halo[p] is None else halo[p][0]
-        audio[p], audio_hist[p] = fir(audio_if[p], rxp[p].audio_coeff,
-                                      rxp[p].audio_toep, cfg.audio_decim,
-                                      hist)
-        power[p] = [(chan[p][0] ** 2 + chan[p][1] ** 2).mean(dim=-1)]
 
-    # the whole block's gate power, so every time shard of a channel gates
-    # as the single-card step does
-    power = comm.mean_time(power)
-    new = comm.from_last({p: [chan_hist[p], prev[p], audio_hist[p]]
-                          for p in pos})
-    new_state = {}
-    for p in pos:
-        audio[p] = audio[p] * squelch_scale(
-            power[p][0], rxp[p].af_gain, rxp[p].squelch)[:, None]
-        new_state[p] = FrontEndState(rx=ReceiverState(
-            nco_phase=nco_advance(rxs[p].nco_phase, rxp[p].phase_step,
-                                  cfg.block_frames),
-            chan_hist=new[p][0], demod_prev=new[p][1],
-            audio_hist=new[p][2]))
-    return new_state, audio, spectra
+DIRECT_STAGES = ([Local(_direct_mix)]
+                 + fir_stages(lambda x: x.rx, _direct_fir,
+                              lambda cfg: cfg.chan_decim)
+                 + [Local(_direct_finish)])
 
 
 def check_direct_mesh(cfg: ChainConfig, mesh: Mesh) -> None:
@@ -278,49 +529,31 @@ def check_direct_mesh(cfg: ChainConfig, mesh: Mesh) -> None:
         raise ValueError("num_channels must divide over chan shards")
 
 
-def sharded_frontend_step(cfg: ChainConfig, mesh: Mesh,
-                          comm: Comm | None = None):
-    """The sharded direct step for a mesh: ``step(params, state, iq) ->
-    (state, audio, spectra)`` over values placed on the mesh's local
-    positions (:func:`place`, :func:`place_block`): audio per position
-    ``[c_local, af_local]``, spectra per time row ``[2, groups, fft]``."""
-    check_direct_mesh(cfg, mesh)
-    comm = comm or Comm(mesh)
-
-    def step(params, state, iq):
-        return _shard_body(cfg, mesh, comm, params, state, iq)
-
-    return step
-
-
-def _place_params(params: FrontEndParams, mesh: Mesh, c_local: int):
-    return {p: FrontEndParams(rx=rx) for p, rx in place(
-        params.rx, RECEIVER_PARAMS_AXES, mesh, c_local).items()}
-
-
-class ShardedFrontEnd:
-    """Mesh-aware counterpart of ``FrontEndPipeline``: ``process(iq)`` runs
-    one block (``[2, frames]`` of this rank's time slice, numpy or tensor)
-    and returns ``(ShardedAudio, spectra [2, groups, fft])``."""
+class ShardedFrontEnd(ShardedPipeline):
+    """Mesh-aware counterpart of ``FrontEndPipeline`` (the stages of
+    :data:`DIRECT_STAGES`): ``process(iq)`` runs one block (``[2, frames]``
+    of this rank's time slice, numpy or tensor) and returns
+    ``(ShardedAudio, spectra [2, groups, fft])``; audio pieces ``[c_local,
+    af_local]``."""
 
     def __init__(self, cfg: ChainConfig, params: FrontEndParams, mesh: Mesh,
-                 comm: Comm | None = None):
-        self.cfg = cfg
-        self.mesh = mesh
-        self.c_local = cfg.num_channels // mesh.chan
-        self.device = mesh.devices[mesh.local_positions[-1]]
-        self._step = sharded_frontend_step(cfg, mesh, comm)
-        self.update_params(params)
-        self.reset()
+                 comm: Comm | None = None, graph: bool = True,
+                 _segmented: bool | None = None):
+        check_direct_mesh(cfg, mesh)
+        super().__init__(cfg, params, mesh, comm, graph, _segmented)
 
-    def update_params(self, params: FrontEndParams) -> None:
-        self.params = params
-        self._placed = _place_params(params, self.mesh, self.c_local)
+    def _place_params(self, params: FrontEndParams) -> dict:
+        return {p: FrontEndParams(rx=rx) for p, rx in place(
+            params.rx, RECEIVER_PARAMS_AXES, self.mesh,
+            self.c_local).items()}
 
-    def reset(self) -> None:
+    def _init_state(self) -> dict:
         zero = init_state(self.cfg, "cpu").rx
-        self.state = {p: FrontEndState(rx=rx) for p, rx in place(
+        return {p: FrontEndState(rx=rx) for p, rx in place(
             zero, RECEIVER_STATE_AXES, self.mesh, self.c_local).items()}
+
+    def _stages(self) -> list:
+        return DIRECT_STAGES
 
     def gathered_state(self, device=None) -> FrontEndState:
         """The carried state, whole, on ``device`` (default: the front
@@ -328,10 +561,3 @@ class ShardedFrontEnd:
         rx = {p: s.rx for p, s in self.state.items()}
         return FrontEndState(rx=gather_columns(
             rx, RECEIVER_STATE_AXES, self.mesh, device or self.device))
-
-    def process(self, iq):
-        if not isinstance(iq, dict):
-            iq = place_block(iq, self.mesh, self.cfg.block_frames)
-        self.state, audio, spectra = self._step(self._placed, self.state, iq)
-        return (ShardedAudio(self.mesh, [audio], time_major=False),
-                gather_spectra(spectra, self.mesh, self.device))

@@ -72,6 +72,47 @@ def layout(x) -> tuple:
                  for t in fields(x))
 
 
+def shapes(x) -> tuple:
+    """Shape, type and device of every tensor of ``x`` (its layout without
+    the addresses)."""
+    return tuple(None if t is None else (tuple(t.shape), t.dtype, t.device)
+                 for t in fields(x))
+
+
+def clone_tree(x):
+    """A copy of a (nested) NamedTuple of tensors, each tensor its own."""
+    if isinstance(x, tuple):
+        return type(x)(*(clone_tree(v) for v in x))
+    return None if x is None else x.clone()
+
+
+class Kept:
+    """A few pipelines kept between offline runs, by key (most recent
+    last): the counterpart of the JAX package's ``lru_cache`` of its
+    compiled scans. A pipeline is taken out while a run uses it (two runs
+    of one key at once get two pipelines) and put back after; past
+    ``size`` the oldest goes, and with it its graphs' memory."""
+
+    def __init__(self, size: int):
+        self.size = size
+        self.entries: collections.OrderedDict = collections.OrderedDict()
+        self._lock = threading.Lock()
+
+    def take(self, key):
+        with self._lock:
+            return self.entries.pop(key, None)
+
+    def put(self, key, pipe) -> None:
+        with self._lock:
+            self.entries[key] = pipe
+            while len(self.entries) > self.size:
+                self.entries.popitem(last=False)
+
+    def clear(self) -> None:
+        with self._lock:
+            self.entries.clear()
+
+
 def same_shapes(a, b) -> bool:
     """Whether ``b`` can be copied into ``a`` tensor by tensor (the same
     fields, None in the same places, each tensor of the same shape, type
@@ -140,9 +181,9 @@ class CudaStepGraph(StepGraph):
                     graph.capture_end()  # the capture is invalid anyway
                 raise
             graph.capture_end()
-        self.kernel_nodes, self.copy_nodes = graph_node_counts(
-            graph.raw_cuda_graph())
-        graph.instantiate()
+            self.kernel_nodes, self.copy_nodes = graph_node_counts(
+                graph.raw_cuda_graph())
+            graph.instantiate()  # on the stream's device
         self.graph = graph
 
     def _replay(self) -> None:

@@ -2,15 +2,19 @@
 ``webradio_tpu.pipeline.stream``, both engines).
 
 The JAX package scans a recorded capture with ``lax.scan`` over the same
-step the live server uses, one dispatch for the whole scan. Here each
-runner drives a pipeline of the engine (``ChannelizedPipeline`` /
-``FrontEndPipeline``) block by block through ``step_device``, so offline
-and live paths run the same step, kernels and graphs in the same order: on
-the card each block is a copy into the pipeline's graph input and one
-graph replay (``pipeline.graph.ServingGraphs``, captured once per call
-after one eager block), then a copy of its outputs into the result made
-before the loop; on the CPU (or with ``graph=False``) the eager in-place
-step runs block by block.
+step the live server uses, one dispatch for the whole scan, and caches the
+compiled scan per configuration. Here each runner drives a pipeline of the
+engine (``ChannelizedPipeline`` / ``FrontEndPipeline``) block by block
+through ``step_device``, so offline and live paths run the same step,
+kernels and graphs in the same order: on the card each block is a copy
+into the pipeline's graph input and one graph replay
+(``pipeline.graph.ServingGraphs``), then a copy of its outputs into the
+result made before the loop; on the CPU (or with ``graph=False``) the
+eager in-place step runs block by block. A few pipelines are kept between
+calls (:data:`KEPT`, by engine, configuration and parameter layout), each
+with a copy of the parameters of its own: a later call of the same kind
+copies its parameters and state into one and replays its graphs, with no
+warm and no capture.
 """
 
 from __future__ import annotations
@@ -19,17 +23,30 @@ import torch
 
 from .channelized import ChannelizedConfig, ChannelizedPipeline
 from .frontend import FrontEndPipeline
+from .graph import Kept, clone_tree, shapes
 from .state import ChainConfig, FrontEndParams, FrontEndState
+
+#: the pipelines kept between calls
+KEPT = Kept(2)
 
 
 def _pipeline(cfg, params, state, graph: bool):
-    """A pipeline of ``cfg``'s engine starting from a copy of ``state``
-    (None: the init state)."""
-    pipe = (ChannelizedPipeline if isinstance(cfg, ChannelizedConfig)
-            else FrontEndPipeline)(cfg, params, graph)
+    """``(key, pipeline)``: a pipeline of ``cfg``'s engine holding
+    ``params`` and a copy of ``state`` (None: the init state), taken out of
+    the kept ones where one matches, else made with a copy of ``params`` of
+    its own (later calls copy theirs into it); ``KEPT.put`` puts it
+    back."""
+    key = (cfg, graph, shapes(params))
+    pipe = KEPT.take(key)
+    if pipe is None:
+        pipe = (ChannelizedPipeline if isinstance(cfg, ChannelizedConfig)
+                else FrontEndPipeline)(cfg, clone_tree(params), graph)
+    else:
+        pipe.update_params(params)
+    pipe.reset()
     if state is not None:
         pipe.load_state(state)
-    return pipe
+    return key, pipe
 
 
 def _run(cfg, params, state, iq: torch.Tensor, graph: bool):
@@ -40,7 +57,7 @@ def _run(cfg, params, state, iq: torch.Tensor, graph: bool):
     n_blocks = iq.shape[-1] // bf
     if n_blocks == 0:
         raise ValueError("capture shorter than one block")
-    pipe = _pipeline(cfg, params, state, graph)
+    key, pipe = _pipeline(cfg, params, state, graph)
     af = cfg.audio_frames
     audio = torch.empty((cfg.num_channels, n_blocks * af),
                         dtype=torch.float32, device=iq.device)
@@ -51,7 +68,9 @@ def _run(cfg, params, state, iq: torch.Tensor, graph: bool):
         audio[:, b * af:(b + 1) * af].copy_(
             a.T if pipe.audio_time_major else a)
         latest[b].copy_(raw)
-    return pipe.state, audio, latest
+    final = clone_tree(pipe.state)
+    KEPT.put(key, pipe)
+    return final, audio, latest
 
 
 def run_capture(
@@ -102,6 +121,8 @@ def scan_serving(cfg, params, state, blocks: torch.Tensor, mode_set=None,
     before any reader saw them). ``mode_set`` is accepted for signature
     parity.
     """
-    pipe = _pipeline(cfg, params, state, graph)
+    key, pipe = _pipeline(cfg, params, state, graph)
     audio, latest_db = pipe.step_blocks(blocks)
-    return pipe.state, audio, latest_db
+    out = clone_tree(pipe.state), audio, latest_db.clone()
+    KEPT.put(key, pipe)
+    return out

@@ -61,7 +61,7 @@ from .pipeline.channelized import (
 )
 from .parallel import mesh as pmesh
 from .parallel import multihost as phost
-from .parallel.sharded import ShardedAudio
+from .parallel.sharded import SelectedRows, ShardedAudio
 from .parallel.sharded_channelized import ShardedChannelizedFrontEnd
 from .pipeline.frontend import FrontEndPipeline
 from .pipeline.state import ChainConfig, grow_state, make_receiver_params
@@ -140,12 +140,10 @@ def _gather_rows(audio: torch.Tensor, rows, time_major: bool = False,
 def _rows_to_host(sel) -> np.ndarray:
     """Gathered rows on the host: ONE copy into pinned host memory, then a
     wait on a CUDA event recorded after it, in the calling (fan-out)
-    thread. A sharded engine's audio
-    (:class:`.parallel.sharded.ShardedAudio`) is a ``(audio, rows)`` pair
-    whose rows are fetched from its pieces where they lie."""
-    if isinstance(sel, tuple):
-        audio, rows = sel
-        return audio.fetch_rows(rows)
+    thread. A sharded engine's rows
+    (:class:`.parallel.sharded.SelectedRows`) come from their devices."""
+    if isinstance(sel, SelectedRows):
+        return sel.to_host()
     if sel.device.type != "cuda":
         return sel.numpy()
     host = torch.empty(sel.shape, dtype=sel.dtype, pin_memory=True)
@@ -779,9 +777,8 @@ class FrontEnd:
                  "[%d, %d) of %d)", self.uuid, rank, size, lo, hi,
                  self.cfg.block_frames)
         t0 = time.perf_counter()
-        out = pipe.process_host_sync(phost.make_global_block(
-            np.zeros((2, hi - lo), np.float32), self.cfg.block_frames,
-            pipe.mesh))
+        # on the card: the warm block, then the graphs' captures
+        out = pipe.process_host_sync(np.zeros((2, hi - lo), np.float32))
         phost.gather_to_host(out[1][None])  # the gather path, warm
         phost.gather_to_host(out[0].fetch_rows([0]), dim=-1)
         pipe.reset()
@@ -883,8 +880,7 @@ class FrontEnd:
         lo, hi = self._mh_slice
         planes = _to_planes(block)[:, lo:hi]
         t0 = time.perf_counter_ns()
-        out = self.pipeline.process_host(phost.make_global_block(
-            planes, self.cfg.block_frames, self.pipeline.mesh))
+        out = self.pipeline.process_host(planes)
         self.block_count += 1
         self._maybe_sample(t0)
         if out is not None:
@@ -1114,7 +1110,7 @@ class FrontEnd:
         replay two blocks on rewrites both). Returns ``[(gathered, rows)]``
         for the fan-out, empty with no consumer (the reference's
         zero-consumer no-op, audiostream.cxx:67-68). A sharded engine's
-        audio is not rewritten: its rows are fetched in the fan-out."""
+        rows are copied out of its pieces on their devices."""
         from .web.audiostream import AudioStreamManager
 
         audio, latest_db = out
@@ -1138,7 +1134,7 @@ class FrontEnd:
         if not rows:
             return []
         if isinstance(audio, ShardedAudio):
-            return [((audio, rows), rows)]
+            return [(audio.select_rows(rows), rows)]
         if self._rows_on_device[:2] != (rows, audio.device):
             self._rows_on_device = (rows, audio.device,
                                     _row_index(rows, audio.device))
