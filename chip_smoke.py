@@ -2308,8 +2308,10 @@ class PumpWatch:
 
     @staticmethod
     def dropped(fe):
-        return fe.ring.dropped_blocks + getattr(fe.tuner.source,
-                                                "dropped_blocks", 0)
+        """The front end's drops (its ring's, and the blocks a multihost
+        round passed over) and its source's."""
+        return fe.dropped_blocks + getattr(fe.tuner.source,
+                                           "dropped_blocks", 0)
 
     def mark(self, label):
         self.marks.append((time.monotonic(), label))
@@ -2878,8 +2880,21 @@ SHARDED_BLOCKS = 8  # blocks through each sharded run
 SHARDED_BOUND = 3e-6  # sharded against single-card audio (the FM flip rule)
 MULTIHOST_CHANNELS = 2_048  # examples/multihost_pod.json's shape, widened
 MULTIHOST_SECONDS = 5.0
-TWO_PROC_CHANNELS = 1_024
+TWO_PROC_CHANNELS = 1_024  # the gloo step
+TWO_PROC_APP_CHANNELS = 16_384  # the live two-process app
 TWO_PROC_TIMEOUT_S = 120
+#: the two-process app's start, made uneven on purpose: rank 1 calls
+#: app.start() this late (the start barrier absorbs it) and, once its
+#: source runs, waits this long again before its warm, so both sources run
+#: that long before the first round; rank 0's source ring holds
+#: TWO_PROC_SHALLOW_RING blocks (the native default is 16), so at the first
+#: round its ring has dropped more blocks than rank 1's
+TWO_PROC_SKEW_S = 1.0
+TWO_PROC_SHALLOW_RING = 8
+#: rounds of (round, block index) a two-process app's rank prints
+TWO_PROC_SERVED_SHOWN = 32
+#: the gloo step's timed agreements (one all-reduce each)
+AGREE_CALLS = 50
 #: the card every virtual mesh repeats, and the multihost phase's backend
 CARD = "cuda:0"
 MULTIHOST_BACKEND = "nccl"
@@ -3328,7 +3343,10 @@ def phase_two_process(results):
     card (expected to be refused), then the sharded step over gloo with
     staged halos, each rank two positions of a global (2, 2) mesh at
     C=TWO_PROC_CHANNELS, its gathered audio held to the single-card step,
-    and then the live app on both, for a few seconds."""
+    and then the live app on both at C=TWO_PROC_APP_CHANNELS, for a few
+    seconds, started so that the ranks' source rings drop unequal numbers
+    of blocks: the ranks must serve the same source block every round
+    (rank 0's FM tone within TONE_TOLERANCE_HZ)."""
     import tempfile
     import threading
 
@@ -3376,15 +3394,27 @@ def phase_two_process(results):
                for p, sink in zip(app, logs)]
     for t in readers:
         t.start()
+
+    def follower_after(done):
+        """Rank 1's first record whose rounds reach rank 0's last one."""
+        last = max(r for r, _ in done["served"])
+        for ln in list(logs[1]):
+            if ln.startswith("FOLLOWER "):
+                rec = json.loads(ln.split(" ", 1)[1])
+                if rec["served"] and max(r for r, _ in rec["served"]) >= last:
+                    return rec
+        return None
+
     try:
         deadline = time.monotonic() + TWO_PROC_TIMEOUT_S
-        done = None
+        done = follower = None
         while time.monotonic() < deadline:
             ok = [ln for ln in logs[0] if ln.startswith("TWO_PROC_APP ")]
-            follower = [ln for ln in logs[1] if ln.startswith("FOLLOWER")]
-            if ok and len(follower) >= 2:
+            if ok:
                 done = json.loads(ok[0].split(" ", 1)[1])
-                break
+                follower = follower_after(done)
+                if follower is not None:
+                    break
             if any(p.poll() is not None for p in app):
                 break
             time.sleep(0.1)
@@ -3396,20 +3426,53 @@ def phase_two_process(results):
             p.wait(timeout=30)
         for t in readers:
             t.join(timeout=10)
-    if done is None:
+    if done is None or follower is None:
         raise AssertionError("the two-process app did not come up:\n"
                              + "".join(logs[0])[-2500:] + "\n"
                              + "".join(logs[1])[-2500:])
-    follower = [ln.strip() for ln in logs[1] if ln.startswith("FOLLOWER")]
-    log(f"  two-process app: rank 0 {json.dumps(done)}; rank 1 "
-        f"{follower[-1]}")
-    if done["drops"]:
-        raise AssertionError(f"the two-process app dropped {done['drops']} "
-                             f"blocks while rank 0 listened")
-    if done["graph"]["captures"] != 1 or not done["graph"]["replays"]:
-        raise AssertionError(f"the two-process app's blocks were not graph "
-                             f"replays: {done['graph']}")
-    out["app"] = dict(done, follower=follower[-1])
+    ranks = (done, follower)
+    for r, rec in enumerate(ranks):
+        log(f"  two-process app, rank {r}: source ring dropped "
+            f"{rec['ring_dropped']}, passed over {rec['skipped']} "
+            f"(drops since start {rec['drops']}); served {rec['served'][-1]}"
+            f" (round, block index); kernel #1 launches {rec['launches']} "
+            f"for {rec['blocks']}-{rec['blocks_after']} blocks + 1 warm; "
+            f"graphs {rec['graph']}; {rec['source']}")
+    log(f"  two-process app: C={done['channels']}, rank 0 heard "
+        f"{done['tone_hz']:.2f} Hz, throughput {done['throughput']:.3f}, "
+        f"{done['listened_drops']} dropped while it listened, last sampled "
+        f"step {done['last_step_ms']:.2f} ms")
+    if abs(done["tone_hz"] - 440.0) > TONE_TOLERANCE_HZ:
+        raise AssertionError(f"the two-process app's rank 0 heard "
+                             f"{done['tone_hz']:.2f} Hz, not 440")
+    if done["listened_drops"]:
+        raise AssertionError(f"the two-process app dropped "
+                             f"{done['listened_drops']} blocks while rank 0 "
+                             f"listened")
+    # the uneven start took effect: the rings dropped unequal numbers of
+    # blocks, so the ranks' own next blocks were different source blocks
+    if done["ring_dropped"] == follower["ring_dropped"]:
+        raise AssertionError(f"the ranks' source rings dropped the same "
+                             f"{done['ring_dropped']} blocks: the uneven "
+                             f"start did not take effect")
+    mine = dict(map(tuple, done["served"]))
+    common = [(r, i) for r, i in follower["served"] if r in mine]
+    if len(common) < TWO_PROC_SERVED_SHOWN // 2 or any(
+            mine[r] != i for r, i in common):
+        raise AssertionError(f"the ranks served different source blocks: "
+                             f"rank 0 {done['served']}, rank 1 "
+                             f"{follower['served']}")
+    for r, rec in enumerate(ranks):
+        if rec["graph"]["captures"] != 1 or not rec["graph"]["replays"]:
+            raise AssertionError(f"the two-process app's blocks were not "
+                                 f"graph replays on rank {r}: {rec['graph']}")
+        # two shards a rank take kernel #1 (each holds C/2 >= 512
+        # channels), once a block and at the warm
+        if not (2 * (rec["blocks"] + 1) <= rec["launches"]
+                <= 2 * (rec["blocks_after"] + 2)):
+            raise AssertionError(f"kernel #1 did not run on both shards of "
+                                 f"every block on rank {r}: {rec}")
+    out["app"] = dict(done, follower=follower)
     out["wall_s"] = time.perf_counter() - t_start
     log(f"  two-process phase: {out['wall_s']:.1f} s")
     results["two_process"] = out
@@ -3441,7 +3504,8 @@ def worker_step(url: str, rank: int) -> None:
     """One gloo rank of the two-process step: two positions of a global
     (2, 2) mesh on ``cuda:0`` at C=TWO_PROC_CHANNELS (kernel #1 per shard),
     this rank's half of each block ingested; the audio gathered from both
-    ranks held to the single-card step."""
+    ranks held to the single-card step. Then the multihost round's
+    agreement (``multihost.agree_index``, one all-reduce) is timed."""
     import torch
     from webradio_tpu_torch.parallel import multihost
     from webradio_tpu_torch.parallel.mesh import make_mesh
@@ -3484,19 +3548,43 @@ def worker_step(url: str, rank: int) -> None:
             blocks[i % 3][:, lo:hi], cfg.block_frames, mesh))
     torch.cuda.synchronize()
     ms = 1e3 * (time.perf_counter() - t0) / 8
+    t0 = time.perf_counter()
+    for i in range(AGREE_CALLS):
+        multihost.agree_index(i, False)
+    agree_ms = 1e3 * (time.perf_counter() - t0) / AGREE_CALLS
     print("TWO_PROC " + json.dumps({
         "rank": rank, "rows": [lo, hi], "launches": launches,
         "max_audio_err": err, "fm_max": fm_max, "fm_flips": flips,
         "peak": float(ref.abs().max()), "ms_per_block": ms,
+        "agree_ms": agree_ms,
         "staged": fe.comm.staged, "segmented": fe.segmented,
         "graph": fe.graph_stats()}), flush=True)
 
 
+def app_record(fe) -> dict:
+    """What a rank of the two-process app reports: its blocks, its source's
+    ring drops, the blocks its rounds passed over, every drop together,
+    kernel #1's launches (a block count read before and after them), its
+    graphs, and the (round, source block index) of its last rounds."""
+    b0 = fe.block_count
+    launches = tail_wrappers()["fused_tail_audio_tm"].launches
+    return {"blocks": b0, "blocks_after": fe.block_count,
+            "ring_dropped": getattr(fe.tuner.source, "dropped_blocks", 0),
+            "skipped": fe.skipped_blocks, "drops": PumpWatch.dropped(fe),
+            "launches": launches, "graph": fe.pipeline.graph_stats(),
+            "mesh": fe.pipeline.mesh.shape,
+            "source": type(fe.tuner.source).__name__,
+            "served": list(fe.served)[-TWO_PROC_SERVED_SHOWN:]}
+
+
 def worker_app(url: str, rank: int) -> None:
     """One rank of the live two-process app: a multihost sharded tone tuner
-    at C=TWO_PROC_CHANNELS over gloo, two positions of ``cuda:0`` per rank.
-    Rank 0 hears its FM receiver over HTTP and prints ``TWO_PROC_APP``;
-    rank 1 prints ``FOLLOWER`` every ten blocks. Both serve until killed."""
+    at C=TWO_PROC_APP_CHANNELS over gloo, two positions of ``cuda:0`` per
+    rank, started unevenly (TWO_PROC_SKEW_S, TWO_PROC_SHALLOW_RING) so the
+    ranks' source rings drop different numbers of blocks before the first
+    round. Rank 0 hears its FM receiver over HTTP and prints
+    ``TWO_PROC_APP``; rank 1 prints ``FOLLOWER`` every ten blocks (both
+    :func:`app_record`). Both serve until killed."""
     import torch
     from webradio_tpu_torch import app as tapp
     from webradio_tpu_torch.parallel import mesh as pmesh
@@ -3508,23 +3596,35 @@ def worker_app(url: str, rank: int) -> None:
                         "process_id": rank, "backend": "gloo"},
         "tuners": [{"driver": "tone", "centre_frequency": 124_325_000,
                     "sample_rate": SAMPLE_RATE, "block_frames": BLOCK_FRAMES,
-                    "capacity": TWO_PROC_CHANNELS, "engine": "sharded",
+                    "capacity": TWO_PROC_APP_CHANNELS, "engine": "sharded",
                     "multihost": True}],
         "receivers": [{"tuner": 0, "if_frequency": 100_000,
                        "demodulator": "FM"}],
     }
     app = tapp.RadioApp(config)
+    app.build()  # the process group (a rendezvous) and the front end
+    fe = app.front_ends[0]
+    if rank == 0:
+        fe.tuner.source.ring_blocks = TWO_PROC_SHALLOW_RING
+    else:
+        time.sleep(TWO_PROC_SKEW_S)
+        start = fe.tuner.start
+
+        def late_start():
+            ok = start()
+            time.sleep(TWO_PROC_SKEW_S)
+            return ok
+
+        fe.tuner.start = late_start
+    reset_counts()
     if not app.start():
         raise SystemExit("the app did not start")
-    fe = app.front_ends[0]
     if rank != 0:
         last = 0
         while app.failed is None:
             if fe.block_count >= last + 10:
                 last = fe.block_count
-                print("FOLLOWER", json.dumps({
-                    "blocks": last, "mesh": fe.pipeline.mesh.shape,
-                    "drops": PumpWatch.dropped(fe)}), flush=True)
+                print("FOLLOWER", json.dumps(app_record(fe)), flush=True)
             time.sleep(0.05)
         raise SystemExit(f"rank 1 failed: {app.failed}")
     while fe.block_count < 5:
@@ -3534,15 +3634,12 @@ def worker_app(url: str, rank: int) -> None:
     t0, b0, d0 = time.monotonic(), fe.block_count, PumpWatch.dropped(fe)
     tone = hear(app.server.port, app.receivers[0].uuid, 48_000, seconds=1.0)
     dt = time.monotonic() - t0
-    print("TWO_PROC_APP " + json.dumps({
-        "tone_hz": tone, "blocks": fe.block_count,
-        "throughput": (fe.block_count - b0) * BLOCK_MS / 1e3 / dt,
-        "drops": PumpWatch.dropped(fe) - d0,
-        "drops_since_start": PumpWatch.dropped(fe),
-        "mesh": fe.pipeline.mesh.shape,
-        "graph": fe.pipeline.graph_stats()}), flush=True)
-    if abs(tone - 440.0) > TONE_TOLERANCE_HZ:
-        raise SystemExit(f"rank 0 heard {tone:.2f} Hz")
+    rec = app_record(fe)
+    print("TWO_PROC_APP " + json.dumps(dict(
+        rec, tone_hz=tone, channels=TWO_PROC_APP_CHANNELS,
+        throughput=(rec["blocks"] - b0) * BLOCK_MS / 1e3 / dt,
+        listened_drops=rec["drops"] - d0,
+        last_step_ms=fe.last_step_ns / 1e6)), flush=True)
     while app.failed is None:
         time.sleep(0.2)
     raise SystemExit(f"rank 0 failed: {app.failed}")

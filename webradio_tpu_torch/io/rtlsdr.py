@@ -293,9 +293,12 @@ class _RtlSdrAsyncSource(SampleSource):
                 log.error("rtlsdr: %d consecutive stalls; ending capture",
                           self._timeout_count)
                 return None
-            return np.zeros(self.block_frames, np.complex64)
+            return self._counted(np.zeros(self.block_frames, np.complex64))
         self._timeout_count = 0
-        return _u8_to_complex(raw)
+        # the chunk queue drops bytes, not blocks: whole blocks' worth of
+        # them count in the index
+        return self._counted(_u8_to_complex(raw), self._tuner.lost_bytes
+                             // (2 * self.block_frames))
 
 
 def _u8_to_complex(raw: bytes) -> np.ndarray:
@@ -349,9 +352,9 @@ class _RtlSdrSource(SampleSource):
                           "ending capture", self._fail_count)
                 return None  # genuine device loss -> end of stream
             # transient hiccup: emit one silent block and keep streaming
-            return np.zeros(self.block_frames, np.complex64)
+            return self._counted(np.zeros(self.block_frames, np.complex64))
         self._fail_count = 0
-        return _u8_to_complex(buf.raw)
+        return self._counted(_u8_to_complex(buf.raw))
 
 
 class _NoDongle(SampleSource):

@@ -215,8 +215,9 @@ class SoundcardIQSource(SampleSource):
         if data is None:
             return None
         # interleaved LRLR float32 -> [2, N] I/Q planes (the pump's
-        # native-plane path, radio._to_planes)
-        return np.ascontiguousarray(data.reshape(-1, 2).T)
+        # native-plane path, radio._to_planes); the simple API reports no
+        # overrun, so the index counts reads
+        return self._counted(np.ascontiguousarray(data.reshape(-1, 2).T))
 
 
 class FileAudioSink:

@@ -7,6 +7,11 @@ sample production with the pull-through pipeline; here sources are plain
 iterables of ``[block_frames]`` complex64 NumPy blocks consumed by the ingest
 ring. Subdevice enumeration/selection survives as a light protocol
 (samplesource.h:54-58 semantics: selectable only while stopped).
+
+Every source reports :attr:`SampleSource.block_index`, the index of the
+block it last returned among all the blocks its producer made: the
+multihost pump's ranks agree on it each round
+(``radio.FrontEnd._run_once_multihost``).
 """
 
 from __future__ import annotations
@@ -27,6 +32,13 @@ class SampleSource(abc.ABC):
         self._running = False
         self.sample_rate: int = 1_200_000  # tuner.h:33 default
         self.block_frames: int = 16_384 // 2  # dspblock.h:41 default / 2 ch
+        #: the 0-based index of the block :meth:`read_block` last returned
+        #: among every block the producer made, the dropped ones included
+        #: (-1 before the first): for a deterministic source, index k is
+        #: the same signal in every process
+        self.block_index = -1
+        #: blocks taken from the producer (returned, or passed over)
+        self._reads = 0
 
     @property
     def subdevices(self) -> list[str]:
@@ -52,7 +64,16 @@ class SampleSource(abc.ABC):
     @abc.abstractmethod
     def read_block(self) -> np.ndarray | None:
         """Return the next ``[block_frames]`` complex64 block, or None at
-        end-of-stream. May block (hardware cadence)."""
+        end-of-stream. May block (hardware cadence). Sets
+        :attr:`block_index` (through :meth:`_counted`)."""
+
+    def _counted(self, block, dropped: int = 0):
+        """``block`` (None passes through), noted as the next read:
+        ``dropped`` is the producer's blocks that were lost before it."""
+        if block is not None:
+            self._reads += 1
+            self.block_index = self._reads - 1 + dropped
+        return block
 
     # ---- real-time pacing for non-hardware sources -------------------
     # Hardware sources are paced by the device DMA (the reference blocks on
@@ -94,7 +115,7 @@ class RandSource(SampleSource):
         self._pace()
         i = self._rng.uniform(-1, 1, self.block_frames).astype(np.float32)
         q = self._rng.uniform(-1, 1, self.block_frames).astype(np.float32)
-        return (i + 1j * q).astype(np.complex64)
+        return self._counted((i + 1j * q).astype(np.complex64))
 
 
 class ToneSource(SampleSource):
@@ -159,7 +180,27 @@ class ToneSource(SampleSource):
                 + 1j * self._rng.standard_normal(self.block_frames)
             )).astype(np.complex64)
         self._n0 += self.block_frames
-        return z / max(1, len(self.carriers))
+        return self._counted(z / max(1, len(self.carriers)))
+
+
+def pop_counted(source: SampleSource, session,
+                timeout: float | None) -> np.ndarray | None:
+    """The next block of a native session's drop-oldest ring, noted on
+    ``source`` with its index: a drop takes the oldest block, so the index
+    is the blocks popped before it plus the ring's drops. A drop that
+    raced the pop (the count moved between the reads around it) leaves the
+    popped block's index unknown: that block is passed over, counted in
+    ``source.passed_blocks``, and the next one taken. None where the
+    session yields nothing within ``timeout`` or has closed."""
+    while True:
+        before = session.dropped_blocks
+        out = session.pop(timeout=timeout)
+        if out is None:
+            return None
+        if session.dropped_blocks == before:
+            return source._counted(out, before)
+        source._reads += 1
+        source.passed_blocks += 1
 
 
 class NativeToneSource(SampleSource):
@@ -167,7 +208,8 @@ class NativeToneSource(SampleSource):
     a paced C++ thread (``native/src/ingest.cpp`` ``wr_tone_*``), delivered
     as ready ``[2, N]`` float32 plane blocks. The numpy source holds the
     GIL while it synthesizes; this one costs the pump nothing, like a
-    hardware capture path (rtlsdrtuner.cxx:86-117).
+    hardware capture path (rtlsdrtuner.cxx:86-117). Each :meth:`start`
+    opens a session whose producer starts again at block 0.
 
     :meth:`stop` may run while another thread waits in :meth:`read_block`:
     the session frees its native object only after the reader has left
@@ -175,11 +217,18 @@ class NativeToneSource(SampleSource):
     returns None."""
 
     def __init__(self, carriers=None, noise: float = 0.01, seed: int = 0):
+        from .native import SESSION_RING_BLOCKS
+
         super().__init__()
         self.carriers = list(carriers if carriers is not None
                              else ToneSource.DEFAULT_CARRIERS)
         self.noise = noise
         self.seed = seed
+        #: blocks the session's ring holds before it drops the oldest
+        self.ring_blocks = SESSION_RING_BLOCKS
+        #: blocks popped but not returned: a drop raced the pop
+        #: (:func:`pop_counted`)
+        self.passed_blocks = 0
         self._session = None
 
     def start(self) -> bool:
@@ -190,10 +239,11 @@ class NativeToneSource(SampleSource):
         try:
             self._session = native.NativeTone(
                 self.sample_rate, self.block_frames, self.carriers,
-                self.noise, self.seed,
+                self.noise, self.seed, depth=self.ring_blocks,
             )
         except RuntimeError:
             return False
+        self.block_index, self._reads, self.passed_blocks = -1, 0, 0
         return super().start()
 
     def stop(self) -> None:
@@ -204,16 +254,18 @@ class NativeToneSource(SampleSource):
 
     @property
     def dropped_blocks(self) -> int:
-        """Blocks the native ring dropped because no reader took them."""
+        """Blocks the native ring dropped because no reader took them, and
+        blocks passed over because a drop raced their pop."""
         session = self._session
-        return session.dropped_blocks if session is not None else 0
+        dropped = session.dropped_blocks if session is not None else 0
+        return dropped + self.passed_blocks
 
     def read_block(self) -> np.ndarray | None:
         while self._running:
             session = self._session
             if session is None:
                 return None
-            out = session.pop(timeout=1.0)
+            out = pop_counted(self, session, timeout=1.0)
             if out is not None:
                 return out
         return None
@@ -260,7 +312,7 @@ class FileSource(SampleSource):
         if self._pos + n <= total:
             out = self._data[self._pos : self._pos + n]
             self._pos += n
-            return out
+            return self._counted(out)
         if not self.loop:
             return None
         parts = [self._data[self._pos :]]
@@ -270,4 +322,4 @@ class FileSource(SampleSource):
             need -= total
         parts.append(self._data[:need])
         self._pos = need
-        return np.concatenate(parts)
+        return self._counted(np.concatenate(parts))

@@ -33,7 +33,13 @@ import threading
 import numpy as np
 
 from .soundcard import SoundcardIQSource
-from .source import FileSource, RandSource, SampleSource, ToneSource
+from .source import (
+    FileSource,
+    RandSource,
+    SampleSource,
+    ToneSource,
+    pop_counted,
+)
 
 #: RTL2832 reference crystal (librtlsdr DEF_RTL_XTAL_FREQ)
 RTL_XTAL_HZ = 28_800_000
@@ -175,6 +181,14 @@ class Tuner:
     def read_block(self):
         return self.source.read_block()
 
+    @property
+    def block_index(self) -> int:
+        """The index of the block :meth:`read_block` last returned among
+        the blocks the source made (``SampleSource.block_index``). Two
+        hardware tuners never share a signal: across them the index aligns
+        only the counts of blocks read and dropped."""
+        return self.source.block_index
+
 
 class RandTuner(Tuner):
     """White-noise tuner (the reference's RandSource seam made a driver)."""
@@ -272,7 +286,7 @@ class _RtlTcpSource(SampleSource):
                 got += n
         raw = np.frombuffer(buf, dtype=np.uint8).astype(np.float32)
         f = (raw - 128.0) / 128.0
-        return (f[0::2] + 1j * f[1::2]).astype(np.complex64)
+        return self._counted((f[0::2] + 1j * f[1::2]).astype(np.complex64))
 
 
 class _NativeRtlTcpSource(SampleSource):
@@ -283,9 +297,16 @@ class _NativeRtlTcpSource(SampleSource):
     def __init__(self, session):
         super().__init__()
         self._session = session
+        #: blocks popped but not returned: a drop raced the pop
+        self.passed_blocks = 0
+
+    @property
+    def dropped_blocks(self) -> int:
+        """Blocks the session's ring dropped, and blocks passed over."""
+        return self._session.dropped_blocks + self.passed_blocks
 
     def read_block(self):
-        return self._session.pop(timeout=5.0)
+        return pop_counted(self, self._session, timeout=5.0)
 
 
 class RtlTcpTuner(Tuner):

@@ -7,10 +7,10 @@ every position of the mesh. Across processes each rank drives whole time
 rows of the mesh and ingests only its own frames of each block
 (:func:`host_time_slice`, :func:`make_global_block`): no process holds the
 whole block. The serving pump's collectives (:func:`broadcast_blob`,
-:func:`gather_to_host` and the sharded step's own) are issued by the pump
-thread alone, in the same order on every rank. Without a process group
-every collective here is the identity, as the JAX package's are in one
-process.
+:func:`agree_index`, :func:`gather_to_host` and the sharded step's own)
+are issued by the pump thread alone, in the same order on every rank.
+Without a process group every collective here is the identity, as the
+JAX package's are in one process.
 """
 
 from __future__ import annotations
@@ -156,6 +156,28 @@ def broadcast_blob(payload: bytes | None) -> bytes:
         i += 1
         if more == 0:
             return b"".join(out)
+
+
+def agree_index(index: int, ended: bool) -> tuple[int, int, bool]:
+    """The multihost round's agreement on a source block: ``(the largest
+    index, the smallest index, whether any rank's source ended)`` over the
+    group, from one all-reduce (MAX) of three int64 on the wire device
+    (gloo on the host, NCCL on the card). Every rank calls it in the same
+    round. Without a process group: ``(index, index, ended)``."""
+    if not _grouped():
+        return index, index, ended
+    t = torch.tensor([index, -index, int(ended)], dtype=torch.int64)
+    t = t.to(_wire())
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    top, neg_bottom, any_ended = t.tolist()
+    return top, -neg_bottom, bool(any_ended)
+
+
+def barrier() -> None:
+    """Return once every rank of the group has called it (an all-reduce of
+    one element on the wire device); nothing without a process group."""
+    if _grouped():
+        dist.all_reduce(torch.zeros(1, dtype=torch.int64).to(_wire()))
 
 
 def gather_to_host(x, dim: int = 0) -> np.ndarray:

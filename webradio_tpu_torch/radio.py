@@ -94,6 +94,10 @@ FANOUT_QUEUE_DEPTH = 2
 #: this long (the gather is a collective on every rank)
 SPECTRUM_WANTED_S = 2.0
 
+#: multihost rounds whose (round, source block index) a front end keeps
+#: (:attr:`FrontEnd.served`): 10.9 s at stock rates
+SERVED_KEPT = 256
+
 log = logging.getLogger(__name__)
 
 
@@ -472,12 +476,24 @@ class FrontEnd:
         self._mh_settings: list | None = None
         self._mh_round = 0
         self._mh_spec_wanted = float("-inf")
+        #: multihost: blocks read and passed over to reach the block the
+        #: ranks agreed on (drops, in :attr:`dropped_blocks`), and the
+        #: (round, source block index) of the last SERVED_KEPT rounds
+        self.skipped_blocks = 0
+        self.served: collections.deque = collections.deque(
+            maxlen=SERVED_KEPT)
         Radio.front_ends[self.uuid] = self
 
     @property
     def ring_blocks(self) -> int:
         """The depth of this front end's ingest ring."""
         return RING_BLOCKS if self.device.type == "cuda" else CPU_RING_BLOCKS
+
+    @property
+    def dropped_blocks(self) -> int:
+        """Blocks lost before the step: the ingest ring's drops, and under
+        multihost the blocks passed over to serve the agreed block."""
+        return self.ring.dropped_blocks + self.skipped_blocks
 
     # ---- receiver slots -------------------------------------------
     @property
@@ -701,6 +717,12 @@ class FrontEnd:
             return True
         self.tuner.set_sample_rate(self.cfg.sample_rate)
         self.tuner.set_block_frames(self.cfg.block_frames)
+        if self.multihost:
+            # every rank's source starts at once: a paced source's block k
+            # then comes due at the same time on every rank, so the ranks
+            # can serve the same block with no ring holding the difference
+            # of their start times (see _agreed_block)
+            phost.barrier()
         if not self.tuner.start():
             log.error("front end %s: tuner failed to start", self.uuid)
             return False
@@ -760,8 +782,9 @@ class FrontEnd:
     # the same writes to its mirror of the slot settings and the same
     # per-shard slot scatter (or, where a bandwidth leaves the shared FIR
     # kernels, the same full rebuild from the mirror). Capture is
-    # pull-synchronous: each rank reads its block from the paced source and
-    # ingests only its own time slice.
+    # pull-synchronous: each rank reads its block from its paced source,
+    # the ranks agree on the block's index (_agreed_block), and each
+    # ingests only its own time slice of that block.
 
     def _start_multihost(self) -> bool:
         pipe = self.pipeline
@@ -771,6 +794,7 @@ class FrontEnd:
         self._mh_settings = [list(v) for v in self._slot_settings(width)]
         self._mh_dirty = set()
         self._mh_round = 0
+        self.served.clear()
         rank, size = pmesh.world()
         lo, hi = self._mh_slice
         log.info("front end %s: multihost warm (rank %d of %d, frames "
@@ -863,20 +887,49 @@ class FrontEnd:
             self._note_shared_bw(width, mirror)
             pipe.update_params(self._make_params(width, mirror))
 
+    def _agreed_block(self):
+        """This round's block, the same source block on every rank, and its
+        index; ``(None, -1)`` where a rank's source ended, on every rank.
+
+        Each rank reads its next block; one all-reduce gives the largest
+        and the smallest block index of the group and whether a source
+        ended. Where they differ (a ring dropped more blocks on one rank),
+        a rank behind reads ahead to the largest, passing over blocks
+        (:attr:`skipped_blocks`, drops), and the ranks agree again (a rank
+        can overshoot where its ring drops meanwhile). A failed collective
+        raises, and the pump stops."""
+        block = self.tuner.read_block()
+        while True:
+            ended = block is None
+            index = -1 if ended else self.tuner.block_index
+            top, bottom, any_ended = phost.agree_index(index, ended)
+            if any_ended:
+                return None, -1
+            if top == bottom:
+                return block, top
+            while index < top:
+                block = self.tuner.read_block()
+                if block is None:
+                    break
+                self.skipped_blocks += 1
+                index = self.tuner.block_index
+
     def _run_once_multihost(self) -> bool:
-        """One lockstep round: the control broadcast and its writes, this
-        rank's time slice of the next block, the step, and the collective
-        gathers of the spectrum row and the subscribed audio rows (HTTP
-        delivery on rank 0)."""
+        """One lockstep round: the control broadcast and its writes, the
+        agreement on the round's source block, this rank's time slice of
+        it, the step, and the collective gathers of the spectrum row and
+        the subscribed audio rows (HTTP delivery on rank 0). Where any
+        rank's source ended, every rank stops at this round."""
         payload = None
         if pmesh.world()[0] == 0:
             payload = json.dumps(self._control_blob()).encode()
         ctl = json.loads(phost.broadcast_blob(payload))
         self._apply_control_blob(ctl)
-        block = self.tuner.read_block()
+        block, index = self._agreed_block()
         if block is None:
             self.running = False
             return False
+        self.served.append((self._mh_round, index))
         lo, hi = self._mh_slice
         planes = _to_planes(block)[:, lo:hi]
         t0 = time.perf_counter_ns()
@@ -1249,7 +1302,7 @@ class Radio:
                 (1e9 / fe.cfg.sample_rate)
                 / max(fe.profile_ns_per_frame(), 1e-9),
                 fe.block_count,
-                fe.ring.dropped_blocks,
+                fe.dropped_blocks,
             )
 
     @classmethod

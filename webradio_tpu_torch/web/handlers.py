@@ -111,7 +111,7 @@ class StatusHandler(HttpRequestHandler):
             fes[uuid] = {
                 "running": fe.running,
                 "blocks": fe.block_count,
-                "dropped_blocks": fe.ring.dropped_blocks,
+                "dropped_blocks": fe.dropped_blocks,
                 # sampled dispatch->completion metrics (every Nth block,
                 # fetched on a side thread — radio.PROFILE_SAMPLE_EVERY).
                 # On a remote backend these include one host-link round
