@@ -51,6 +51,12 @@ Phases (each fails the run on error):
    C=69,632, 16 blocks of 8-bit-grid input back to back at u8exact,
    highest and bf16: ms/block, real-time factor (u8exact must be above 1),
    kernel #1 once a block, the AM and FM tones, peak device memory;
+9b. the bench (``bench_torch.py``): ``--parity`` on the card with its
+   ``ok`` gated; one sweep point at C=16,384 "highest" through the bench's
+   timing (device-resident input through ``step_device``, kernel #1 once a
+   block) beside the main path's ms/block; and one at C=106,496, past 2^31
+   elements of the packed product, where kernel #1's outputs are held
+   against the plain tail on the last 256 channels;
 10. offline: ``pipeline.stream.run_capture_channelized`` over 16 blocks
    and a part-block of tone-source input at C=16,384 (kernel #1 once a
    block, its audio and state bit-equal to 16 ``process_host`` calls, the
@@ -1842,6 +1848,101 @@ def phase_headline(dev, results):
         raise AssertionError("the headline topology at u8exact is below "
                              "real time")
 
+
+
+#: the bench phase (bench_torch.py): one sweep point at the smoke's wide
+#: width, and one past 2^31 elements of the packed [10240, 2C] product,
+#: whose kernel #1 audio is held against the plain tail on its last
+#: WIDE_SLICE channels
+BENCH_POINT_CHANNELS = WIDE_CHANNELS
+PAST_2_31_CHANNELS = 106_496
+INT32_ELEMENTS = 2**31
+WIDE_SLICE = 256
+
+
+def phase_bench(dev, results):
+    """``bench_torch.py``'s parts on the card: ``--parity`` (its ``ok``
+    gated; kernel #1 once a step), one sweep point at C=16,384 "highest"
+    through the bench's own timing (``channelized_point``: kernel #1 once a
+    block) beside the main path's ms/block of the timing phase, and the
+    same at C=106,496, whose packed product holds more than 2^31 elements;
+    there kernel #1's outputs on the bench's input are held against the
+    plain tail on the last 256 channels (section 2's bounds, the FM flip
+    rule; the laws cycle so that AM, USB and LSB slots meet 1e-5)."""
+    import torch
+    import bench_torch
+    from webradio_tpu_torch.ops import tail_tm
+    from webradio_tpu_torch.ops.channelizer import pfb_channelize_direct_tm
+    from webradio_tpu_torch.pipeline import channelized as ch
+
+    t0 = time.perf_counter()
+    par = bench_torch.parity_check(dev)
+    log(f"  --parity ({time.perf_counter() - t0:.1f} s): " + json.dumps(par))
+    if not par["ok"]:
+        raise AssertionError(f"bench parity failed: {par}")
+    results["bench_parity"] = par
+    iq = bench_torch.bench_iq(dev)
+    out = {}
+    for c in (BENCH_POINT_CHANNELS, PAST_2_31_CHANNELS):
+        rec = bench_torch.channelized_point(c, "highest", "highest", iq)
+        log(f"  bench point C={c}: {rec['step_ms']:.3f} ms/block back to "
+            f"back (runs {', '.join(f'{m:.3f}' for m in rec['step_ms_runs'])}"
+            f"), {rec['one_ms']:.3f} one at a time, kernel #1 "
+            f"{rec['kernel_launches']} for {rec['blocks']} blocks, peak "
+            f"{rec['peak_gb']:.2f} GB, roofline {rec['roofline_ms']:.3f} ms "
+            f"({rec['roofline_frac']:.3f})")
+        out[f"c{c}"] = {k: rec[k] for k in (
+            "step_ms", "step_ms_runs", "one_ms", "kernel_launches", "blocks",
+            "peak_gb", "roofline_ms", "roofline_frac", "realtime")}
+    main = results.get(f"c{WIDE_CHANNELS}", {}).get("stream_ms_per_block")
+    bench_ms = out[f"c{BENCH_POINT_CHANNELS}"]["step_ms"]
+    log(f"  C={BENCH_POINT_CHANNELS}: the bench's {bench_ms:.3f} ms/block "
+        f"(one device-resident block through step_device) beside the main "
+        f"path's " + ("not measured in this run" if main is None else
+                      f"{main:.3f} (tone blocks through process_host)"))
+    results["bench"] = out
+    release()
+
+    # past 2^31: kernel #1 on the whole product, the plain tail on a slice
+    c, n = PAST_2_31_CHANNELS, WIDE_SLICE
+    cfg = ch.ChannelizedConfig(num_channels=c, block_frames=BLOCK_FRAMES)
+    modes = [("AM", "FM", "USB", "LSB")[i % 4] for i in range(c)]
+    params = ch.make_channelized_params(cfg, bench_torch.ifs(c), 80_000,
+                                        8_000, modes, device=dev)
+    state = ch.init_channelized_state(cfg, dev)
+    y2, _, _ = pfb_channelize_direct_tm(iq, params.pfb_weights, cfg.num_bins,
+                                        state.pfb_hist, split=False)
+    if not y2.numel() > INT32_ELEMENTS:
+        raise AssertionError(f"the product holds {y2.numel()} elements")
+    k1 = cfg.fir_length - 1
+    carries = lambda w: (torch.zeros(k1, w, device=dev),
+                         torch.zeros(k1, w, device=dev),
+                         torch.zeros(2, w, device=dev),
+                         torch.zeros(k1, w, device=dev))
+    common = (params.chan_toep, params.audio_toep, cfg.audio_decim)
+    reset_counts()
+    got = tail_tm.fused_tail_audio_tm(
+        y2, y2, state.nco_phase, params.residual_step, *common, params.mode,
+        *carries(c), packed=True, fast=True)
+    torch.cuda.synchronize()
+    expect_counts(f"C={c} past 2^31", fused_tail_audio_tm=1)
+    cols = slice(c - n, c)
+    y_slice = torch.cat([y2[:, cols], y2[:, c + c - n:]], dim=1)
+    del y2
+    ref = tail_tm.fused_tail_audio_tm_ref(
+        y_slice, y_slice, state.nco_phase[cols], params.residual_step[cols],
+        *common, params.mode[cols], *carries(n), packed=True, fast=True)
+    got = tuple(t[..., cols] for t in got)
+    fm = params.mode[cols] == 1
+    devs = compare(f"C={c} kernel #1 vs plain, last {n} channels",
+                   AUDIO_NAMES, BOUNDS, got, ref, fm,
+                   float(params.audio_coeff.abs().max()),
+                   raw=("audio_hist",), filtered=("audio48",))
+    results["past_2_31"] = {"channels": c, "slice": n,
+                            "product_elements": 2 * c * cfg.chan_frames,
+                            **devs}
+    del got, ref, params, state
+    release()
 
 OFFLINE_BLOCKS = 16  # whole blocks through the offline runner
 CLI_SECONDS = 1.0  # the CLI phase's capture
@@ -3758,6 +3859,9 @@ def main() -> int:
         f"{', '.join(HEADLINE_TIERS)}")
     phase_headline(dev, results)
     release()
+    log(f"== the bench: bench_torch --parity, sweep points at C="
+        f"{BENCH_POINT_CHANNELS} and C={PAST_2_31_CHANNELS} (past 2^31)")
+    phase_bench(dev, results)
     clocks = nvidia_smi("clocks.sm,clocks.max.sm,power.draw,temperature.gpu")
     log(f"  after timing: sm clock, max sm clock, power draw, temp = "
         f"{clocks}")

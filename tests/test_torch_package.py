@@ -1,7 +1,7 @@
 """Package-level properties of the PyTorch port: neither it nor the chip
-smoke script imports JAX or the JAX package, the kernel build raises (never
-falls back) where nvcc is missing, and the chip smoke script refuses to run
-without a CUDA device."""
+smoke script nor ``bench_torch.py`` imports JAX or the JAX package, the
+kernel build raises (never falls back) where nvcc is missing, and the chip
+smoke script refuses to run without a CUDA device."""
 
 import os
 import pathlib
@@ -25,6 +25,8 @@ assert {"webradio_tpu_torch.parallel." + m for m in (
     names), names
 import chip_smoke
 chip_smoke.tone_blocks(1)  # its sample source is the port's own
+import bench_torch
+bench_torch.bench_iq(bench_torch.device_of("cpu"), 12_800)
 print(len(names), sorted(m for m in sys.modules
                          if m.split(".")[0] in ("jax", "webradio_tpu")))
 """
@@ -37,7 +39,8 @@ def _env():
 
 
 def test_port_imports_no_jax():
-    # after importing every module of the port and chip_smoke: no jax, and
+    # after importing every module of the port, chip_smoke and bench_torch
+    # (and making the bench's input): no jax, and
     # no webradio_tpu or webradio_tpu.* module
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                          env=_env(), capture_output=True, text=True,
@@ -50,7 +53,7 @@ def test_port_imports_no_jax():
 
 def test_no_source_line_imports_the_jax_package():
     # the card's host has no JAX: the multi-process workers import neither
-    files = [REPO / "chip_smoke.py",
+    files = [REPO / "chip_smoke.py", REPO / "bench_torch.py",
              REPO / "tests" / "torch_multiproc_worker.py",
              REPO / "tests" / "torch_multiproc_app_worker.py",
              *(REPO / "webradio_tpu_torch").rglob("*.py")]

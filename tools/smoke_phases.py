@@ -2,10 +2,12 @@
 then each named phase, a failure printed and the next phase run.
 
     python3 tools/smoke_phases.py [--tree DIR] [sharded] [offline]
-        [multihost] [two_process]
+        [multihost] [two_process] [bench]
 
-With no phase named it runs those four (the multi-device layer and the
-offline runners, ~2 minutes with the build). ``--tree DIR`` runs another
+With no phase named it runs the first four (the multi-device layer and the
+offline runners, ~2 minutes with the build); ``bench`` is the smoke's
+``bench_torch.py`` phase (``--parity``, two sweep points, the point past
+2^31 elements held against the plain tail). ``--tree DIR`` runs another
 checkout's ``chip_smoke.py`` and package (an unpacked ``git archive`` of
 another commit, for an A/B in one call: run the trees in turns). Prints
 the card's name and power limit first, each phase's log as the smoke
@@ -36,7 +38,9 @@ PHASES = {
     "multihost": lambda dev, results: chip_smoke.phase_multihost(results),
     "two_process": lambda dev, results: chip_smoke.phase_two_process(
         results),
+    "bench": chip_smoke.phase_bench,
 }
+DEFAULT = ("sharded", "offline", "multihost", "two_process")
 
 
 def main(argv) -> int:
@@ -55,7 +59,7 @@ def main(argv) -> int:
     results: dict = {}
     failed = []
     names = [a for a in argv[1:] if a in PHASES]
-    for name in names or list(PHASES):
+    for name in names or DEFAULT:
         t1 = time.perf_counter()
         print(f"== {name}", flush=True)
         try:
