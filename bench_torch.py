@@ -30,7 +30,8 @@ the search doubles C from 16,384 until a point misses the 42.67 ms block
 the bracket on multiples of 1,024 within a budget of points. The FIR tiers
 hx5, hx4 and high run once at the "highest" tier's best C (the port
 computes them as "highest", so they read the same), and the direct engine
-at C = 4 .. 1,024 on its graph.
+at C = 4 .. 1,024 on its graph, with the channelized engine (kernel #1) at
+C = 16 and 64 beside it.
 
 The measurements run in a child process that streams one JSON line per
 result to a file; the parent enforces the deadline, kills the child's
@@ -80,6 +81,10 @@ SWEEP_STEP = 1_024
 #: four more to close it to 1,024
 SWEEP_POINTS = 10
 DIRECT_CHANNELS = (4, 16, 64, 256, 1_024)
+#: widths where the channelized engine is read beside the direct one (the
+#: "auto" engine goes channelized from 16 channels; on the card kernel #1
+#: serves it at any width)
+SMALL_CHANNELIZED = (16, 64)
 
 # the card's published peaks (NVIDIA H100 SXM data sheet; chip_smoke.py
 # holds the same): float32 outside the tensor cores, dense bfloat16 on
@@ -427,7 +432,8 @@ def roofline_ms(c: int, pfb: str, nd: int = BLOCK_FRAMES // 10,
 
 def sweep(iq, emit) -> None:
     """Every filterbank tier's search at FIR "highest", the FIR tiers at
-    the "highest" tier's best C, and the direct engine's points."""
+    the "highest" tier's best C, and the direct engine's points with the
+    channelized engine's beside them at SMALL_CHANNELIZED."""
     best = {}
     for pfb in PFB_TIERS:
         def measure(c, pfb=pfb):
@@ -458,6 +464,10 @@ def sweep(iq, emit) -> None:
     for c in DIRECT_CHANNELS:
         rec = direct_point(c, iq)
         emit(**rec)
+        if c in SMALL_CHANNELIZED:
+            # kept out of the tiers' search: path "channelized"
+            emit(**dict(channelized_point(c, "highest", "highest", iq),
+                        path="channelized", key=f"channelized_c{c}"))
         if rec["step_ms"] > 4 * BLOCK_MS:
             break
 
@@ -829,9 +839,11 @@ def accuracy(dev, c: int = ACCURACY_C, block_frames: int = BLOCK_FRAMES,
              pairs=ACCURACY_PAIRS) -> dict:
     """Each (fir, pfb) tier's audio SNR in dB against the float64
     reference, one block of each of bench.py's three inputs through
-    ``channelized_step`` ("auto" tail) on ``dev``."""
+    ``channelized_step`` ("auto" tail) on ``dev``. On the card kernel #1
+    must have launched once a step."""
     import torch
 
+    from webradio_tpu_torch.ops.tail_tm import fused_tail_audio_tm
     from webradio_tpu_torch.pipeline.channelized import (
         ChannelizedConfig,
         channelized_step,
@@ -845,6 +857,7 @@ def accuracy(dev, c: int = ACCURACY_C, block_frames: int = BLOCK_FRAMES,
                                       device="cpu")
     out = {"metric": "channelized_audio_snr_db_vs_float64", "channels": c,
            "device": device_name(dev)}
+    before, steps = fused_tail_audio_tm.launches, 0
     for name, sig in accuracy_signals(cfg0, rx_ifs).items():
         x32 = sig.astype(np.float32)
         ref = f64_reference(cfg0, params0, x32.astype(np.float64))
@@ -858,8 +871,13 @@ def accuracy(dev, c: int = ACCURACY_C, block_frames: int = BLOCK_FRAMES,
             _, audio, _ = channelized_step(cfg, params,
                                            init_channelized_state(cfg, dev),
                                            x)
+            steps += 1
             got = audio.double().cpu().numpy()
             out[f"{name}_fir_{fir}_pfb_{pfb}"] = round(snr_db(ref, got), 1)
+    out["kernel_launches"] = launches = fused_tail_audio_tm.launches - before
+    if dev.type == "cuda" and launches != steps:
+        raise AssertionError(f"accuracy: kernel #1 launched {launches} "
+                             f"times for {steps} steps")
     return out
 
 

@@ -32,12 +32,21 @@ Phases (each fails the run on error):
    device memory at C=69,632, u8exact;
 6. the other paths through ``process_host`` at C=1,024, each with its
    launch counts and its audio held against the plain tail: (a) mixed
-   bandwidths through ``fused_receiver_tail`` and through the plain
-   per-channel fallback, (b) 9.6 kHz audio through ``fused_tail_tm``, (c)
+   bandwidths through ``fused_receiver_tail`` (on the card whatever
+   ``use_pallas_tail`` says) and through the plain per-channel fallback
+   (``tail_kernel="xla"``), (b) 9.6 kHz audio through ``fused_tail_tm``, (c)
    the fused filterbank through ``fused_pfb_tail_audio_tm``, (d) catch-up
    (``process_host_many``), capacity growth and slot scatter;
 7. timing of the other paths: back-to-back ms/block of (a), (b), (c) at
    C=1,024, and of (c) against the packed path at C=16,384 in turns;
+7b. widths: stock rates at C = 16, 32, 64, 100, 256 and 511 (below the
+   JAX package's 512 and off its 128-channel tile), kernel #1 once a
+   block, the audio against the same blocks through ``tail_kernel="xla"``,
+   the tones, both back-to-back ms/block; kernel #2 the same at C=100 on
+   the 9.6 kHz path; then one live pipeline on graphs at C=1,024 switched
+   uniform -> mixed -> uniform bandwidths (#1, #4, #1), its audio against
+   a plain pipeline across the same switches and its carried history
+   against that pipeline's after every block;
 8. the filterbank tiers (``pfb_precision``: highest, u8exact, default,
    high, bf16) on the main configuration at C=1,024 and C=16,384, fed
    8-bit-grid blocks: each tier's product SNR against a float64 product
@@ -67,16 +76,18 @@ Phases (each fails the run on error):
 12. the entry: ``entry()``'s step on the card against the same step on the
    CPU (1e-5, the FM flip rule);
 13. the server: the port's ``RadioApp`` in this process on the card (no
-   device named), HTTP on 127.0.0.1, three tone tuners for about ten
+   device named), HTTP on 127.0.0.1, four tone tuners for about ten
    seconds of real-time serving: tuner 0 at C=16,384 (channelized, every
    slot at the default bandwidths, so kernel #1 runs every block) with AM,
    FM, USB and LSB receivers, tuner 1 the demo topology at capacity 4 (the
-   direct engine), tuner 2 channelized at 256 slots, all taken. Requests:
-   /status, /tuners, the waterfalls; two seconds of WAV from the AM and FM
-   receivers of tuners 0 and 1 (1 kHz and 440 Hz within 2 Hz), a PUT
+   direct engine), tuner 2 channelized at 256 slots, all taken (kernel
+   #1), tuner 3 shaped like ``examples/mass_monitor.json`` (1,024 slots,
+   one FM receiver at 12.5 kHz: kernel #4). No tuner's tail may run plain
+   (``plain_tail``). Requests: /status, /tuners, the waterfalls; two
+   seconds of WAV from the AM and FM receivers of tuners 0 and 1 and the
+   FM receiver of tuner 3 (1 kHz and 440 Hz within 2 Hz), a PUT
    moving tuner 0's AM receiver to FM at +100 kHz (then 440 Hz), a POST
    and a DELETE of a receiver; a POST that grows tuner 2 to 512 slots (the
-   grown pipeline's warm block is the first to launch kernel #1 there; the
    new receiver's 1 kHz heard after the swap, captured in the growth
    build); a forced stall of tuner 0 (its service held until its ring
    holds four blocks) that the pump serves in one ``run_once``, a graph
@@ -86,8 +97,9 @@ Phases (each fails the run on error):
    holds fewer kernel events than the graph replays in it launched (or
    none while blocks were served), with the profiler's start, stop and
    export/parse ms. Every tuner's served blocks must be graph replays but
-   the eager warm before each capture. Kernel #1's
-   launches against the blocks of tuner 0 and of the grown tuner 2, and per
+   the eager warm before each capture. Kernel #1's launches against the
+   blocks of tuners 0 and 2 (both sides of the growth), kernel #4's
+   against tuner 3's, and per
    tuner the blocks, drops, the server's own real-time factor and
    ms/block, the pump's longest gap in each step, and the device's idle
    share in the window. Drops of the ring and of the tone source are
@@ -112,7 +124,9 @@ Phases (each fails the run on error):
    back-to-back ms/block beside the single card's, a profiled window
    (busy, idle share, launch calls a block: one on graphs; kernel events
    at least the replays' kernel nodes) and the halo recompute's own
-   device time; u8exact on graphs; path (b)'s 9.6 kHz audio on a (1, 2)
+   device time; the same at (4, 1) (2,560-row shards off the JAX tile:
+   kernel #1 on each, graph and eager bit-equal, within 3e-6 of the single
+   card); u8exact on graphs; path (b)'s 9.6 kHz audio on a (1, 2)
    mesh at C=1,024 (kernel #2 twice a block); the direct sharded engine at
    C=16 against ``FrontEndPipeline`` and bit-equal to its eager stages;
    ``run_capture_sharded`` over 8 blocks and a part-block against
@@ -164,6 +178,7 @@ PATH_BLOCKS = 8  # blocks through each of the paths (a) and (c)
 PATH_TIMED_BLOCKS = 8
 SERVER_SECONDS = 10.0  # real-time serving in the server phase
 GROW_FROM = 256  # the server's growing tuner: 256 slots, then 512
+MONITOR_CHANNELS = 1_024  # the server's mixed-bandwidth tuner
 HEAR_SECONDS = 2.0  # WAV audio read per receiver
 TONE_TOLERANCE_HZ = 2.0
 # the card's published peaks (NVIDIA H100 SXM data sheet): float32 outside
@@ -413,6 +428,16 @@ def tone_blocks(n: int, seed: int = 0, block_frames: int = BLOCK_FRAMES,
         z = src.read_block()
         out.append(np.stack([z.real, z.imag]).astype(np.float32))
     return out
+
+
+def mixed_controls(c: int):
+    """Mixed bandwidths, the server's shape of them: slot 0 AM at IF 0 with
+    a 12.5 kHz channel filter, slot 1 FM at +100 kHz, the rest at the
+    server's defaults for an empty slot (IF 0, 80 / 8 kHz, the first
+    slot's law): ``(ifs, modes, if bandwidths)``."""
+    ifs = [0, 100_000] + [0] * (c - 2)
+    modes = ["AM", "FM"] + ["AM"] * (c - 2)
+    return ifs, modes, [12_500] + [80_000] * (c - 1)
 
 
 def slot_controls(c: int):
@@ -924,12 +949,12 @@ def phase_other_paths(dev, results, kernels, main):
     # FM at +100 kHz with 80 / 8 kHz, the rest at the server's defaults for
     # an empty slot (IF 0, 80 / 8 kHz, the first slot's law)
     log("  -- (a) mixed bandwidths: the per-channel fallback")
-    ifs = [0, 100_000] + [0] * (c - 2)
-    modes = ["AM", "FM"] + ["AM"] * (c - 2)
-    ifbw = [12_500] + [80_000] * (c - 1)
+    ifs, modes, ifbw = mixed_controls(c)
     cfg_k = ch.ChannelizedConfig(num_channels=c, block_frames=BLOCK_FRAMES,
                                  use_pallas_tail=True)
     cfg_p = ch.ChannelizedConfig(num_channels=c, block_frames=BLOCK_FRAMES)
+    cfg_x = ch.ChannelizedConfig(num_channels=c, block_frames=BLOCK_FRAMES,
+                                 tail_kernel="xla")
     params = ch.make_channelized_params(cfg_k, ifs, ifbw, 8_000, modes,
                                         device=dev)
     if params.chan_toep is not None:
@@ -939,20 +964,31 @@ def phase_other_paths(dev, results, kernels, main):
     audio_k, _, _ = run_pipeline(cfg_k, params, blocks)
     expect_counts("(a) use_pallas_tail=True",
                   fused_receiver_tail=len(blocks))
-    kernels["fused_receiver_tail"]["launches"] = len(blocks)
     hear_tones("a_kernel_", cfg_k, audio_k, modes, results)
+    # the server's configuration: on the card the fallback takes kernel #4
+    # whatever use_pallas_tail says
     reset_counts()
     audio_p, _, _ = run_pipeline(cfg_p, params, blocks)
-    expect_counts("(a) use_pallas_tail=False")
-    hear_tones("a_plain_", cfg_p, audio_p, modes, results)
+    expect_counts("(a) use_pallas_tail=False",
+                  fused_receiver_tail=len(blocks))
+    kernels["fused_receiver_tail"]["launches"] = len(blocks)
+    hear_tones("a_card_", cfg_p, audio_p, modes, results)
+    if not torch.equal(audio_p, audio_k):
+        raise AssertionError("(a): the fallback's kernel differs with "
+                             "use_pallas_tail")
     with plain_tails():
-        ref, _, _ = run_pipeline(cfg_k, params, blocks)
-    against("(a) kernel step vs plain-tail step", audio_k, ref, params,
+        ref, _, _ = run_pipeline(cfg_p, params, blocks)
+    against("(a) kernel step vs plain-tail step", audio_p, ref, params,
             results, "a_step_vs_plain")
-    against("(a) kernel step vs plain fallback step", audio_k, audio_p,
+    # the plain fallback, asked for by tail_kernel="xla"
+    reset_counts()
+    audio_x, _, _ = run_pipeline(cfg_x, params, blocks)
+    expect_counts("(a) tail_kernel='xla'")
+    hear_tones("a_plain_", cfg_x, audio_x, modes, results)
+    against("(a) kernel step vs plain fallback step", audio_p, audio_x,
             params, results, "a_kernel_vs_fallback")
-    paths = {"a_kernel": (cfg_k, params, blocks),
-             "a_plain": (cfg_p, params, blocks)}
+    paths = {"a_kernel": (cfg_p, params, blocks),
+             "a_plain": (cfg_x, params, blocks)}
 
     # ---- (b) 9.6 kHz audio: no audio time tile, so the channel-rate kernel
     log("  -- (b) 9.6 kHz audio: fused_tail_tm + the Toeplitz audio FIR")
@@ -1212,9 +1248,9 @@ def graph_branches(dev):
                                             block_frames=256_000),
         "c_pallas_pfb_c1024": lambda: channelized(MAIN_CHANNELS,
                                                   tail_kernel="pallas_pfb"),
-        "a_plain_c1024": lambda: channelized(MAIN_CHANNELS, bw=12_500),
-        "a_kernel_c1024": lambda: channelized(MAIN_CHANNELS, bw=12_500,
-                                              use_pallas_tail=True),
+        "a_plain_c1024": lambda: channelized(MAIN_CHANNELS, bw=12_500,
+                                             tail_kernel="xla"),
+        "a_kernel_c1024": lambda: channelized(MAIN_CHANNELS, bw=12_500),
         "direct_c4": lambda: direct(4),
         "direct_c16": lambda: direct(16),
     }
@@ -1494,6 +1530,134 @@ def phase_path_timing(dev, results, paths):
                                           if n == "packed"]
     results[f"c{cw}_fused_pfb_stream_ms"] = [ms for n, ms in turns
                                              if n == "fused"]
+
+
+#: server widths below the JAX package's 512-channel threshold and off its
+#: 128-channel tile: on the card kernel #1 serves each of them
+WIDTHS = (16, 32, 64, 100, 256, 511)
+WIDTH_BLOCKS = 4
+WIDTH_TIMED_BLOCKS = 16
+CHANRATE_WIDTH = 100  # kernel #2 on the 9.6 kHz path at a small width
+SWITCH_BLOCKS = 2  # blocks on each side of a live bandwidth switch
+
+
+def phase_widths(dev, results):
+    """Stock rates at every width of WIDTHS: kernel #1 once a block through
+    ``process_host`` (graphs), the audio within section 2's bounds of the
+    same blocks through ``tail_kernel="xla"`` (the plain tail), the tones
+    heard, both back-to-back ms/block; then kernel #2 at CHANRATE_WIDTH on
+    the 9.6 kHz path the same way."""
+    import dataclasses
+
+    from webradio_tpu_torch.pipeline import channelized as ch
+
+    smi = nvidia_smi("name,power.limit")
+    out = {}
+    blocks = tone_blocks(WIDTH_BLOCKS, seed=31)
+
+    def width(c, kernel, cfg, blocks):
+        ifs, modes = slot_controls(c)
+        params = ch.make_channelized_params(cfg, ifs, 80_000, 8_000, modes,
+                                            device=dev)
+        plain = dataclasses.replace(cfg, tail_kernel="xla")
+        reset_counts()
+        audio, _, _ = run_pipeline(cfg, params, blocks)
+        expect_counts(f"C={c}", **{kernel: len(blocks)})
+        reset_counts()
+        ref, _, _ = run_pipeline(plain, params, blocks)
+        expect_counts(f"C={c}, tail_kernel='xla'")
+        tag = f"w{c}_{'chanrate_' if kernel == 'fused_tail_tm' else ''}"
+        hear_tones(tag, cfg, audio, modes, results)
+        against(f"C={c} {kernel} step vs plain tail", audio, ref, params,
+                results, tag + "vs_plain")
+        ms = stream_ms(cfg, params, blocks, WIDTH_TIMED_BLOCKS)
+        plain_ms = stream_ms(plain, params, blocks, WIDTH_TIMED_BLOCKS)
+        log(f"  C={c}: back to back {ms:.3f} ms/block with {kernel}, "
+            f"{plain_ms:.3f} plain ({smi})")
+        return {"kernel": kernel, "launches_per_block": 1,
+                "ms_per_block": ms, "plain_ms_per_block": plain_ms,
+                "max_audio_err": results[tag + "vs_plain_max_audio_err"],
+                "card": smi}
+
+    for c in WIDTHS:
+        cfg = ch.ChannelizedConfig(num_channels=c, block_frames=BLOCK_FRAMES)
+        out[c] = width(c, "fused_tail_audio_tm", cfg, blocks)
+        release()
+    cfg_b = ch.ChannelizedConfig(num_channels=CHANRATE_WIDTH,
+                                 audio_rate=9_600, block_frames=256_000)
+    out[f"{CHANRATE_WIDTH}_9600"] = width(
+        CHANRATE_WIDTH, "fused_tail_tm", cfg_b,
+        tone_blocks(3, seed=32, block_frames=cfg_b.block_frames))
+    results["widths"] = out
+
+
+def phase_switch(dev, results):
+    """One live ``ChannelizedPipeline`` on graphs goes uniform (kernel #1)
+    -> mixed bandwidths (kernel #4) -> uniform, SWITCH_BLOCKS blocks each,
+    its carried history converted at each switch; the same blocks through
+    a ``tail_kernel="xla"`` pipeline (the plain time-major tail, then the
+    plain fallback) across the same switches. The audio within section 2's
+    bounds, and after every block the carried history (in the mixed
+    domain) within 1e-6 of the plain pipeline's: no step at a switch."""
+    import dataclasses
+
+    import torch
+    from webradio_tpu_torch.pipeline import channelized as ch
+
+    c = MAIN_CHANNELS
+    cfg = ch.ChannelizedConfig(num_channels=c, block_frames=BLOCK_FRAMES)
+    plain = dataclasses.replace(cfg, tail_kernel="xla")
+    ifs, modes, ifbw = mixed_controls(c)
+    uniform = ch.make_channelized_params(cfg, ifs, 80_000, 8_000, modes,
+                                         device=dev)
+    mixed = ch.make_channelized_params(cfg, ifs, ifbw, 8_000, modes,
+                                       device=dev)
+    blocks = tone_blocks(3 * SWITCH_BLOCKS, seed=33)
+    runs = {}
+    for name, conf in (("kernel", cfg), ("plain", plain)):
+        pipe = ch.ChannelizedPipeline(conf, uniform)
+        reset_counts()
+        outs, hist, raw = [], [], []
+        for k, b in enumerate(blocks):
+            if k and k % SWITCH_BLOCKS == 0:
+                pipe.update_params(mixed if k == SWITCH_BLOCKS else uniform)
+            outs.append(keep(pipe.process_host(b)))
+            h = pipe.state.chan_hist
+            if pipe.carries_raw():
+                h = ch.switch_hist_domain(h, pipe.state.nco_phase,
+                                          pipe.params.residual_step, False)
+            hist.append(h.clone().cpu())  # the buffer is rewritten in place
+            raw.append(pipe.carries_raw())
+        outs = outs[1:] + [keep(pipe.flush())]
+        torch.cuda.synchronize()
+        launches = {n: f.launches for n, f in tail_wrappers().items() if
+                    f.launches}
+        runs[name] = (torch.cat([a for a, _ in outs]).cpu(), hist, raw,
+                      launches, pipe.graph_stats())
+        log(f"  {name}: history raw after each block {raw}, launches "
+            f"{launches}, graph {pipe.graph_stats()}")
+        del pipe
+    (audio, hist, raw, launches, graph), (ref, ref_hist, ref_raw, ref_l, _) = (
+        runs["kernel"], runs["plain"])
+    n = SWITCH_BLOCKS
+    if (raw != [False] * n + [True] * n + [False] * n or any(ref_raw)
+            or launches != {"fused_tail_audio_tm": 2 * n,
+                            "fused_receiver_tail": n} or ref_l
+            or graph["captures"] != 3):
+        raise AssertionError(f"switch: raw {raw}, launches {launches}, "
+                             f"plain {ref_l}, graph {graph}")
+    against("uniform -> mixed -> uniform, kernels vs the plain tails",
+            audio, ref, uniform, results, "switch_vs_plain")
+    step = [float((h - r).abs().max()) for h, r in zip(hist, ref_hist)]
+    # section 2's carries bound at unit signal level
+    scale = max(1.0, max(float(r.abs().max()) for r in ref_hist))
+    log(f"  carried history against the plain pipeline's after each block "
+        f"(peak {scale:.3f}): " + ", ".join(f"{e:.2e}" for e in step))
+    if not max(step) <= 1e-6 * scale:
+        raise AssertionError(f"switch: the carried history steps by "
+                             f"{max(step):.3e}")
+    results["switch"] = {"hist_err_per_block": step, "launches": launches,
+                         "graph": graph}
 
 
 def u8_blocks(n: int, seed: int = 0, block_frames: int = BLOCK_FRAMES):
@@ -2254,11 +2418,15 @@ def server_config(sink_path):
     """Tuner 0: C=16,384, "auto" (the channelized engine), four receivers
     at the default 80 / 8 kHz bandwidths; tuner 1: examples/demo_tone.json
     (capacity 4: the direct engine); tuner 2: GROW_FROM slots, channelized,
-    every slot taken (:func:`slot_controls`), below the kernel's "auto"
-    threshold, so one more receiver grows it across 512. Every tone tuner:
-    AM 1 kHz at IF 0, FM 440 Hz at +100 kHz. Last, two receivers with a
-    local audio sink: an AM one on tuner 0 writing ``sink_path`` (WAV) and
-    an AM one on tuner 1 playing on "pulse"."""
+    every slot taken (:func:`slot_controls`), kernel #1 on the card at any
+    width, and one more receiver grows it across the JAX package's 512;
+    tuner 3: examples/mass_monitor.json's shape (1,024 channelized slots,
+    one FM receiver at 12.5 kHz, so the slots do not share the FIR kernels
+    and kernel #4 serves them) with an 8 kHz audio filter where the example
+    has 4 kHz. Every tone tuner: AM 1 kHz at IF 0, FM 440 Hz at +100 kHz.
+    Last, two receivers with a local audio sink: an AM one on tuner 0
+    writing ``sink_path`` (WAV) and an AM one on tuner 1 playing on
+    "pulse"."""
     tuner = {"driver": "tone", "centre_frequency": 124_325_000,
              "sample_rate": SAMPLE_RATE, "block_frames": BLOCK_FRAMES}
     grow = [{"tuner": 2, "if_frequency": f, "demodulator": m}
@@ -2267,7 +2435,9 @@ def server_config(sink_path):
         "server": {"port": 0, "host": "127.0.0.1", "html": "html"},
         "tuners": [dict(tuner, capacity=WIDE_CHANNELS, engine="auto"),
                    dict(tuner, capacity=4),
-                   dict(tuner, capacity=GROW_FROM, engine="channelized")],
+                   dict(tuner, capacity=GROW_FROM, engine="channelized"),
+                   dict(tuner, capacity=MONITOR_CHANNELS,
+                        engine="channelized")],
         "receivers": [
             {"tuner": 0, "if_frequency": 0, "demodulator": "AM"},
             {"tuner": 0, "if_frequency": 100_000, "demodulator": "FM"},
@@ -2277,6 +2447,8 @@ def server_config(sink_path):
             {"tuner": 1, "if_frequency": 100_000, "demodulator": "FM",
              "af_bandwidth": 8_000},
             *grow,
+            {"tuner": 3, "if_frequency": 100_000, "demodulator": "FM",
+             "if_bandwidth": 12_500, "af_bandwidth": 8_000},
             {"tuner": 0, "if_frequency": 0, "demodulator": "AM",
              "audio_sink": f"file:{sink_path}"},
             {"tuner": 1, "if_frequency": 0, "demodulator": "AM",
@@ -2591,7 +2763,7 @@ def phase_server(results):
         restore_start()
 
     fes = list(app.front_ends)  # close() empties the app's list
-    fe0, fe1, fe2 = fes
+    fe0, fe1, fe2, fe3 = fes
     port = app.server.port
     log(f"  up on 127.0.0.1:{port} in {time.perf_counter() - t0:.1f} s: "
         + ", ".join(f"tuner {fe.uuid} {type(fe.pipeline).__name__} at "
@@ -2611,10 +2783,16 @@ def phase_server(results):
         raise AssertionError("a 'pulse' sink was bound without libpulse")
     results["server_profiler_warm_ms"] = app.profiler_warm_ms
     if [type(fe.pipeline).__name__ for fe in fes] != [
-            "ChannelizedPipeline", "FrontEndPipeline", "ChannelizedPipeline"
-    ] or fe2.pipeline.cfg.num_channels != GROW_FROM:
+            "ChannelizedPipeline", "FrontEndPipeline", "ChannelizedPipeline",
+            "ChannelizedPipeline"
+    ] or fe2.pipeline.cfg.num_channels != GROW_FROM or (
+            fe3.pipeline.params.chan_toep is not None):
         raise AssertionError("the engines are not channelized / direct / "
-                             f"channelized at {GROW_FROM}")
+                             f"channelized at {GROW_FROM} / channelized "
+                             "with mixed bandwidths")
+    if any(fe.plain_tail() for fe in fes):
+        raise AssertionError("a tail runs plain: "
+                             f"{[fe.plain_tail() for fe in fes]}")
     served_from = time.monotonic()
     failed = watch = None
     probe = TraceProbe(fes)
@@ -2670,8 +2848,10 @@ def phase_server(results):
         rx1 = [r.uuid for r in app.receivers[4:6]]
         rate = fe0.cfg.audio_rate
         watch.mark("four WAV listeners")
+        rx3 = app.receivers[6 + GROW_FROM].uuid
         hear_all(port, {"t0_am": (rx0[0], 1_000.0), "t0_fm": (rx0[1], 440.0),
-                        "t1_am": (rx1[0], 1_000.0), "t1_fm": (rx1[1], 440.0)},
+                        "t1_am": (rx1[0], 1_000.0), "t1_fm": (rx1[1], 440.0),
+                        "t3_fm_12k5": (rx3, 440.0)},
                  rate, results, "server_")
         watch.mark("PUT")
         status, _ = http_call(port, "PUT", f"/receivers/{rx0[0]}",
@@ -2934,24 +3114,32 @@ def phase_server(results):
             f"{st['realtime_factor']} ({ms:.3f} ms/block sampled over "
             f"{st['step_samples']} blocks, dispatch to completion), "
             f"throughput since start {st['throughput_factor']}")
-    # kernel #1: every block of tuner 0 and of the grown tuner 2 (none of
-    # tuner 2 before it crossed 512), plus the warm blocks of tuner 0's
-    # pipeline and of the grown one, and at most a block in flight each
+    # kernel #1: every block of tuner 0 and of tuner 2 on both sides of its
+    # growth, plus the warm blocks of tuner 0's and tuner 2's pipelines and
+    # of the grown one, and at most a block in flight each; kernel #4:
+    # every block of tuner 3, its warm, at most one in flight
     served0 = fe0.block_count  # the pump has stopped: final counts
     grown = fe2.block_count - swapped_at[0]
+    served2, served3 = fe2.block_count, fe3.block_count
     others = {n: c for n, c in launches.items()
-              if n != "fused_tail_audio_tm" and c}
+              if n not in ("fused_tail_audio_tm", "fused_receiver_tail")
+              and c}
     n1 = launches["fused_tail_audio_tm"]
+    n4 = launches["fused_receiver_tail"]
     log(f"  kernel #1: {n1} launches for {served0} blocks of tuner {fe0.uuid}"
-        f" and {grown} of the grown tuner {fe2.uuid}")
-    if not served0 + grown + 2 <= n1 <= served0 + grown + 4 or others:
+        f" and {served2} of tuner {fe2.uuid} ({swapped_at[0]} before its "
+        f"growth, {grown} after); kernel #4: {n4} for {served3} blocks of "
+        f"tuner {fe3.uuid}")
+    if (not served0 + served2 + 3 <= n1 <= served0 + served2 + 6
+            or not served3 + 1 <= n4 <= served3 + 2 or others):
         raise AssertionError(f"server: launches {launches} for {served0} + "
-                             f"{grown} blocks")
+                             f"{served2} and {served3} blocks")
     out["grown_blocks"] = grown
+    out["t2_blocks_before_growth"] = swapped_at[0]
     # every served block a graph replay but the eager warm before each
     # capture: the start's (one each), the growth build's (off the pump),
     # and tuner 1's two recaptures on the pump
-    for fe, off_pump in ((fe0, 1), (fe1, 1), (fe2, 2)):
+    for fe, off_pump in ((fe0, 1), (fe1, 1), (fe2, 2), (fe3, 1)):
         st = fe.graph_stats()
         log(f"  tuner {fe.uuid}: {fe.block_count} blocks served, graph "
             f"{st}, {fe.graph_kernels_per_block()} kernel nodes a replay")
@@ -3121,7 +3309,35 @@ def phase_sharded(dev, results, kernels):
             release()
     log(f"  graph against eager at C={c} on (2, 2): audio bit-equal in "
         f"every turn; single card {single_ms:.3f} ms/block")
-    del ref, first, audio
+
+    # (4, 1): time shards of 2,560 rows, off the JAX kernel's 1,024-row
+    # tile, so the JAX rule ran the plain tail there; kernel #1 on each
+    # shard now, on graphs and against the eager stages and the single card
+    mesh41 = virtual_mesh(4, 1)
+    if not tsc._tm_uses_kernel(cfg, cfg.chan_frames // 4, c, params):
+        raise AssertionError("the (4, 1) mesh's shards do not take #1")
+    runs41 = {}
+    for g in (True, False):
+        reset_counts()
+        audio41, fe41 = sharded_run(cfg, params, mesh41, blocks, g)
+        expect_counts(f"sharded (4, 1) {'graph' if g else 'eager'}",
+                      fused_tail_audio_tm=4 * len(blocks))
+        ms41 = stream_ms(cfg, params, blocks, TIMED_BLOCKS, pipe=fe41)
+        runs41[g] = (audio41, ms41, fe41.graph_stats())
+        del fe41
+        release()
+    if not torch.equal(runs41[True][0], runs41[False][0]):
+        raise AssertionError("sharded (4, 1): the graphs differ from the "
+                             "eager stages")
+    against(f"sharded (4, 1) vs single card, C={c}", runs41[True][0], ref,
+            params, results, "sharded_41_vs_single", SHARDED_BOUND)
+    log(f"  (4, 1) on graphs {runs41[True][1]:.3f} ms/block, eager "
+        f"{runs41[False][1]:.3f} (bit-equal), graph {runs41[True][2]}")
+    out["mesh_4x1"] = {"graph_ms_per_block": runs41[True][1],
+                       "eager_ms_per_block": runs41[False][1],
+                       "graph": runs41[True][2],
+                       "launches_per_block": 4}
+    del ref, first, audio, runs41, audio41
     # the halo recompute timed alone on one shard
     p0 = fe.mesh.local_positions[0]
     prm = fe._placed[p0]
@@ -3187,7 +3403,10 @@ def phase_sharded(dev, results, kernels):
     params_s = ch.make_channelized_params(cfg_s, ifs_b, ifbw, 8_000, modes_b,
                                           device=dev)
     blocks_s = tone_blocks(4, seed=18)
-    ref_s, _, _ = run_pipeline(cfg_s, params_s, blocks_s)
+    # the single card's plain fallback: the stage body runs plain (kernel
+    # #4 across time shards is not ported to the sharded engine)
+    ref_s, _, _ = run_pipeline(dataclasses.replace(cfg_s, tail_kernel="xla"),
+                               params_s, blocks_s)
     stage = {g: sharded_run(cfg_s, params_s, mesh, blocks_s, g)
              for g in (True, False)}
     if stage[True][1].time_major or stage[True][1].graph_stats()[
@@ -3275,8 +3494,10 @@ def phase_sharded(dev, results, kernels):
     # the dry run on a 4-position virtual mesh: the kernels on the card
     reset_counts()
     errs = dryrun_multichip(4, devices=[dev] * 4)
-    # #1 twice single-card, four shards twice
-    expect_counts("dryrun_multichip(4)", fused_tail_audio_tm=10)
+    # #1 twice single-card at C=4 (the card's rule takes it at any width;
+    # the shards of that run take the plain stage body) and at C=256, and
+    # four shards twice at C=256
+    expect_counts("dryrun_multichip(4)", fused_tail_audio_tm=12)
     log(f"  dryrun_multichip(4): {json.dumps(errs)}")
     out["dryrun"] = errs
     out["wall_s"] = time.perf_counter() - t_start
@@ -3851,6 +4072,12 @@ def main() -> int:
     log("== timing of the other paths")
     phase_path_timing(dev, results, paths)
     del paths
+    release()
+    log(f"== widths {', '.join(map(str, WIDTHS))}: kernel #1 against the "
+        f"plain tail; kernel #2 at C={CHANRATE_WIDTH}, 9.6 kHz")
+    phase_widths(dev, results)
+    log("== a live switch: uniform -> mixed -> uniform bandwidths")
+    phase_switch(dev, results)
     release()
     log("== the filterbank tiers (C=1024, C=16384) and their kernel variants")
     phase_tiers(dev, results, kernels)

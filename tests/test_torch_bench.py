@@ -140,6 +140,7 @@ def test_accuracy_mode_on_the_cpu():
     keys = [f"{s}_fir_{f}_pfb_{p}" for s in ("noise", "fm_tones", "u8_noise")
             for f, p in pairs]
     assert all(np.isfinite(out[k]) for k in keys)
+    assert out["kernel_launches"] == 0  # the CPU: the plain versions
     assert out["fm_tones_fir_highest_pfb_highest"] > FLOAT32_FLOOR_DB
     # the bfloat16-stored product costs the FM tones tens of dB of that
     assert (out["fm_tones_fir_highest_pfb_bf16"]

@@ -284,7 +284,9 @@ def test_pfb_kernel_refuses_what_its_tiling_does_not_take(cuda_device):
     shifted = shifted.view_as(frames).copy_(frames)
     with pytest.raises(ValueError, match="16-byte aligned"):
         tail_tm._launch_pfb(shifted, *common[1:], *carry, True, 640)
-    narrow, narrow_carry = _edge_case(10, 320, 64, cuda_device)
-    with pytest.raises(ValueError, match="multiple of 128"):
+    # it stages whole 64-channel blocks of weights (the 128-channel tile
+    # is the Pallas kernel's: 64 channels run)
+    narrow, narrow_carry = _edge_case(10, 320, 96, cuda_device)
+    with pytest.raises(ValueError, match="multiple of 64"):
         tail_tm._launch_pfb(*narrow, *narrow_carry, True, 640)
     assert tail_tm.fused_pfb_tail_audio_tm.launches == before

@@ -202,6 +202,9 @@ def _edge_case(seed, nd, c, dev):
     (2_048, 128, 720),     # ragged last tile (720, 720, 608)
     (2_048, 128, 1_936),   # last tile of 112 rows: shorter than two halos
     (256, 16_384, 64),     # the wide grid: 256 channel groups, K-row tiles
+    (192, 16, 640),        # one partial block: a warp of 16, three idle
+    (2_048, 100, 720),     # a partial last block of 36 channels
+    (256, 511, 64),        # a partial last warp of 15 channels
 ])
 def test_chanrate_kernel_tile_edges_on_card(cuda_device, nd, c, tile_rows):
     prod, common, carry = _edge_case(nd + c, nd, c, cuda_device)
@@ -230,9 +233,14 @@ def test_chanrate_kernel_refuses_what_its_tiling_does_not_take(cuda_device):
         launch(prod, common, carry, 48)  # shorter than the halo
     with pytest.raises(ValueError, match="multiple of the decimation"):
         launch(prod[:248].contiguous(), common, carry, 640)
-    narrow = _edge_case(6, 256, 64, cuda_device)
-    with pytest.raises(ValueError, match="multiple of 128"):
-        launch(*narrow, 640)  # a block takes 64, the wrapper whole 128s
+    # any channel count runs (the 128-channel tile is the Pallas kernel's);
+    # the shaping FIR must have the 64 taps the kernel is built for
+    short = fir.toeplitz_weights(firdesign.design_lowpass_fir(80_000,
+                                                              240_000, 32),
+                                 1, 64)
+    with pytest.raises(ValueError, match="64-tap"):
+        launch(prod, (*common[:2], T(short).to(cuda_device), common[3]),
+               carry, 640)
     before = tail_tm.fused_tail_tm.launches
     with pytest.raises(ValueError, match="contiguous"):
         launch(prod, common, (carry[0].T.contiguous().T, *carry[1:]), 640)

@@ -99,14 +99,30 @@ def test_legacy_tail_mirrors_the_selection_rule():
             T(s["coeff"]), T(s["mode"])] + [T(a) for a in s["carry"]]
     with pytest.raises(ValueError, match="multiple of 1024"):
         tail.fused_receiver_tail(torch.zeros(2, C, 1_000), *args)
-    with pytest.raises(ValueError, match="multiple of 8"):
-        tail.fused_receiver_tail(torch.zeros(2, 12, ND), *args)
     with pytest.raises(ValueError, match="no tail kernel"):
         tail.fused_receiver_tail(torch.zeros(2, C, ND, device="meta"), *args)
     from webradio_tpu.ops import pallas_tail
 
-    assert (tail.CHAN_TILE, tail.TIME_CHUNK) == (pallas_tail.CHAN_TILE,
-                                                 pallas_tail.TIME_CHUNK)
+    # the time chunk is the JAX kernel's; the 8-channel tile is a Pallas
+    # tile that the CUDA kernel (one block a channel) does without: 12
+    # channels run, each as its own 1-channel call computes it
+    assert tail.TIME_CHUNK == pallas_tail.TIME_CHUNK
+    assert tail.shape_refusal(ND, K) is None
+    assert "64-tap" in tail.shape_refusal(ND, 32)
+    w = _setup(4, C=12)  # 12 channels run, as three calls of 4 do
+    x = T(w["u"](2, 12, ND))
+    args12 = [T(w["phase0"].astype(np.int64)), T(w["step"].astype(np.int64)),
+              T(w["coeff"]), T(w["mode"])] + [T(a) for a in w["carry"]]
+    got = tail.fused_receiver_tail(x, *args12)
+    assert got[0].shape == (12, ND)
+    for j in range(0, 12, 4):
+        cut = [a[j:j + 4] for a in args12[:4]] + [
+            a[:, j:j + 4].contiguous() for a in args12[4:]]
+        part = tail.fused_receiver_tail(x[:, j:j + 4].contiguous(), *cut)
+        # the channel axis of audio, raw history, FM lag and power
+        for g, p, axis in zip(got, part, (0, 1, 1, 0)):
+            torch.testing.assert_close(g.narrow(axis, j, 4), p, rtol=0,
+                                       atol=0)
 
 
 @pytest.fixture

@@ -493,5 +493,12 @@ def test_column_order_is_a_stable_permutation_for_any_mode():
             assert mixed == 0
 
     check()
-    with pytest.raises(ValueError, match="16 channels"):
-        tail_tm.law_sorted_columns([0] * 8)
+    # a partial last warp: the kernel's channels past the count sort as
+    # law 3, the default
+    assert (tail_tm.law_sorted_columns([0] * 8)
+            == tail_tm.law_sorted_columns([0] * 8 + [3] * 8))
+    assert tail_tm.law_sorted_columns([1] * 5) == tail_tm.law_sorted_columns(
+        [1] * 5 + [7] * 11)
+    for bad in ([], [0] * 17):
+        with pytest.raises(ValueError, match="1 to 16 channels"):
+            tail_tm.law_sorted_columns(bad)

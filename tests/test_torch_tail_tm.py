@@ -153,6 +153,50 @@ def test_kernel_matches_plain_version_on_card(cuda_device, fast, tile_rows):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("c", [16, 32, 64, 100, 256, 511])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_kernel_at_any_channel_count_on_card(cuda_device, c, bf16):
+    """Every width the card's selection sends to the kernel, the partial
+    last block of 64 (and a partial warp of 16) included, over two carried
+    blocks against the plain version on the same inputs; the "bf16" tier's
+    product wants a multiple of 4 channels and refuses 511."""
+    rng = np.random.default_rng(c + 7 * bf16)
+    dev = cuda_device
+    u = lambda *shape: T(rng.uniform(-0.5, 0.5, shape).astype(
+        np.float32)).to(dev)
+    s = _setup(41)
+    step = T(rng.integers(0, 2**32, c)).to(dev)
+    phase = T(rng.integers(0, 2**31, c)).to(dev)
+    mode = T(rng.integers(0, 4, c).astype(np.int32)).to(dev)
+    carry = ref_carry = (u(K - 1, c), u(K - 1, c), u(2, c), u(K - 1, c))
+    for _ in range(2):
+        prod = u(ND, 2 * c)
+        if bf16:
+            prod = prod.bfloat16()
+        args = (phase, step, T(s["w"]).to(dev), T(s["wa"]).to(dev), D, mode)
+        if tail_tm.shape_refusal(ND, c, D, bf16=bf16):
+            assert bf16 and c % 4
+            with pytest.raises(ValueError):
+                tail_tm.fused_tail_audio_tm(prod, prod, *args, *carry,
+                                            packed=True, fast=True)
+            return
+        before = tail_tm.fused_tail_audio_tm.launches
+        got = tail_tm.fused_tail_audio_tm(prod, prod, *args, *carry,
+                                          packed=True, fast=True)
+        torch.cuda.synchronize()
+        assert tail_tm.fused_tail_audio_tm.launches == before + 1
+        ref = tail_tm.fused_tail_audio_tm_ref(prod, prod, *args, *ref_carry,
+                                              packed=True, fast=True)
+        for g, r, atol in zip(got, ref, (1e-5, 1e-6, 1e-6, 1e-6, 1e-5)):
+            np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
+                                       rtol=0, atol=atol)
+        np.testing.assert_allclose(got[5].cpu().numpy(),
+                                   ref[5].cpu().numpy(), rtol=1e-5, atol=0)
+        carry, ref_carry = got[1:5], ref[1:5]
+        phase = (phase + ND * step) & 0x7FFFFFFF
+
+
+@pytest.mark.cuda
 def test_kernel_separate_planes_and_input_checks_on_card(cuda_device):
     s = _setup(31)
     dev = cuda_device
@@ -173,9 +217,24 @@ def test_kernel_separate_planes_and_input_checks_on_card(cuda_device):
     with pytest.raises(TypeError, match="dtype"):
         tail_tm.fused_tail_audio_tm(ci, cq, *args[:5], args[5].long(),
                                     *carry)
-    with pytest.raises(ValueError, match="multiple of 128"):
-        tail_tm.fused_tail_audio_tm(ci[:, :64].contiguous(),
-                                    cq[:, :64].contiguous(), *args, *carry)
+    # the 128-channel tile is the Pallas kernel's: 100 channels run, a
+    # partial last block of 64, on separate planes too
+    n = 100
+    args_n = [args[0][:n], args[1][:n], *args[2:5], args[5][:n]]
+    carry_n = [x[:, :n].contiguous() for x in carry]
+    planes_n = (ci[:, :n].contiguous(), cq[:, :n].contiguous())
+    got = tail_tm.fused_tail_audio_tm(*planes_n, *args_n, *carry_n, fast=True)
+    ref = tail_tm.fused_tail_audio_tm_ref(*planes_n, *args_n, *carry_n,
+                                          fast=True)
+    torch.cuda.synchronize()
+    for g, r, atol in zip(got, ref, (1e-5, 1e-6, 1e-6, 1e-6, 1e-5)):
+        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
+                                   rtol=0, atol=atol)
+    short = T(fir.toeplitz_weights(
+        firdesign.design_lowpass_fir(80_000, 240_000, 32), 1, 128)).to(dev)
+    with pytest.raises(ValueError, match="64-tap"):
+        tail_tm.fused_tail_audio_tm(ci, cq, *args[:2], short, *args[3:],
+                                    *carry)
     with pytest.raises(ValueError, match="tile_rows"):
         tail_tm._launch(ci, cq, *args, *carry, False, True, 120)
 

@@ -362,6 +362,7 @@ def test_status(app):
     assert st["engine"] == "direct" and st["sample_rate"] == FS
     assert st["channel_capacity"] == 2
     assert "last_dispatch_ms" in st and "fanout_dropped" in st
+    assert st["graph"]["plain_tail"] is None  # the CPU: the JAX rule
     assert root["receivers"][app.receivers[0].uuid]["demodulator"] == "AM"
 
 

@@ -6,10 +6,14 @@ with every field as a numpy array (``jax.tree.map(np.asarray, x)`` on the
 JAX side) and return the port's NamedTuple on ``device`` (None: the CUDA
 device, and an error where there is none). Layouts are the same; the
 uint32 NCO phase and step become int64 tensors holding the same value.
-``chan_hist`` holds the mixed-domain tail, except under
-``cfg.use_pallas_tail``, where it holds the RAW pre-mix tail: as in the JAX
-package, a state is not carried across that flag. Nothing here imports
-JAX: the inputs are duck-typed.
+A JAX ``chan_hist`` holds the mixed-domain tail, except under
+``cfg.use_pallas_tail``, where it holds the RAW pre-mix tail; the port's
+holds the raw tail wherever its per-channel kernel runs, which on the card
+is the per-channel fallback whatever that flag says
+(``pipeline.channelized.carries_raw``). :func:`state_from_numpy` given the
+configuration and the port's parameters carries the history into the
+domain the port will run. Nothing here imports JAX: the inputs are
+duck-typed.
 """
 
 from __future__ import annotations
@@ -18,7 +22,12 @@ import numpy as np
 import torch
 
 from . import require_cuda
-from .pipeline.channelized import ChannelizedParams, ChannelizedState
+from .pipeline.channelized import (
+    ChannelizedParams,
+    ChannelizedState,
+    carries_raw,
+    switch_hist_domain,
+)
 from .pipeline.state import (
     FrontEndParams,
     FrontEndState,
@@ -76,11 +85,23 @@ def _carry(cls, nt, device):
     return cls(**{f: _tensor(f, getattr(nt, f), device) for f in cls._fields})
 
 
-def state_from_numpy(s, device: torch.device | str | None = None
+def state_from_numpy(s, device: torch.device | str | None = None,
+                     cfg=None, params: ChannelizedParams | None = None
                      ) -> ChannelizedState:
     """The port's :class:`ChannelizedState` from a JAX one of numpy
-    arrays."""
-    return _carry(ChannelizedState, s, device)
+    arrays. With ``cfg`` (the configuration both steps share) and
+    ``params`` (the port's, on ``device``) the history goes into the
+    domain the port's step of those parameters carries: a JAX state is raw
+    exactly under ``cfg.use_pallas_tail``; without them it is carried as it
+    is."""
+    state = _carry(ChannelizedState, s, device)
+    if cfg is None or params is None:
+        return state
+    raw = carries_raw(cfg, params)
+    if raw == cfg.use_pallas_tail:
+        return state
+    return state._replace(chan_hist=switch_hist_domain(
+        state.chan_hist, state.nco_phase, params.residual_step, raw))
 
 
 def frontend_params_from_numpy(p, device: torch.device | str | None = None

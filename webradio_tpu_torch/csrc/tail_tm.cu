@@ -17,7 +17,14 @@
 // scratch; CUDA blocks run in no order.
 //
 // Grid: (channel group x time tile) with halo recompute. A block owns NC =
-// 64 consecutive channels and one tile of rows [r0, r1). A tile with r0 > 0
+// 64 consecutive channels and one tile of rows [r0, r1). The last group may
+// hold fewer than 64 (AUDIO and CHANRATE take any channel count): a column
+// past C is computed on channel C-1's product under the LSB law and never
+// stored (columns share nothing, so it touches no live channel), and a
+// warp with no channel below C returns once the column orders are made.
+// Those loads keep their addresses clamped, not predicated: a select that
+// consumes a load at once stalls there, and the product's loads are
+// issued a chunk ahead to hide their latency. A tile with r0 > 0
 // starts HALO rows early and re-mixes rows [r0-HALO, r0) from the product:
 // the LO is closed-form in (phase0 + n*step) mod 2^31, so nothing sequential
 // is needed. With the audio FIR HALO = 2K: those rows rebuild the K-1 mixed
@@ -374,7 +381,8 @@ tail_tm_kernel(const void* __restrict__ xa, const void* __restrict__ xb,
   // every class is uniform as the channels stand
   bool ident;
   {
-    const int m = mode[cw + cm];
+    // a channel past C sorts as the default law
+    const int m = cw + cm < C ? mode[cw + cm] : 3;
     const int key = static_cast<unsigned>(m) > 3u ? 3 : m;
     int below = 0;
     uint32_t same = 0;
@@ -390,17 +398,23 @@ tail_tm_kernel(const void* __restrict__ xa, const void* __restrict__ xb,
     if (lane < WC) colch[warp * WC + col] = cm;
   }
   __syncthreads();
+  // past the last channel: nothing of this warp is stored (no block barrier
+  // follows outside PFB, whose channel count is whole blocks)
+  if (KIND != PFB && cw >= C) return;
 
-  // mix role: column cm holds channel c_mix
+  // mix role: column cm holds channel c_mix, a live one below C; its
+  // product loads read column c_ld
   const int c_mix = cw + colch[warp * WC + cm];
-  const uint32_t p0 = static_cast<uint32_t>(phase0[c_mix]);
-  const uint32_t st = static_cast<uint32_t>(step[c_mix]);
+  const bool live = c_mix < C;
+  const int c_ld = live ? c_mix : C - 1;
+  const uint32_t p0 = live ? static_cast<uint32_t>(phase0[c_mix]) : 0u;
+  const uint32_t st = live ? static_cast<uint32_t>(step[c_mix]) : 0u;
   // demod role: columns 4t..4t+3
   int chd[4], md[4];
 #pragma unroll
   for (int cc = 0; cc < 4; ++cc) {
     chd[cc] = cw + colch[warp * WC + 4 * t + cc];
-    md[cc] = mode[chd[cc]];
+    md[cc] = chd[cc] < C ? mode[chd[cc]] : 3;
   }
   // lane offset of a fragment load: row t (and t + 4) of eight rows, the
   // column pair 2g, 2g+1
@@ -425,7 +439,7 @@ tail_tm_kernel(const void* __restrict__ xa, const void* __restrict__ xb,
   int start;
   if (r0 == 0) {
     // block-carried state: rows -(K-1)..-1 of the mixed and demod streams
-    for (int j = hm; j < K - 1; j += 2) {
+    for (int j = hm; live && j < K - 1; j += 2) {
       ring_i[swz(S + 1 + j, cm)] = hist_i0[(size_t)j * C + c_mix];
       ring_q[swz(S + 1 + j, cm)] = hist_q0[(size_t)j * C + c_mix];
       if (HAS_AUDIO_FIR)
@@ -433,8 +447,10 @@ tail_tm_kernel(const void* __restrict__ xa, const void* __restrict__ xb,
     }
 #pragma unroll
     for (int cc = 0; cc < 4; ++cc) {
-      lag_i[cc] = prev0[chd[cc]];
-      lag_q[cc] = prev0[C + chd[cc]];
+      if (chd[cc] < C) {
+        lag_i[cc] = prev0[chd[cc]];
+        lag_q[cc] = prev0[C + chd[cc]];
+      }
     }
     start = 0;
   } else {
@@ -490,7 +506,8 @@ tail_tm_kernel(const void* __restrict__ xa, const void* __restrict__ xb,
       const int row = G + AD * (2 * t + (i & 1));
       if (row >= r0 && row < r1) {
         const int ch = cw + colch[warp * WC + 2 * g + (i >> 1)];
-        out[(size_t)(row / AD) * C + ch] = (d_lh[i] + d_hl[i]) + d_hh[i];
+        if (ch < C)
+          out[(size_t)(row / AD) * C + ch] = (d_lh[i] + d_hl[i]) + d_hh[i];
       }
     }
   };
@@ -509,10 +526,12 @@ tail_tm_kernel(const void* __restrict__ xa, const void* __restrict__ xb,
     if constexpr (BF16_IN) {
       const auto* const pa = static_cast<const __nv_bfloat16*>(xa);
       const auto* const pb = static_cast<const __nv_bfloat16*>(xb);
+      // C is a multiple of 4: a load's four channels are all live or none
+      const int group = min(cw + 4 * (cm & 3), C - 4);
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const size_t at = (size_t)(n + 2 * (4 * j + (cm >> 2)) + hm) *
-                              row_stride + cw + 4 * (cm & 3);
+                              row_stride + group;
         rawi[j] = *reinterpret_cast<const uint2*>(pa + at);
         rawq[j] = *reinterpret_cast<const uint2*>(pb + at);
       }
@@ -521,8 +540,8 @@ tail_tm_kernel(const void* __restrict__ xa, const void* __restrict__ xb,
       const float* const pb = static_cast<const float*>(xb);
 #pragma unroll
       for (int r = 0; r < HR; ++r) {
-        cxi[r] = pa[(size_t)(n + 2 * r + hm) * row_stride + c_mix];
-        cxq[r] = pb[(size_t)(n + 2 * r + hm) * row_stride + c_mix];
+        cxi[r] = pa[(size_t)(n + 2 * r + hm) * row_stride + c_ld];
+        cxq[r] = pb[(size_t)(n + 2 * r + hm) * row_stride + c_ld];
       }
     }
   };
@@ -919,15 +938,16 @@ tail_tm_kernel(const void* __restrict__ xa, const void* __restrict__ xb,
               p = ba + cm - k1 * WC;
 #pragma unroll 4
               for (int k = k1; k < K; ++k) acc = fmaf(ha[k], p[k * WC], acc);
-              out[(size_t)(nn / D) * C + c_mix] = acc;
+              if (live) out[(size_t)(nn / D) * C + c_mix] = acc;
             }
           }
         } else if (n0 >= r0) {
           // ---- channel-rate audio: rows n0 + g and n0 + g + 8; 16 bytes a
-          // lane where the column order is the identity
+          // lane where the column order is the identity and the four
+          // channels are live and 16-byte aligned
           float* const o0 = out + (size_t)(n0 + g) * C;
           float* const o1 = o0 + (size_t)8 * C;
-          if (ident) {
+          if (ident && (C & 3) == 0 && chd[0] < C) {
             *reinterpret_cast<float4*>(o0 + chd[0]) =
                 make_float4(a[0][0], a[1][0], a[2][0], a[3][0]);
             *reinterpret_cast<float4*>(o1 + chd[0]) =
@@ -935,8 +955,10 @@ tail_tm_kernel(const void* __restrict__ xa, const void* __restrict__ xb,
           } else {
 #pragma unroll
             for (int cc = 0; cc < 4; ++cc) {
-              o0[chd[cc]] = a[cc][0];
-              o1[chd[cc]] = a[cc][1];
+              if (chd[cc] < C) {
+                o0[chd[cc]] = a[cc][0];
+                o1[chd[cc]] = a[cc][1];
+              }
             }
           }
         }
@@ -958,14 +980,14 @@ tail_tm_kernel(const void* __restrict__ xa, const void* __restrict__ xb,
     p += __shfl_xor_sync(FULL, p, 4);
     p += __shfl_xor_sync(FULL, p, 8);
     p += __shfl_xor_sync(FULL, p, 16);
-    if (g == 0) power_part[(size_t)tile * C + chd[cc]] = p;
+    if (g == 0 && chd[cc] < C) power_part[(size_t)tile * C + chd[cc]] = p;
   }
 
   if (r1 == nd) {
     // carries: the last K-1 mixed rows, the last shaped row, the last K-1
     // demod rows. The mixed rows are window rows 1..K-1 of the chunk that
     // would come next (slot cur): ring rows (cur+1)*S + j, wrapped
-    for (int j = hm; j < K - 1; j += 2) {
+    for (int j = hm; live && j < K - 1; j += 2) {
       int at = (cur + 1) * S + 1 + j;
       if (at >= WIN) at -= WIN;
       hist_i[(size_t)j * C + c_mix] = ring_i[swz(at, cm)];
@@ -977,8 +999,10 @@ tail_tm_kernel(const void* __restrict__ xa, const void* __restrict__ xb,
     if (g == 0) {
 #pragma unroll
       for (int cc = 0; cc < 4; ++cc) {
-        prev[chd[cc]] = lag_i[cc];
-        prev[C + chd[cc]] = lag_q[cc];
+        if (chd[cc] < C) {
+          prev[chd[cc]] = lag_i[cc];
+          prev[C + chd[cc]] = lag_q[cc];
+        }
       }
     }
   }
@@ -1013,7 +1037,10 @@ int launch(const void* xa, const void* xb, const void* xc,
   const auto misaligned = [](const void* p, int bytes) {
     return reinterpret_cast<uintptr_t>(p) % bytes != 0;
   };
-  if (taps != K || C % NC != 0 || nd % rows != 0 || tile_rows % rows != 0 ||
+  // AUDIO and CHANRATE take any channel count (a bfloat16 product's a
+  // multiple of 4: 8-byte loads); PFB stages whole 64-channel blocks
+  if (taps != K || C < 1 || (KIND == PFB && C % NC != 0) || nd % rows != 0 ||
+      tile_rows % rows != 0 ||
       tile_rows < halo || D < 1 || nd % D != 0 || row_stride < 1 ||
       misaligned(out, 16) ||
       (KIND == PFB &&
@@ -1022,7 +1049,8 @@ int launch(const void* xa, const void* xb, const void* xc,
         (in == T_HIGH && misaligned(xc, 16)))) ||
       (KIND != PFB && (in < 0 || in > 1 ||
                        (in == IN_BF16 &&
-                        (row_stride % 4 != 0 || misaligned(xa, 8) ||
+                        (C % 4 != 0 || row_stride % 4 != 0 ||
+                         misaligned(xa, 8) ||
                          misaligned(xb, 8)))))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1045,8 +1073,9 @@ int launch(const void* xa, const void* xb, const void* xc,
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_tiles = (nd + tile_rows - 1) / tile_rows;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid = KIND == PFB ? dim3(n_tiles, C / NC)
-                                : dim3(C / NC, n_tiles);
+  const int groups = (C + NC - 1) / NC;
+  const dim3 grid = KIND == PFB ? dim3(n_tiles, groups)
+                                : dim3(groups, n_tiles);
   kernel<<<grid, NTHR, smem_bytes, s>>>(
       xa, xb, xc, row_stride, static_cast<const long long*>(phase0),
       static_cast<const long long*>(step),

@@ -91,6 +91,17 @@ def nco_mix(x: torch.Tensor, phase0: torch.Tensor,
     return torch.stack(_mix(x[0], x[1], s, c))
 
 
+def nco_unmix(x: torch.Tensor, phase0: torch.Tensor,
+              phase_step: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`nco_mix`: ``x [2, C, N]`` turned back by the
+    LO itself at the same phases and law, so ``nco_unmix(nco_mix(x))`` is
+    ``x`` to float32 rounding."""
+    idx = torch.arange(x.shape[-1], dtype=torch.int64, device=phase0.device)
+    phases = (phase0[:, None] + idx[None, :] * phase_step[:, None]) & PHASE_MASK
+    s, c = _table_sincos(phases)
+    return torch.stack(_mix(x[0], x[1], -s, c))
+
+
 def _factored_sincos(n: int, phase0: torch.Tensor, phase_step: torch.Tensor):
     """``sin``/``cos`` of the LO phase for samples ``0..n-1``, ``[n, C]``,
     by the coarse/fine factorization of ``webradio_tpu.ops.nco``: with

@@ -24,10 +24,22 @@ from .launches import count_launch
 from .nco import PHASE_MASK, nco_mix
 from .tail_tm import KERNEL_TAPS, _check, _empty
 
-#: the JAX kernel's selection rule, mirrored so both packages accept the
-#: same shapes (the CUDA kernel itself tiles freely over channels)
-CHAN_TILE = 8
+#: samples per CUDA block (the JAX kernel's time chunk too): nd must be a
+#: multiple. The kernel runs one block per channel, so any channel count
+#: passes (the JAX kernel's 8-channel tile is a Pallas tile)
 TIME_CHUNK = 1024
+
+
+def shape_refusal(nd: int, taps: int) -> str | None:
+    """Why the kernel cannot take these shapes, or None: the CUDA
+    kernel's own test, which the wrapper raises with and the card's
+    selection rule reads (``pipeline.channelized.tail_branch``)."""
+    if taps != KERNEL_TAPS:
+        return (f"the kernel is built for {KERNEL_TAPS}-tap shaping FIRs, "
+                f"got {taps}")
+    if nd < TIME_CHUNK or nd % TIME_CHUNK or nd // TIME_CHUNK > 65_535:
+        return f"block {nd} must be a multiple of {TIME_CHUNK}"
+    return None
 
 
 def fused_receiver_tail_ref(chan_in, phase0, phase_step, chan_coeff, mode,
@@ -57,9 +69,9 @@ def _launch(chan_in, phase0, phase_step, chan_coeff, mode, raw_hist,
     dev = chan_in.device
     _, c, nd = chan_in.shape
     k = chan_coeff.shape[-1]
-    if k != KERNEL_TAPS:
-        raise ValueError(f"the kernel is built for {KERNEL_TAPS}-tap "
-                         f"shaping FIRs, got {k}")
+    why = shape_refusal(nd, k)
+    if why:
+        raise ValueError(why)
     for name, x, dt, shape in (
         ("chan_in", chan_in, torch.float32, (2, c, nd)),
         ("phase0", phase0, torch.int64, (c,)),
@@ -102,7 +114,7 @@ def fused_receiver_tail(
 
     Args (the JAX function's):
       chan_in: ``[2, C, nd]`` float32; ``nd`` a multiple of
-        :data:`TIME_CHUNK`, ``C`` of :data:`CHAN_TILE`.
+        :data:`TIME_CHUNK`, any ``C``.
       phase0 / phase_step: ``[C]`` int64 holding the uint32 residual NCO
         phase of this block's first sample and the per-sample step.
       chan_coeff: ``[C, K]`` float32 design-order coefficients.
@@ -117,10 +129,7 @@ def fused_receiver_tail(
     CUDA tensors go to the kernel (``fused_receiver_tail.launches`` counts
     each launch); CPU tensors to :func:`fused_receiver_tail_ref`.
     """
-    c, nd = chan_in.shape[1], chan_in.shape[2]
-    if c % CHAN_TILE:
-        raise ValueError(f"channel count {c} must be a multiple of "
-                         f"{CHAN_TILE}")
+    nd = chan_in.shape[2]
     if nd % TIME_CHUNK:
         raise ValueError(f"block {nd} must be a multiple of {TIME_CHUNK}")
     args = (chan_in, phase0, phase_step, chan_coeff, mode, raw_hist,

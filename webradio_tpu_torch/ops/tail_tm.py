@@ -50,9 +50,13 @@ from .fir import fir_decimate_toeplitz_tm, taps_of
 from .launches import count_launch
 from .nco import nco_mix_tm, nco_mix_tm_exact
 
-#: channels per kernel tile; the JAX kernel's rule, kept so the same
-#: channel counts are accepted by both packages (a CUDA block takes 64)
+#: the JAX kernel's channel tile, which the CPU's selection rule keeps
+#: (``pipeline.channelized.tm_kernel_rule``); the CUDA kernels take any
+#: channel count
 CHAN_TILE = 128
+#: channels per CUDA block; the fused filterbank kernel stages whole
+#: blocks of weight columns, so its channel count is a multiple
+BLOCK_CHANNELS = 64
 #: rows per kernel chunk, one tensor-core tile (nd must be a multiple)
 CHUNK_ROWS = 16
 #: rows per in-kernel filterbank product (the fused-filterbank kernel's nd
@@ -86,7 +90,7 @@ def tile_rows_for(nd: int, channels: int) -> int:
     TILE_ROWS. Wide configurations have blocks to spare and save the halo
     recompute (20% of the rows at 640, 5% at 2,560)."""
     rows = 4 * TILE_ROWS
-    if (channels // 64) * -(-nd // rows) >= MIN_BLOCKS:
+    if -(-channels // BLOCK_CHANNELS) * -(-nd // rows) >= MIN_BLOCKS:
         return rows
     return TILE_ROWS
 
@@ -104,11 +108,16 @@ def law_sorted_columns(mode) -> list[int]:
     uniform as the channels stand (one law on every slot, laws cycling with
     period 4), the order is the identity. It decides only where a channel
     sits in the warp, never what is computed for it.
+
+    The last warp of a channel count that is not a multiple of 16 is
+    partial: ``mode`` then holds its 1..15 live channels, and the kernel's
+    channels past the count (``len(mode)`` .. 15) sort as law 3.
     """
     key = [m if 0 <= m <= 3 else 3 for m in (int(m) for m in mode)]
     n = WARP_CHANNELS
-    if len(key) != n:
-        raise ValueError(f"a warp holds {n} channels, got {len(key)}")
+    if not 0 < len(key) <= n:
+        raise ValueError(f"a warp holds 1 to {n} channels, got {len(key)}")
+    key += [3] * (n - len(key))
     if all(key[j] == key[j & 3] for j in range(n)):
         return list(range(n))
     order = sorted(range(n), key=lambda j: key[j])  # sorted() is stable
@@ -228,15 +237,40 @@ def _reversed_kernel(name, w, decimation, dev):
     return w[:k, 0].contiguous()
 
 
+def shape_refusal(nd: int, c: int, decimation: int = 1,
+                  taps: int = KERNEL_TAPS, pfb: bool = False,
+                  bf16: bool = False) -> str | None:
+    """Why the time-major kernels cannot take these shapes, or None: the
+    CUDA kernels' own test, which the wrappers raise with and the card's
+    selection rule reads (``pipeline.channelized.tm_kernel_rule``).
+    ``pfb`` is the fused filterbank kernel, ``bf16`` a bfloat16 product.
+    Any channel count passes (a partial last block of 64); rows come in
+    chunks of :data:`CHUNK_ROWS` (product groups of
+    :data:`PFB_GROUP_ROWS` for the fused filterbank)."""
+    rows = PFB_GROUP_ROWS if pfb else CHUNK_ROWS
+    if taps != KERNEL_TAPS:
+        return (f"the kernel is built for {KERNEL_TAPS}-tap shaping and "
+                f"audio FIRs, not {taps}")
+    if c < 1:
+        return f"channels {c} must be at least 1"
+    if pfb and c % BLOCK_CHANNELS:
+        return (f"channels {c} must be a multiple of {BLOCK_CHANNELS} for "
+                "the fused filterbank")
+    if bf16 and c % 4:
+        return f"channels {c} of a bfloat16 product must be a multiple of 4"
+    if decimation < 1 or nd % decimation or nd % rows:
+        return (f"nd={nd} must be a multiple of the decimation {decimation}"
+                f" and of {rows}")
+    return None
+
+
 def _check_common(dev, nd, c, d, tile_rows, halo, phase0, phase_step, mode,
                   chan_hist_i, chan_hist_q, demod_prev, audio_hist=None,
-                  rows=CHUNK_ROWS):
+                  rows=CHUNK_ROWS, bf16=False):
     k = KERNEL_TAPS
-    if c % CHAN_TILE:
-        raise ValueError(f"channels {c} must be a multiple of {CHAN_TILE}")
-    if d < 1 or nd % d or nd % rows:
-        raise ValueError(f"nd={nd} must be a multiple of the decimation "
-                         f"{d} and of {rows}")
+    why = shape_refusal(nd, c, d, pfb=rows == PFB_GROUP_ROWS, bf16=bf16)
+    if why:
+        raise ValueError(why)
     if tile_rows % rows or tile_rows < halo:
         raise ValueError(f"tile_rows={tile_rows} must be a multiple of "
                          f"{rows} and at least {halo}")
@@ -286,12 +320,12 @@ def _empty(dev, *shape):
 def _launch_audio(wrapper, entry, lead, dev, nd, c, phase0, phase_step,
                   w_toep, audio_toep, decimation, mode, chan_hist_i,
                   chan_hist_q, demod_prev, audio_hist, fast, tile_rows,
-                  variant, rows=CHUNK_ROWS):
+                  variant, rows=CHUNK_ROWS, bf16=False):
     """Launch an audio-fused kernel through the library's ``entry`` and
     count it on ``wrapper``; ``lead`` is the entry point's leading
     arguments, the product planes or the frames and weights; ``variant``
-    the product's type (1: bfloat16) or the filterbank tier's code;
-    ``rows`` is the row granule of ``nd`` and ``tile_rows``."""
+    the product's type (1: bfloat16, also ``bf16``) or the filterbank
+    tier's code; ``rows`` is the row granule of ``nd`` and ``tile_rows``."""
     from . import _build
 
     d = int(decimation)
@@ -299,7 +333,8 @@ def _launch_audio(wrapper, entry, lead, dev, nd, c, phase0, phase_step,
     h_shape = _reversed_kernel("w_toep", w_toep, 1, dev)
     h_audio = _reversed_kernel("audio_toep", audio_toep, d, dev)
     _check_common(dev, nd, c, d, tile_rows, 2 * k, phase0, phase_step, mode,
-                  chan_hist_i, chan_hist_q, demod_prev, audio_hist, rows)
+                  chan_hist_i, chan_hist_q, demod_prev, audio_hist, rows,
+                  bf16)
     n_tiles = -(-nd // tile_rows)
     audio48 = _empty(dev, nd // d, c)
     hist_i, hist_q, ahist = (_empty(dev, k - 1, c) for _ in range(3))
@@ -333,7 +368,7 @@ def _launch(ci_planes, cq_planes, phase0, phase_step, w_toep, audio_toep,
         (xi, xq, row_stride), ci_planes.device, nd, c,
         phase0, phase_step, w_toep, audio_toep, decimation, mode,
         chan_hist_i, chan_hist_q, demod_prev, audio_hist, fast, tile_rows,
-        in_bf16)
+        in_bf16, bf16=bool(in_bf16))
 
 
 def _weights_split(pfb_weights, pfb_weights_split, pfb_precision):
@@ -387,7 +422,7 @@ def _launch_chanrate(ci_planes, cq_planes, phase0, phase_step, w_toep, mode,
                                                  packed)
     h_shape = _reversed_kernel("w_toep", w_toep, 1, dev)
     _check_common(dev, nd, c, 1, tile_rows, k, phase0, phase_step, mode,
-                  chan_hist_i, chan_hist_q, demod_prev)
+                  chan_hist_i, chan_hist_q, demod_prev, bf16=bool(in_bf16))
     n_tiles = -(-nd // tile_rows)
     audio = _empty(dev, nd, c)
     hist_i, hist_q = _empty(dev, k - 1, c), _empty(dev, k - 1, c)

@@ -25,12 +25,17 @@ the three tail halos from the shard's last ``2K - 1`` product rows and
 then runs the single-card time-major tail on the shard: kernel #1
 (``ops.tail_tm.fused_tail_audio_tm``), or kernel #2 (``fused_tail_tm``)
 and the Toeplitz audio FIR where the local block admits no audio time
-tile, wherever the JAX package's per-shard rule selects its Pallas kernel
-(:func:`_tm_uses_kernel` on the LOCAL sizes), else the plain tail. Its
+tile, wherever the single-card step's rule selects it on the shard's
+LOCAL sizes (:func:`_tm_uses_kernel`: on the card at every width, on the
+CPU the JAX package's per-shard rule), else the plain tail. Its
 halos move in one exchange, so the body is two segments of work on a card
 between three moves. The stage body (:data:`STAGE_STAGES`) serves shards
 whose slots do not share one FIR kernel, stage by stage with an exchange
-between stages. Neither calls kernel #3 or #4 (as in JAX).
+between stages, plain on every device: neither body calls kernel #3 or #4
+(the JAX package's sharded engine has no per-channel kernel branch either;
+the per-channel kernel's raw history across time shards needs a design of
+its own). On the card a front end whose tails run plain says why in
+``plain_tail``, and in the log when it is built.
 
 The next block's carries are the last time shard's
 (:meth:`.comm.Comm.from_last_into`), and the squelch gate reads the whole
@@ -42,6 +47,8 @@ demod law).
 """
 
 from __future__ import annotations
+
+import logging
 
 import torch
 
@@ -57,14 +64,12 @@ from ..ops.nco import (
 )
 from ..ops.precision import full_fp32
 from ..ops.tail_tm import (
-    CHAN_TILE,
     fused_tail_audio_tm,
     fused_tail_tm,
     tail_after_mix_tm,
 )
+from ..pipeline import channelized as _ch
 from ..pipeline.channelized import (
-    PALLAS_TM_AUTO_THRESHOLD,
-    SELECT_TIME_TILE,
     ChannelizedConfig,
     ChannelizedParams,
     ChannelizedState,
@@ -98,6 +103,8 @@ PARAMS_AXES = ChannelizedParams(
 STATE_AXES = ChannelizedState(pfb_hist=None, nco_phase=0, chan_hist=1,
                               demod_prev=1, audio_hist=0)
 
+log = logging.getLogger(__name__)
+
 
 def _tail_rows(cfg, prm, mix_tm, y2, phase, c_local):
     """The shard's last ``2K - 1`` product rows, mixed (``[2K-1, C]``
@@ -130,19 +137,10 @@ def _tail_rows(cfg, prm, mix_tm, y2, phase, c_local):
 
 def _tm_uses_kernel(cfg: ChannelizedConfig, nd_local: int, c_local: int,
                     params) -> bool:
-    """Per-shard twin of ``pipeline.channelized._use_kernel_tm`` (the JAX
-    package's ``_tm_uses_pallas``): the kernel rule on the shard's local
-    sizes."""
-    if cfg.tail_kernel == "xla":
-        return False
-    if cfg.tail_kernel == "auto" and c_local < PALLAS_TM_AUTO_THRESHOLD:
-        return False
-    return (
-        params.chan_toep is not None
-        and nd_local % SELECT_TIME_TILE == 0
-        and c_local % CHAN_TILE == 0
-        and SELECT_TIME_TILE % params.chan_toep.shape[1] == 0
-    )
+    """Per-shard twin of ``pipeline.channelized._use_kernel_tm``: the one
+    rule (``pipeline.channelized.tm_kernel_rule``) on the shard's local
+    sizes (on the CPU the JAX package's ``_tm_uses_pallas``)."""
+    return _ch.tm_kernel_rule(cfg, nd_local, c_local, params)
 
 
 def _tm_body_eligible(cfg: ChannelizedConfig, t_shards: int,
@@ -329,6 +327,27 @@ class ShardedChannelizedFrontEnd(ShardedPipeline):
                  _segmented: bool | None = None):
         check_channelized_mesh(cfg, mesh)
         super().__init__(cfg, params, mesh, comm, graph, _segmented)
+        why = self.plain_tail
+        if why:
+            log.warning("sharded channelized front end (%d channels, mesh "
+                        "%dx%d): the tails run plain on the card: %s",
+                        cfg.num_channels, mesh.time, mesh.chan, why)
+
+    @property
+    def plain_tail(self) -> str | None:
+        """On the card, why the shards' tails run plain although
+        ``tail_kernel`` does not ask for it, else None (on the CPU the JAX
+        rule decides)."""
+        prm = self._placed[self.mesh.local_positions[0]]
+        if not _ch.on_card(prm.mode) or self.cfg.tail_kernel == "xla":
+            return None
+        if not self.time_major:
+            return ("the per-channel body of the sharded engine has no "
+                    "kernel yet")
+        nd_local = (self.cfg.block_frames // self.mesh.time
+                    // self.cfg.num_bins)
+        why = _ch.tm_kernel_refusal(self.cfg, nd_local, self.c_local, prm)
+        return why and f"time-major tail kernel on each shard: {why}"
 
     @property
     def time_major(self) -> bool:

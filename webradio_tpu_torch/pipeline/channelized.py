@@ -18,11 +18,20 @@ server's block pump runs once per block from 16 receivers up:
      path), ``ops.tail_tm.fused_pfb_tail_audio_tm`` on the im2col frames
      (``tail_kernel="pallas_pfb"``), ``ops.tail_tm.fused_tail_tm`` plus the
      Toeplitz audio FIR where the audio decimation admits no audio time
-     tile (``audio_rate=9_600``), the plain time-major chain below the
-     "auto" threshold, and for slots whose bandwidths differ the
-     per-channel fallback, plain or through ``ops.tail.fused_receiver_tail``
-     (``use_pallas_tail=True``);
+     tile (``audio_rate=9_600``), and for slots whose bandwidths differ the
+     per-channel fallback, through ``ops.tail.fused_receiver_tail`` or
+     plain;
   4. squelch and gain scale.
+
+Which tail runs (:func:`tail_branch`): on a CUDA device every tail that a
+ported kernel computes runs that kernel, at any channel count, unless
+``tail_kernel="xla"`` asks for the plain tail (the way to read the plain
+side on the card) or the kernel refuses the shapes (a FIR length other
+than 64), which the pipeline says when it is built (``plain_tail``). On the
+CPU the JAX package's rule picks the branch exactly (the time-major kernel
+from :data:`PALLAS_TM_AUTO_THRESHOLD` channels on its Pallas tiles, the
+per-channel kernel under ``use_pallas_tail``), and each kernel's plain
+version computes it, which is what the CPU tests hold against JAX.
 
 Layouts are the JAX package's, so states and parameters carry over
 (``webradio_tpu_torch.convert``). The control plane is here too:
@@ -41,6 +50,7 @@ copied back, never aliased with the carries they read.
 from __future__ import annotations
 
 import dataclasses
+import logging
 import math
 from typing import NamedTuple
 
@@ -66,14 +76,17 @@ from ..ops.fir import (
 )
 from ..ops.firdesign import FIR_LENGTH, design_lowpass_fir_cached
 from ..ops.nco import (
+    PHASE_MASK,
     nco_advance,
     nco_mix,
     nco_mix_tm,
     nco_mix_tm_fast,
     nco_phase_step,
+    nco_unmix,
 )
 from ..ops.spectrum import DEFAULT_FFT_SIZE, spectrum_accumulate, spectrum_db
 from ..ops.tail import fused_receiver_tail
+from ..ops.tail import shape_refusal as channel_shape_refusal
 from ..ops.tail_tm import (
     CHAN_TILE,
     fused_pfb_tail_audio_tm,
@@ -81,8 +94,11 @@ from ..ops.tail_tm import (
     fused_tail_tm,
     tail_after_mix_tm,
 )
+from ..ops.tail_tm import shape_refusal as tm_shape_refusal
 from .frontend import HostPipeline, squelch_scale
 from .state import _squelch_array, expand_controls
+
+log = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,12 +108,15 @@ class ChannelizedConfig:
 
     ``fir_precision`` accepts all four names; the port computes each as
     float32 (hx5, hx4 and high are TPU MXU pass counts). ``tail_kernel``
-    "auto" takes the kernel from :data:`PALLAS_TM_AUTO_THRESHOLD` channels,
-    "pallas" always, "xla" never; "pallas_pfb" is "pallas" with the
-    filterbank product made inside the kernel. ``use_pallas_tail`` takes
-    the per-channel (time-minor) branch through its kernel; ``chan_hist``
-    then carries the RAW pre-mix tail, so a state is not carried across
-    that flag. ``pfb_precision`` picks the filterbank product's law
+    "xla" runs the plain tails on every device; on the card "auto" and
+    "pallas" take the kernels at every width, and on the CPU (the JAX
+    rule) "auto" takes the time-major kernel from
+    :data:`PALLAS_TM_AUTO_THRESHOLD` channels and "pallas" always;
+    "pallas_pfb" is "pallas" with the filterbank product made inside the
+    kernel. ``use_pallas_tail`` takes the per-channel (time-minor) branch
+    through its kernel on every device (on the card that branch takes it
+    anyway); ``chan_hist`` then carries the RAW pre-mix tail
+    (:func:`carries_raw`). ``pfb_precision`` picks the filterbank product's law
     (``ops.channelizer``); "pallas_pfb" takes "highest", "default" and
     "high" (the kernel makes the product), as in the JAX package.
     """
@@ -203,7 +222,7 @@ class ChannelizedState(NamedTuple):
     pfb_hist: torch.Tensor  # [2, K_p - 1] float32
     nco_phase: torch.Tensor  # [C] int64 holding uint32 (residual)
     #: [2, C, K - 1] float32: the mixed-domain tail, or the RAW selected-bin
-    #: tail under cfg.use_pallas_tail
+    #: tail where the per-channel kernel runs (:func:`carries_raw`)
     chan_hist: torch.Tensor
     demod_prev: torch.Tensor  # [2, C] float32
     audio_hist: torch.Tensor  # [C, K - 1] float32
@@ -323,9 +342,12 @@ def init_channelized_state(
 def grow_channelized_state(state: ChannelizedState,
                            new_channels: int) -> ChannelizedState:
     """Carry state across a capacity growth: the shared filterbank history
-    is width-independent; per-channel carries pad with init zeros. Valid
-    across the plain and kernel time-major tails (both carry the MIXED
-    FIR tail, so a width-driven "auto" flip keeps the carry meaningful)."""
+    is width-independent; per-channel carries pad with init zeros, which
+    are zeros in either history domain. Valid across the plain and kernel
+    time-major tails (both carry the MIXED FIR tail, so a width-driven
+    "auto" flip keeps the carry meaningful); a growth that moves between
+    the mixed and the raw domain converts first
+    (:meth:`ChannelizedPipeline.state_for`)."""
     pad = new_channels - int(state.nco_phase.shape[0])
     if pad < 0:
         raise ValueError("capacity can only grow")
@@ -349,29 +371,141 @@ def mode_set_of(modes) -> tuple[int, ...]:
     return tuple(sorted({int(m) for m in np.asarray(modes).ravel()}))
 
 
-#: channel count from which "auto" takes the fused tail kernel — the JAX
-#: package's value, kept so the same configurations select the kernel in
-#: both packages (the H100 crossover is not measured yet)
+#: channel count from which "auto" takes the fused tail kernel on the CPU:
+#: the JAX package's value (a v5e crossover of Pallas against XLA's
+#: fusions), kept so the CPU selects as the JAX package does. On the card
+#: the other side of the choice is the plain reference, so the kernel
+#: serves at every width
 PALLAS_TM_AUTO_THRESHOLD = 512
-#: the JAX kernels' time tile; nd must be a multiple for any time-major
-#: kernel branch, the channel-rate-audio kernel included (the selection
-#: rule is mirrored, the CUDA kernels themselves tile freely)
+#: the JAX kernels' time tile; the CPU's rule wants nd a multiple for any
+#: time-major kernel branch (the CUDA kernels take rows in 16s)
 SELECT_TIME_TILE = 1024
 
 
-def _use_kernel_tm(cfg: ChannelizedConfig, nd: int, params) -> bool:
-    """Whether a fused time-major tail kernel applies (the JAX package's
-    ``_use_pallas_tm`` rule)."""
-    if cfg.tail_kernel == "xla":
+def on_card(x: torch.Tensor) -> bool:
+    """Whether the card's selection applies to a step whose tensors sit
+    where ``x`` does: on a CUDA device every tail that a ported kernel
+    computes runs that kernel; elsewhere the JAX package's rule picks the
+    branch and each kernel's plain version computes it. (A CPU test
+    replaces this function to run the card's choice through the plain
+    versions.)"""
+    return x.device.type == "cuda"
+
+
+def tm_kernel_refusal(cfg: ChannelizedConfig, nd: int, c: int,
+                      params) -> str | None:
+    """Why the time-major kernel that a step (or a shard) of ``nd`` rows
+    and ``c`` channels would launch refuses its shapes, or None (the
+    kernel's own test, ``ops.tail_tm.shape_refusal``)."""
+    pfb = (cfg.tail_kernel == "pallas_pfb"
+           and _audio_time_tile(nd, cfg.audio_decim,
+                                params.chan_toep.shape[1]) > 0)
+    return tm_shape_refusal(nd, c, cfg.audio_decim, cfg.fir_length, pfb=pfb,
+                            bf16=cfg.pfb_precision == "bf16" and not pfb)
+
+
+def tm_kernel_rule(cfg: ChannelizedConfig, nd: int, c: int, params) -> bool:
+    """Whether the time-major tail of a step, or of a shard, over ``nd``
+    rows and ``c`` channels runs a kernel; the one rule of the single-card
+    step and of each shard (``parallel.sharded_channelized``). On the card:
+    unless ``tail_kernel="xla"`` or the kernel refuses the shapes. On the
+    CPU: the JAX package's ``_use_pallas_tm`` on the same sizes."""
+    if cfg.tail_kernel == "xla" or params.chan_toep is None:
         return False
-    if cfg.tail_kernel == "auto" and cfg.num_channels < PALLAS_TM_AUTO_THRESHOLD:
+    if on_card(params.mode):
+        return tm_kernel_refusal(cfg, nd, c, params) is None
+    if cfg.tail_kernel == "auto" and c < PALLAS_TM_AUTO_THRESHOLD:
         return False
     return (
-        params.chan_toep is not None
-        and nd % SELECT_TIME_TILE == 0
-        and cfg.num_channels % CHAN_TILE == 0
+        nd % SELECT_TIME_TILE == 0
+        and c % CHAN_TILE == 0
         and SELECT_TIME_TILE % params.chan_toep.shape[1] == 0
     )
+
+
+def _use_kernel_tm(cfg: ChannelizedConfig, nd: int, params) -> bool:
+    """Whether the single-card step's time-major tail runs a kernel
+    (:func:`tm_kernel_rule` at the full width)."""
+    return tm_kernel_rule(cfg, nd, cfg.num_channels, params)
+
+
+def _use_tm(cfg: ChannelizedConfig, nd: int, params) -> bool:
+    """Whether the step takes the time-major tail (every slot shares the
+    FIR kernels and the blocks hold whole Toeplitz tiles) rather than the
+    per-channel fallback: the JAX package's rule on every device."""
+    return (
+        not cfg.use_pallas_tail
+        and params.chan_toep is not None
+        and params.audio_toep is not None
+        and nd % params.chan_toep.shape[1] == 0
+        and (nd // cfg.audio_decim) % params.audio_toep.shape[1] == 0
+    )
+
+
+def _use_kernel_channel(cfg: ChannelizedConfig, nd: int, params) -> bool:
+    """Whether the per-channel fallback runs its kernel
+    (``ops.tail.fused_receiver_tail``): under ``use_pallas_tail`` on every
+    device (its wrapper raises where it refuses the shapes), and on the
+    card unless ``tail_kernel="xla"`` or the kernel refuses them."""
+    if cfg.use_pallas_tail:
+        return True
+    return (on_card(params.mode) and cfg.tail_kernel != "xla"
+            and channel_shape_refusal(nd, cfg.fir_length) is None)
+
+
+def tail_branch(cfg: ChannelizedConfig, params) -> tuple[bool, bool]:
+    """``(time_major, kernel)``: the tail a step of these parameters runs,
+    the time-major one or the per-channel fallback, through a kernel or
+    plain."""
+    nd = cfg.chan_frames
+    if _use_tm(cfg, nd, params):
+        return True, _use_kernel_tm(cfg, nd, params)
+    return False, _use_kernel_channel(cfg, nd, params)
+
+
+def carries_raw(cfg: ChannelizedConfig, params) -> bool:
+    """Whether a step of these parameters carries the RAW selected-bin
+    history in ``chan_hist`` (the per-channel kernel re-mixes it) rather
+    than the mixed one (every other tail)."""
+    return tail_branch(cfg, params) == (False, True)
+
+
+def tail_refusal(cfg: ChannelizedConfig, params) -> str | None:
+    """On the card, why a step of these parameters runs a plain tail that
+    ``tail_kernel`` does not ask for (a kernel refuses the shapes), else
+    None; None on the CPU, where the JAX rule decides."""
+    if not on_card(params.mode) or cfg.tail_kernel == "xla":
+        return None
+    nd = cfg.chan_frames
+    if _use_tm(cfg, nd, params):
+        why = tm_kernel_refusal(cfg, nd, cfg.num_channels, params)
+        return why and f"time-major tail kernel: {why}"
+    if cfg.use_pallas_tail:
+        return None  # asked for by name: its wrapper raises, nothing is plain
+    why = channel_shape_refusal(nd, cfg.fir_length)
+    return why and f"per-channel tail kernel: {why}"
+
+
+def switch_hist_domain(chan_hist: torch.Tensor, nco_phase: torch.Tensor,
+                       residual_step: torch.Tensor,
+                       to_raw: bool) -> torch.Tensor:
+    """``chan_hist [2, C, K-1]`` carried into the other history domain.
+
+    The mixed tail is the raw one mixed at the table law (the per-channel
+    branch's LO, the kernel's and the plain fallback's alike, whatever
+    ``fast_nco`` says) at the ``K-1`` samples before the block whose first
+    sample has phase ``nco_phase``: ``to_raw`` turns it back with the LO
+    itself. The per-channel kernel re-mixes a raw history with exactly
+    these phasors (``ops.tail.fused_receiver_tail_ref``), so across a
+    switch it shapes the history that the plain fallback would have read,
+    and the time-major tail after it reads what the plain fallback would
+    have carried. ``residual_step`` is the one the raw history is mixed
+    with: the new parameters' going to the kernel, the old ones' coming
+    from it."""
+    k1 = chan_hist.shape[-1]
+    step = residual_step[:chan_hist.shape[1]]
+    start = (nco_phase - k1 * step) & PHASE_MASK
+    return (nco_unmix if to_raw else nco_mix)(chan_hist, start, step)
 
 
 def _audio_time_tile(nd: int, d: int, fir_tile: int) -> int:
@@ -408,14 +542,7 @@ def _channelized_step(cfg, params, state, iq, time_major):
     c = cfg.num_channels
 
     # ---- preferred path: the time-major tail on the filterbank product
-    use_tm = (
-        not cfg.use_pallas_tail
-        and params.chan_toep is not None
-        and params.audio_toep is not None
-        and nd % params.chan_toep.shape[1] == 0
-        and (nd // d) % params.audio_toep.shape[1] == 0
-    )
-    if use_tm:
+    if _use_tm(cfg, nd, params):
         if _use_kernel_tm(cfg, nd, params):
             has_tile = _audio_time_tile(nd, d, params.chan_toep.shape[1])
             lo = (state.nco_phase, params.residual_step)
@@ -496,8 +623,8 @@ def _channelized_step(cfg, params, state, iq, time_major):
     chan_in, pfb_hist = pfb_channelize_direct(
         iq, params.pfb_weights, cfg.num_bins, state.pfb_hist,
         precision=cfg.pfb_precision, weights_split=params.pfb_weights_split)
-    if cfg.use_pallas_tail:
-        # chan_hist carries the RAW selected-bin tail in this mode
+    if _use_kernel_channel(cfg, nd, params):
+        # chan_hist carries the RAW selected-bin tail here
         audio_if, chan_hist, demod_prev, power = fused_receiver_tail(
             chan_in, state.nco_phase, params.residual_step,
             params.chan_coeff, params.mode, state.chan_hist.contiguous(),
@@ -557,19 +684,67 @@ def channelized_step_serving(
 class ChannelizedPipeline(HostPipeline):
     """The channelized engine's pipeline: :func:`channelized_step_serving`
     behind the double-buffered :class:`.frontend.HostPipeline` interface
-    (the JAX pipeline's); per-block audio ``[audio_frames, C]``."""
+    (the JAX pipeline's); per-block audio ``[audio_frames, C]``.
+
+    ``plain_tail`` is :func:`tail_refusal` of the parameters it serves
+    (logged when it is built and where a parameter set changes it). Where
+    a new parameter set moves the step between the raw and the mixed
+    history domain (on the card, a bandwidth leaving or rejoining the
+    shared FIR kernels moves it between the per-channel kernel and the
+    time-major tail), :meth:`update_params` converts the carried history
+    (:func:`switch_hist_domain`)."""
 
     audio_time_major = True
 
     def __init__(self, cfg: ChannelizedConfig, params: ChannelizedParams,
                  graph: bool = True):
         super().__init__(cfg, params, params.pfb_weights.device, graph)
+        self.plain_tail = None
+        self._note_tail()
 
     def _init_state(self) -> ChannelizedState:
         return init_channelized_state(self.cfg, self.device)
 
     def _block(self, iq):
         return _channelized_step(self.cfg, self.params, self.state, iq, True)
+
+    def _note_tail(self) -> None:
+        why = tail_refusal(self.cfg, self.params)
+        if why and why != self.plain_tail:
+            log.warning("channelized pipeline (%d channels): the tail runs "
+                        "plain on %s: %s", self.cfg.num_channels, self.device,
+                        why)
+        self.plain_tail = why
+
+    def carries_raw(self) -> bool:
+        """Whether the step carries the RAW history (:func:`carries_raw`)."""
+        return carries_raw(self.cfg, self.params)
+
+    def state_for(self, other: "ChannelizedPipeline") -> ChannelizedState:
+        """This pipeline's state with its history in the domain that
+        ``other``'s step carries (a growth hands it so to the wider
+        pipeline); ``other`` is at least as wide."""
+        raw = self.carries_raw()
+        if raw == other.carries_raw():
+            return self.state
+        step = (self.params if raw else other.params).residual_step
+        return self.state._replace(chan_hist=switch_hist_domain(
+            self.state.chan_hist, self.state.nco_phase, step, not raw))
+
+    def update_params(self, params) -> None:
+        """:meth:`.frontend.HostPipeline.update_params`, with the carried
+        history converted where the new parameters move the step between
+        the raw and the mixed domain."""
+        old, was_raw = self.params, self.carries_raw()
+        super().update_params(params)
+        if self.params is old:
+            return  # the same layout, so the same branch
+        if self.carries_raw() != was_raw:
+            step = (old if was_raw else self.params).residual_step
+            self.state.chan_hist.copy_(switch_hist_domain(
+                self.state.chan_hist, self.state.nco_phase, step,
+                not was_raw))
+        self._note_tail()
 
     def update_params_slots(self, idx, sub: ChannelizedParams,
                             mode_set: tuple | None = None) -> None:

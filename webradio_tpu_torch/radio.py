@@ -1013,7 +1013,11 @@ class FrontEnd:
         # into the grown pipeline's own buffers: its graphs stay valid
         if isinstance(old, ChannelizedPipeline) and isinstance(
                 new_pipe, ChannelizedPipeline):
-            new_pipe.load_state(grow_channelized_state(old.state, width))
+            # in the history domain the grown step carries (the slots
+            # added may move it between the per-channel kernel and the
+            # time-major tail)
+            new_pipe.load_state(grow_channelized_state(
+                old.state_for(new_pipe), width))
         elif isinstance(old, FrontEndPipeline) and isinstance(
                 new_pipe, FrontEndPipeline):
             new_pipe.load_state(grow_state(old.state, width))
@@ -1045,6 +1049,12 @@ class FrontEnd:
     def _graph_stats_of(pipe) -> dict[str, int]:
         stats = getattr(pipe, "graph_stats", None)
         return stats() if stats is not None else {}
+
+    def plain_tail(self) -> str | None:
+        """On the card, why the serving pipeline's tail runs plain where
+        no option asks for it (``ChannelizedPipeline.plain_tail``); None
+        where the kernels serve, on the CPU and on the direct engine."""
+        return getattr(self.pipeline, "plain_tail", None)
 
     def graph_kernels_per_block(self) -> int:
         """The kernel nodes one served block's graph holds (0 without)."""

@@ -144,8 +144,10 @@ class StatusHandler(HttpRequestHandler):
                 "fir_precision": fe.fir_precision,
                 "pfb_precision": fe.pfb_precision,
                 # CUDA graphs (pipeline.graph): capture events, replays,
-                # eager warm blocks, replayed kernel nodes
-                "graph": fe.graph_stats(),
+                # eager warm blocks, replayed kernel nodes; and on the card
+                # why a tail runs plain where no option asks for it (None:
+                # the kernels serve, or the CPU)
+                "graph": dict(fe.graph_stats(), plain_tail=fe.plain_tail()),
                 "receivers": sorted(fe.receivers),
             }
         return self.send_json(
