@@ -108,6 +108,49 @@ ACCURACY_PAIRS = (("highest", "default"), ("highest", "high"),
                   ("hx5", "u8exact"), ("hx4", "highest"),
                   ("highest", "bf16"))
 
+#: --accuracy's SNRs of the JAX package at C=ACCURACY_C (dB against the
+#: same float64 reference): its step on the CPU with each filterbank tier's
+#: explicit law, as ``tools/accuracy_jax.py`` reads them
+#: (``tests/test_torch_accuracy_laws.py`` holds this table to it). The
+#: tier rule (PERF.md section 2): the port at every key >= the law less
+#: LAW_SLACK_DB
+JAX_LAW_SNR_DB = {
+    "noise_fir_highest_pfb_default": 38.2,
+    "noise_fir_highest_pfb_high": 137.1,
+    "noise_fir_highest_pfb_highest": 138.9,
+    "noise_fir_high_pfb_default": 38.2,
+    "noise_fir_high_pfb_high": 137.1,
+    "noise_fir_highest_pfb_u8exact": 40.0,
+    "noise_fir_high_pfb_u8exact": 40.0,
+    "noise_fir_hx5_pfb_highest": 138.9,
+    "noise_fir_hx5_pfb_u8exact": 40.0,
+    "noise_fir_hx4_pfb_highest": 138.9,
+    "noise_fir_highest_pfb_bf16": 37.7,
+    "fm_tones_fir_highest_pfb_default": 30.9,
+    "fm_tones_fir_highest_pfb_high": 58.3,
+    "fm_tones_fir_highest_pfb_highest": 137.3,
+    "fm_tones_fir_high_pfb_default": 30.9,
+    "fm_tones_fir_high_pfb_high": 58.3,
+    "fm_tones_fir_highest_pfb_u8exact": 30.9,
+    "fm_tones_fir_high_pfb_u8exact": 30.9,
+    "fm_tones_fir_hx5_pfb_highest": 137.3,
+    "fm_tones_fir_hx5_pfb_u8exact": 30.9,
+    "fm_tones_fir_hx4_pfb_highest": 137.3,
+    "fm_tones_fir_highest_pfb_bf16": 30.1,
+    "u8_noise_fir_highest_pfb_default": 39.6,
+    "u8_noise_fir_highest_pfb_high": 138.6,
+    "u8_noise_fir_highest_pfb_highest": 138.9,
+    "u8_noise_fir_high_pfb_default": 39.6,
+    "u8_noise_fir_high_pfb_high": 138.6,
+    "u8_noise_fir_highest_pfb_u8exact": 138.6,
+    "u8_noise_fir_high_pfb_u8exact": 138.6,
+    "u8_noise_fir_hx5_pfb_highest": 138.9,
+    "u8_noise_fir_hx5_pfb_u8exact": 138.6,
+    "u8_noise_fir_hx4_pfb_highest": 138.9,
+    "u8_noise_fir_highest_pfb_bf16": 38.8,
+}
+LAW_SLACK_DB = 0.5
+
 HTML_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "html")
 
 
@@ -836,11 +879,13 @@ def snr_db(ref: np.ndarray, got: np.ndarray) -> float:
 
 
 def accuracy(dev, c: int = ACCURACY_C, block_frames: int = BLOCK_FRAMES,
-             pairs=ACCURACY_PAIRS) -> dict:
+             pairs=ACCURACY_PAIRS, tail_kernel: str = "auto") -> dict:
     """Each (fir, pfb) tier's audio SNR in dB against the float64
     reference, one block of each of bench.py's three inputs through
-    ``channelized_step`` ("auto" tail) on ``dev``. On the card kernel #1
-    must have launched once a step."""
+    ``channelized_step`` (the ``tail_kernel`` tail) on ``dev``. On the card
+    kernel #1 must have launched once a step, or never under
+    ``tail_kernel="xla"`` (the plain tail). At C=ACCURACY_C on stock blocks
+    ``below_jax_law`` names the keys that miss the tier rule."""
     import torch
 
     from webradio_tpu_torch.ops.tail_tm import fused_tail_audio_tm
@@ -865,7 +910,8 @@ def accuracy(dev, c: int = ACCURACY_C, block_frames: int = BLOCK_FRAMES,
         for fir, pfb in pairs:
             cfg = ChannelizedConfig(num_channels=c, fir_precision=fir,
                                     pfb_precision=pfb,
-                                    block_frames=block_frames)
+                                    block_frames=block_frames,
+                                    tail_kernel=tail_kernel)
             params = make_channelized_params(cfg, rx_ifs, 80_000, 8_000,
                                              "FM", device=dev)
             _, audio, _ = channelized_step(cfg, params,
@@ -875,10 +921,22 @@ def accuracy(dev, c: int = ACCURACY_C, block_frames: int = BLOCK_FRAMES,
             got = audio.double().cpu().numpy()
             out[f"{name}_fir_{fir}_pfb_{pfb}"] = round(snr_db(ref, got), 1)
     out["kernel_launches"] = launches = fused_tail_audio_tm.launches - before
-    if dev.type == "cuda" and launches != steps:
+    want = 0 if tail_kernel == "xla" else steps
+    if dev.type == "cuda" and launches != want:
         raise AssertionError(f"accuracy: kernel #1 launched {launches} "
-                             f"times for {steps} steps")
+                             f"times for {steps} steps (tail "
+                             f"{tail_kernel!r})")
+    if c == ACCURACY_C and block_frames == BLOCK_FRAMES:
+        out["below_jax_law"] = below_jax_law(out)
     return out
+
+
+def below_jax_law(snr: dict) -> dict:
+    """The keys of an ``--accuracy`` result (at C=ACCURACY_C) that miss the
+    tier rule: SNR under the JAX law's less LAW_SLACK_DB; key -> [SNR,
+    the law's]."""
+    return {k: [snr[k], law] for k, law in JAX_LAW_SNR_DB.items()
+            if k in snr and snr[k] < law - LAW_SLACK_DB}
 
 
 # ---------------------------------------------------------------------------

@@ -66,6 +66,11 @@ Phases (each fails the run on error):
    block) beside the main path's ms/block; and one at C=106,496, past 2^31
    elements of the packed product, where kernel #1's outputs are held
    against the plain tail on the last 256 channels;
+9c. accuracy: ``bench_torch.py --accuracy`` (C=128, its 33 SNRs against
+   the float64 reference) through kernel #1 (33 launches) and through the
+   plain tail (``tail_kernel="xla"``): every key of #1 at least the JAX
+   law's less 0.5 dB (``bench_torch.JAX_LAW_SNR_DB``, the tier rule) and
+   at least the plain tail's less 0.5 dB;
 10. offline: ``pipeline.stream.run_capture_channelized`` over 16 blocks
    and a part-block of tone-source input at C=16,384 (kernel #1 once a
    block, its audio and state bit-equal to 16 ``process_host`` calls, the
@@ -132,7 +137,18 @@ Phases (each fails the run on error):
    ``run_capture_sharded`` over 8 blocks and a part-block against
    ``run_capture_channelized`` and its eager loop, twice (the second call
    replays the kept front end's graphs: no warm, no capture); and
-   ``entry.dryrun_multichip(4)`` on four positions of the card;
+   ``entry.dryrun_multichip(4)`` on four positions of the card (#1 12
+   times, #4 8: its C=4 run's 320-row shards take the per-channel body);
+15b. the sharded per-channel body on kernel #4 (slots whose bandwidths
+   differ): (2, 2) at C=1,024, #4 once a shard a block, graph and eager
+   bit-equal, within 3e-6 of the single card's #4 fallback, tones; (4, 1)
+   at C=16,384 with the server's mixed bandwidths: #4 at the shards' shape
+   (2,560 rows, a partial last chunk) against its plain version and timed,
+   the body on graphs (#4 four times a block) against the single card's
+   fallback and the plain stage body (``tail_kernel="xla"``), both
+   ms/block; a live uniform -> mixed -> uniform switch on (2, 2) (#1, #4,
+   #1 on every shard), the carried history within 1e-6 of a unit peak of
+   a single-card pipeline's through the same switches;
 16. multihost: ``RadioApp`` in this process with a multihost sharded tone
    tuner at C=2,048 on a (1, 4) virtual mesh (kernel #1 per shard, 4 a
    block) and a ``"distributed"`` process group of one on NCCL, so the
@@ -3395,31 +3411,8 @@ def phase_sharded(dev, results, kernels):
     against("sharded (b) vs single card", audio_b, ref_b, params_b, results,
             "sharded_b_vs_single", SHARDED_BOUND)
 
-    # the stage body (one slot off the shared FIR kernels: a move between
-    # every stage) on graphs against its eager stages and the single card
-    cfg_s = ch.ChannelizedConfig(num_channels=MAIN_CHANNELS,
-                                 block_frames=BLOCK_FRAMES)
-    ifbw = [40_000] + [80_000] * (MAIN_CHANNELS - 1)
-    params_s = ch.make_channelized_params(cfg_s, ifs_b, ifbw, 8_000, modes_b,
-                                          device=dev)
-    blocks_s = tone_blocks(4, seed=18)
-    # the single card's plain fallback: the stage body runs plain (kernel
-    # #4 across time shards is not ported to the sharded engine)
-    ref_s, _, _ = run_pipeline(dataclasses.replace(cfg_s, tail_kernel="xla"),
-                               params_s, blocks_s)
-    stage = {g: sharded_run(cfg_s, params_s, mesh, blocks_s, g)
-             for g in (True, False)}
-    if stage[True][1].time_major or stage[True][1].graph_stats()[
-            "replays"] != len(blocks_s) - 1:
-        raise AssertionError(f"the stage body on graphs: "
-                             f"{stage[True][1].graph_stats()}")
-    if not torch.equal(stage[True][0], stage[False][0]):
-        raise AssertionError("the stage body's graphs differ from its eager "
-                             "stages")
-    against("sharded stage body (2, 2) on graphs vs single card, C="
-            f"{MAIN_CHANNELS}", stage[True][0], ref_s, params_s, results,
-            "sharded_stage_vs_single", SHARDED_BOUND)
-    del stage, ref_s, params_s
+    # (the per-channel body, slots off the shared FIR kernels, is
+    # phase_sharded_channel's)
 
     # the direct engine at the entry's C=16 against FrontEndPipeline
     cfg_d = tstate.ChainConfig(num_channels=16, block_frames=BLOCK_FRAMES)
@@ -3494,15 +3487,243 @@ def phase_sharded(dev, results, kernels):
     # the dry run on a 4-position virtual mesh: the kernels on the card
     reset_counts()
     errs = dryrun_multichip(4, devices=[dev] * 4)
-    # #1 twice single-card at C=4 (the card's rule takes it at any width;
-    # the shards of that run take the plain stage body) and at C=256, and
-    # four shards twice at C=256
-    expect_counts("dryrun_multichip(4)", fused_tail_audio_tm=12)
+    # #1 twice single-card at C=4 (the card's rule takes it at any width)
+    # and at C=256, and four shards twice at C=256; #4 four shards twice at
+    # C=4: that run's time shards of 320 rows hold no Toeplitz tile, so
+    # they take the per-channel body, on #4 since it was ported to the
+    # sharded engine (they ran the plain stage body before)
+    expect_counts("dryrun_multichip(4)", fused_tail_audio_tm=12,
+                  fused_receiver_tail=8)
     log(f"  dryrun_multichip(4): {json.dumps(errs)}")
     out["dryrun"] = errs
     out["wall_s"] = time.perf_counter() - t_start
     log(f"  sharded phase: {out['wall_s']:.1f} s")
     results["sharded"] = out
+
+
+SHARDED_CHANNEL_BLOCKS = 4  # blocks through each per-channel sharded run
+
+
+def phase_sharded_channel(dev, results, kernels):
+    """The sharded engine's per-channel body on kernel #4 (slots whose
+    bandwidths differ), on virtual meshes of the one card:
+
+    - (2, 2) at C=1,024, one 40 kHz slot: #4 once a shard a block, graph
+      and eager bit-equal, against the single card's #4 fallback (3e-6,
+      the FM flip rule), tones heard;
+    - (4, 1) at C=16,384 with the server's mixed bandwidths (one 12.5 kHz
+      slot): #4 at the shards' shape (2,560 rows: a partial last chunk)
+      against its plain version and timed; the body on graphs, #4 four
+      times a block, against the single card's #4 fallback, and the plain
+      stage body (``tail_kernel="xla"``) on graphs, both ms/block;
+    - one live front end on graphs at C=1,024 on (2, 2) goes uniform ->
+      mixed -> uniform (#1, #4, #1 on every shard), its history converted
+      at each switch: the audio and, after every block, the carried
+      history (in the single card's domain) within 3e-6 and 1e-6 of a unit
+      peak of a single-card pipeline's through the same switches."""
+    import dataclasses
+
+    import torch
+    from webradio_tpu_torch.ops import tail
+    from webradio_tpu_torch.parallel import sharded_channelized as tsc
+    from webradio_tpu_torch.pipeline import channelized as ch
+
+    t_start = time.perf_counter()
+    out = {}
+    n = SHARDED_CHANNEL_BLOCKS
+    # ---- (2, 2) at C=1,024
+    c = MAIN_CHANNELS
+    cfg = ch.ChannelizedConfig(num_channels=c, block_frames=BLOCK_FRAMES)
+    ifs, modes = slot_controls(c)
+    ifbw = [80_000, 40_000] + [80_000] * (c - 2)
+    params = ch.make_channelized_params(cfg, ifs, ifbw, 8_000, modes,
+                                        device=dev)
+    blocks = tone_blocks(n, seed=18)
+    mesh = virtual_mesh(2, 2)
+    reset_counts()
+    ref, _, _ = run_pipeline(cfg, params, blocks)
+    expect_counts("single card, one 40 kHz slot", fused_receiver_tail=n)
+    body = {}
+    for g in (True, False):
+        reset_counts()
+        body[g] = sharded_run(cfg, params, mesh, blocks, g)
+        expect_counts(f"sharded per-channel body (2, 2) "
+                      f"{'graph' if g else 'eager'}",
+                      fused_receiver_tail=4 * n)
+    fe = body[True][1]
+    if (fe.time_major or not fe.carries_raw() or fe.plain_tail is not None
+            or fe.graph_stats()["replays"] != n - 1):
+        raise AssertionError(f"the per-channel body on graphs: "
+                             f"{fe.graph_stats()}, plain {fe.plain_tail}")
+    if not torch.equal(body[True][0], body[False][0]):
+        raise AssertionError("the per-channel body's graphs differ from its "
+                             "eager stages")
+    hear_tones("sharded_channel_", cfg, body[True][0], modes, results)
+    against(f"sharded per-channel body (2, 2) on graphs vs the single "
+            f"card's #4 fallback, C={c}", body[True][0], ref, params,
+            results, "sharded_stage_vs_single", SHARDED_BOUND)
+    del body, fe, ref
+    release()
+
+    # ---- (4, 1) at C=16,384, the server's mixed bandwidths
+    cw = WIDE_CHANNELS
+    cfg_w = ch.ChannelizedConfig(num_channels=cw, block_frames=BLOCK_FRAMES)
+    ifs_w, modes_w, ifbw_w = mixed_controls(cw)
+    params_w = ch.make_channelized_params(cfg_w, ifs_w, ifbw_w, 8_000,
+                                          modes_w, device=dev)
+    blocks_w = tone_blocks(n, seed=19)
+    nd_local = cfg_w.chan_frames // 4
+    # #4 at the shards' shape against its plain version
+    rng = np.random.default_rng(20)
+    u = lambda *s: torch.from_numpy(
+        rng.uniform(-0.5, 0.5, s).astype(np.float32)).to(dev)
+    step = params_w.residual_step
+    args = (u(2, cw, nd_local), torch.from_numpy(
+        rng.integers(0, 2**31, cw)).to(dev), step, params_w.chan_coeff,
+        params_w.mode, u(2, cw, 63), u(2, cw))
+    got = tail.fused_receiver_tail(*args)
+    torch.cuda.synchronize()
+    ref4 = tail.fused_receiver_tail_ref(*args)
+    names = ("audio", "raw_hist", "demod_prev", "power")
+    bounds = dict(BOUNDS, audio=BOUNDS["audio_hist"], raw_hist=0.0)
+    devs = compare(f"#4 at a (4, 1) shard's shape (nd={nd_local}, C={cw})",
+                   names, bounds, (got[0].T, *got[1:]),
+                   (ref4[0].T, *ref4[1:]), params_w.mode == 1, RAW_FM_STEP,
+                   raw=("audio",))
+    shard_ms = cuda_ms(lambda: tail.fused_receiver_tail(*args), 10)
+    shard_plain_ms = cuda_ms(lambda: tail.fused_receiver_tail_ref(*args), 2)
+    bound, by = roofline(tail_flops(nd_local, cw, 64), io_bytes(args, got))
+    log(f"  #4 at nd={nd_local}, C={cw}: {shard_ms:.4f} ms (plain "
+        f"{shard_plain_ms:.4f}, bound {bound:.4f} ms by {by})")
+    out["kernel4_shard"] = {"nd": nd_local, "channels": cw, "ms": shard_ms,
+                            "plain_ms": shard_plain_ms, "bound_ms": bound,
+                            "bound_by": by, "max_abs_err": devs["worst"]}
+    del args, got, ref4
+    reset_counts()
+    ref_w, _, _ = run_pipeline(cfg_w, params_w, blocks_w)
+    expect_counts(f"single card C={cw} mixed", fused_receiver_tail=n)
+    single_ms = stream_ms(cfg_w, params_w, blocks_w, n)
+    runs = {}
+    for name, conf in (("kernel", cfg_w),
+                       ("plain", dataclasses.replace(cfg_w,
+                                                     tail_kernel="xla"))):
+        reset_counts()
+        audio_w, fe_w = sharded_run(conf, params_w, virtual_mesh(4, 1),
+                                    blocks_w)
+        if name == "kernel":
+            expect_counts(f"sharded (4, 1) C={cw} mixed, #4",
+                          fused_receiver_tail=4 * n)
+            kernels["fused_receiver_tail"]["launches_sharded"] = 4 * n
+            if not fe_w.carries_raw() or fe_w.plain_tail is not None:
+                raise AssertionError("(4, 1): the shards do not take #4")
+        else:
+            expect_counts(f"sharded (4, 1) C={cw} mixed, plain stage body")
+        ms_w = stream_ms(conf, params_w, blocks_w, 2 * n, pipe=fe_w)
+        runs[name] = (audio_w, ms_w, fe_w.graph_stats())
+        del fe_w
+        release()
+    against(f"sharded (4, 1) per-channel body vs the single card's #4 "
+            f"fallback, C={cw}", runs["kernel"][0], ref_w, params_w,
+            results, "sharded_channel_41_vs_single", SHARDED_BOUND)
+    against(f"sharded (4, 1) #4 body vs the plain stage body, C={cw}",
+            runs["kernel"][0], runs["plain"][0], params_w, results,
+            "sharded_channel_41_vs_plain")
+    log(f"  (4, 1) C={cw} mixed bandwidths on graphs: #4 body "
+        f"{runs['kernel'][1]:.3f} ms/block, plain stage body "
+        f"{runs['plain'][1]:.3f}; single card (#4 fallback) "
+        f"{single_ms:.3f}; graphs {runs['kernel'][2]}")
+    out["mesh_4x1_mixed"] = {
+        "channels": cw, "kernel_ms_per_block": runs["kernel"][1],
+        "plain_ms_per_block": runs["plain"][1],
+        "single_card_ms_per_block": single_ms,
+        "graph": runs["kernel"][2], "launches_per_block": 4}
+    del runs, ref_w, audio_w, params_w
+    release()
+
+    # ---- a live switch on the sharded engine, against the single card's
+    ifs_s, modes_s, ifbw_s = mixed_controls(c)
+    uniform = ch.make_channelized_params(cfg, ifs_s, 80_000, 8_000, modes_s,
+                                         device=dev)
+    mixed = ch.make_channelized_params(cfg, ifs_s, ifbw_s, 8_000, modes_s,
+                                       device=dev)
+    blocks_s = tone_blocks(3 * SWITCH_BLOCKS, seed=34)
+    fe = tsc.ShardedChannelizedFrontEnd(cfg, uniform, mesh)
+    pipe = ch.ChannelizedPipeline(cfg, uniform)
+    reset_counts()
+    audio, ref, hist_err, raw, peak = [], [], [], [], 1.0
+    for k, b in enumerate(blocks_s):
+        if k and k % SWITCH_BLOCKS == 0:
+            new = mixed if k == SWITCH_BLOCKS else uniform
+            fe.update_params(new)
+            pipe.update_params(new)
+        a = fe.process_host(b)
+        if a is not None:
+            audio.append(a[0].full().T.cpu())
+        r = pipe.process_host(b)
+        if r is not None:
+            ref.append(r[0].cpu())
+        got_h = fe.gathered_state().chan_hist
+        ref_h = pipe.state.chan_hist
+        peak = max(peak, float(ref_h.abs().max()))
+        hist_err.append(float((got_h - ref_h).abs().max()))
+        raw.append(fe.carries_raw())
+    for src, dst in ((fe, audio), (pipe, ref)):
+        last = src.flush()
+        dst.append((last[0].full().T if src is fe else last[0]).cpu())
+    launches = {k: f.launches for k, f in tail_wrappers().items()
+                if f.launches}
+    s = SWITCH_BLOCKS
+    want = {"fused_tail_audio_tm": (4 + 1) * 2 * s,
+            "fused_receiver_tail": (4 + 1) * s}
+    if raw != [False] * s + [True] * s + [False] * s or launches != want:
+        raise AssertionError(f"sharded switch: raw {raw}, launches "
+                             f"{launches}, expected {want}")
+    log(f"  sharded switch: carried history against the single card's "
+        f"after each block (peak {peak:.3f}): "
+        + ", ".join(f"{e:.2e}" for e in hist_err))
+    if not max(hist_err) <= 1e-6 * peak:
+        raise AssertionError(f"sharded switch: the carried history is "
+                             f"{max(hist_err):.3e} off the single card's")
+    against("sharded uniform -> mixed -> uniform vs the single card's",
+            torch.cat(audio), torch.cat(ref), uniform, results,
+            "sharded_switch_vs_single", SHARDED_BOUND)
+    out["switch"] = {"hist_err_per_block": hist_err, "launches": launches,
+                     "graph": fe.graph_stats()}
+    del fe, pipe
+    out["wall_s"] = time.perf_counter() - t_start
+    log(f"  sharded per-channel phase: {out['wall_s']:.1f} s")
+    results["sharded_channel"] = out
+
+
+def phase_accuracy(dev, results):
+    """``bench_torch.py --accuracy`` on the card (C=128, 33 SNRs against
+    the float64 reference) through kernel #1 (once a step, 33 launches) and
+    through the plain tail (``tail_kernel="xla"``): every key of #1 at
+    least the JAX law's less 0.5 dB (``bench_torch.JAX_LAW_SNR_DB``, the
+    tier rule) and within 0.5 dB of the plain tail's."""
+    import bench_torch
+
+    t0 = time.perf_counter()
+    reset_counts()
+    acc = bench_torch.accuracy(dev)
+    steps = 3 * len(bench_torch.ACCURACY_PAIRS)
+    expect_counts("--accuracy through #1", fused_tail_audio_tm=steps)
+    reset_counts()
+    plain = bench_torch.accuracy(dev, tail_kernel="xla")
+    expect_counts("--accuracy through the plain tail")
+    keys = sorted(bench_torch.JAX_LAW_SNR_DB)
+    off_plain = {k: [acc[k], plain[k]] for k in keys
+                 if acc[k] < plain[k] - bench_torch.LAW_SLACK_DB}
+    log(f"  --accuracy ({time.perf_counter() - t0:.1f} s), #1 / plain / "
+        f"JAX law (dB): " + ", ".join(
+            f"{k} {acc[k]} / {plain[k]} / {bench_torch.JAX_LAW_SNR_DB[k]}"
+            for k in keys))
+    results["accuracy"] = {"kernel": acc, "plain": plain}
+    if acc["below_jax_law"] or off_plain:
+        raise AssertionError(f"--accuracy through #1: below the JAX law "
+                             f"less {bench_torch.LAW_SLACK_DB} dB "
+                             f"{acc['below_jax_law']}, below the plain "
+                             f"tail's less 0.5 dB {off_plain}")
 
 
 def phase_multihost(results):
@@ -4089,6 +4310,9 @@ def main() -> int:
     log(f"== the bench: bench_torch --parity, sweep points at C="
         f"{BENCH_POINT_CHANNELS} and C={PAST_2_31_CHANNELS} (past 2^31)")
     phase_bench(dev, results)
+    log("== bench_torch --accuracy through kernel #1 and the plain tail")
+    phase_accuracy(dev, results)
+    release()
     clocks = nvidia_smi("clocks.sm,clocks.max.sm,power.draw,temperature.gpu")
     log(f"  after timing: sm clock, max sm clock, power draw, temp = "
         f"{clocks}")
@@ -4109,6 +4333,11 @@ def main() -> int:
         f"(1, 2) at 9.6 kHz, the direct engine, run_capture_sharded, "
         f"dryrun_multichip(4)")
     phase_sharded(dev, results, kernels)
+    release()
+    log(f"== sharded per-channel body on kernel #4: (2, 2) at C="
+        f"{MAIN_CHANNELS}, (4, 1) at C={WIDE_CHANNELS} against the plain "
+        f"stage body, a live uniform -> mixed -> uniform switch")
+    phase_sharded_channel(dev, results, kernels)
     release()
     log(f"== multihost: RadioApp on NCCL (one process), C="
         f"{MULTIHOST_CHANNELS} on a (1, 4) virtual mesh")

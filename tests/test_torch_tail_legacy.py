@@ -97,7 +97,8 @@ def test_legacy_tail_mirrors_the_selection_rule():
     s = _setup(3)
     args = [T(s["phase0"].astype(np.int64)), T(s["step"].astype(np.int64)),
             T(s["coeff"]), T(s["mode"])] + [T(a) for a in s["carry"]]
-    with pytest.raises(ValueError, match="multiple of 1024"):
+    # the CUDA kernel takes a partial last chunk: rows in 16s
+    with pytest.raises(ValueError, match="multiple of 16"):
         tail.fused_receiver_tail(torch.zeros(2, C, 1_000), *args)
     with pytest.raises(ValueError, match="no tail kernel"):
         tail.fused_receiver_tail(torch.zeros(2, C, ND, device="meta"), *args)
@@ -159,12 +160,14 @@ def test_legacy_kernel_matches_plain_version_on_card(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("c", [8, 1_024])
-@pytest.mark.parametrize("nd", [1_024, 2_048, 10_240])
+@pytest.mark.parametrize("nd", [1_024, 2_048, 10_240, 64, 2_560, 5_136])
 def test_legacy_kernel_shapes_and_chunk_edges_on_card(cuda_device, nd, c):
-    """The wrapper's smallest and the path's widths, one to ten chunks: a
-    thread's first output takes its FM lag from its neighbour, a chunk's
-    first from the output before the chunk, a block's first from the
-    carried state, and the last shaped sample is carried on."""
+    """The wrapper's smallest and the path's widths, one to ten chunks, and
+    a last chunk of 64, 512 or 16 rows (a (4, 1) mesh's time shard of a
+    stock block holds 2,560): a thread's first output takes its FM lag from
+    its neighbour, a chunk's first from the output before the chunk, a
+    block's first from the carried state, and the last shaped sample is
+    carried on."""
     s = _setup(101 + nd // 1_024 + c, c)
     dev = cuda_device
     carry = ref_carry = tuple(T(a).to(dev) for a in s["carry"])

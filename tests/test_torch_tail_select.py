@@ -289,9 +289,10 @@ def test_shard_rule_is_the_step_rule_on_local_sizes(monkeypatch):
 def test_a_plain_tail_on_the_card_is_said_once(monkeypatch, caplog):
     """Where the card's kernel refuses the configuration (a 32-tap FIR) the
     pipeline says so when it is built, in the log and in ``plain_tail``
-    (``/status``'s ``"graph"`` block reads it); a sharded front end whose
-    slots differ in bandwidth says that its per-channel body has no
-    kernel. On the CPU neither says anything."""
+    (``/status``'s ``"graph"`` block reads it); so does a sharded front end
+    whose slots differ in bandwidth, where kernel #4 refuses its shards,
+    and with 64 taps it runs #4 and says nothing. On the CPU neither says
+    anything."""
     from webradio_tpu_torch.parallel import mesh as tmesh
 
     short = tch.ChannelizedConfig(block_frames=BLOCK, num_channels=16,
@@ -300,23 +301,30 @@ def test_a_plain_tail_on_the_card_is_said_once(monkeypatch, caplog):
     assert tch.ChannelizedPipeline(short, pt).plain_tail is None
     cfg = tch.ChannelizedConfig(block_frames=BLOCK, num_channels=16)
     mixed, _ = _params(cfg, 16, True)
+    mixed_short, _ = _params(short, 16, True)
     mesh = tmesh.make_mesh(2, 2, devices=["cpu"] * 4)
     assert tsc.ShardedChannelizedFrontEnd(cfg, mixed, mesh).plain_tail is None
     monkeypatch.setattr(tch, "on_card", lambda x: True)
     with caplog.at_level("WARNING"):
         pipe = tch.ChannelizedPipeline(short, pt)
         fe = tsc.ShardedChannelizedFrontEnd(cfg, mixed, mesh)
+        fe_short = tsc.ShardedChannelizedFrontEnd(short, mixed_short, mesh)
     assert "64-tap" in pipe.plain_tail
-    assert "no kernel" in fe.plain_tail
+    assert fe.plain_tail is None
+    assert "per-channel tail kernel on each shard" in fe_short.plain_tail
+    assert "64-tap" in fe_short.plain_tail
     said = [r.getMessage() for r in caplog.records]
-    assert sum("64-tap" in m for m in said) == 1
-    assert sum("no kernel" in m for m in said) == 1
+    assert sum("channelized pipeline" in m and "64-tap" in m
+               for m in said) == 1
+    assert sum("sharded channelized front end" in m and "64-tap" in m
+               for m in said) == 1
     # a parameter set of the same branch is not said again; one that moves
     # the step to the per-channel kernel, which refuses it too, is
     with caplog.at_level("WARNING"):
         pipe.update_params(_params(short, 16, False)[0])
         pipe.update_params(_params(short, 16, True)[0])
-    said = [r.getMessage() for r in caplog.records]
+    said = [r.getMessage() for r in caplog.records
+            if r.getMessage().startswith("channelized pipeline")]
     assert sum("time-major tail kernel" in m for m in said) == 1
     assert sum("per-channel tail kernel" in m for m in said) == 1
     assert pipe.plain_tail.startswith("per-channel tail kernel")

@@ -4,13 +4,14 @@ against the JAX package on the CPU.
 The CUDA kernels make the shaping FIR as a three-term TF32 product
 (``a_lo b_hi + a_hi b_lo + a_hi b_hi``, float32 sums), their ``fast`` LO is
 exact on the first two rows of every 16 and rotated between, the decimating
-audio FIR at decimation 5 is a banded three-term product too (8 outputs per
-40 rows, window 104 rows), and the fused-filterbank kernel's product is a
-float32 FMA chain per output, which is what a float32 matmul computes. No
-CUDA kernel runs here, so these tests run the plain emulations of that
-arithmetic, ``ops.precision.matmul_tf32x3`` (the shaping FIR as 16-row
-tiles of the banded Toeplitz matrix times an 80-row window),
-``ops.fir.fir_decimate_banded_tf32x3_tm`` and
+decimating audio FIR is two float32 FMA chains per output (its even and
+its odd taps, each in tap order), and
+the fused-filterbank kernel's product is a float32 FMA chain per output,
+which is what a float32 matmul computes. No CUDA kernel runs here, so these
+tests run the plain emulations of that arithmetic,
+``ops.precision.matmul_tf32x3`` (the shaping FIR as 16-row tiles of the
+banded Toeplitz matrix times an 80-row window),
+``ops.fir.fir_decimate_chain_tm`` and
 ``ops.nco.nco_mix_tm_rotated``, and feed them through the rest of the plain
 tail. The result must stay within the stated bounds of the JAX functions
 ``fused_tail_tm``, ``fused_tail_audio_tm`` and ``fused_pfb_tail_audio_tm``
@@ -269,8 +270,8 @@ def test_kernel_arithmetic_holds_the_fused_pfb_bounds(law, fast):
         mi, mq = _mixed_as_kernel(y2, *lo, fast)
         demod_rows, hist_i, hist_q, prev, power = _shape_demod_emulated(
             mi, mq, T(w), T(mode), *t_carry[:3])
-        # the kernel's audio FIR at D=5: the banded three-term product
-        a48, ahist = fir.fir_decimate_banded_tf32x3_tm(
+        # the kernel's audio FIR: two FMA chains per output
+        a48, ahist = fir.fir_decimate_chain_tm(
             demod_rows, T(wa)[:K, 0], D, t_carry[3])
         np.testing.assert_allclose(a48.numpy(), ref[0], rtol=0, atol=1e-5)
         np.testing.assert_allclose(hist_i.numpy(), ref[1], rtol=0, atol=2e-6)
@@ -360,8 +361,9 @@ def _audio_weights():
 @pytest.mark.parametrize("law", LAWS)
 def test_banded_tf32x3_audio_fir_holds_the_audio_bounds(law, fast):
     """The whole of kernel #1's arithmetic (rotated LO, banded three-term
-    shaping FIR, demod, banded three-term audio FIR at D=5) against the JAX
-    ``fused_tail_audio_tm``: audio 1e-5 at an audio peak above 1e-2."""
+    shaping FIR, demod, the audio FIR's two FMA chains per output) against
+    the JAX ``fused_tail_audio_tm``: audio 1e-5 at an audio peak above
+    1e-2."""
     import jax.numpy as jnp
     from webradio_tpu.ops.pallas_tail_tm import fused_tail_audio_tm as j_tail
 
@@ -386,7 +388,7 @@ def test_banded_tf32x3_audio_fir_holds_the_audio_bounds(law, fast):
         mi, mq = _mixed_as_kernel(T(prod), *lo, fast)
         demod_rows, hist_i, hist_q, prev, power = _shape_demod_emulated(
             mi, mq, T(w), T(mode), *t_carry[:3])
-        a48, ahist = fir.fir_decimate_banded_tf32x3_tm(
+        a48, ahist = fir.fir_decimate_chain_tm(
             demod_rows, T(wa)[:K, 0], D, t_carry[3])
         assert a48.shape == (nd // D, C)
         np.testing.assert_allclose(a48.numpy(), ref[0], rtol=0, atol=1e-5)
@@ -404,27 +406,26 @@ def test_banded_tf32x3_audio_fir_holds_the_audio_bounds(law, fast):
 
 @pytest.mark.parametrize("d,outputs", [(5, 8), (5, 16), (4, 8), (1, 16)])
 def test_banded_audio_fir_emulation_matches_the_toeplitz_fir(d, outputs):
-    """The emulation computes the decimating FIR of the plain version, to
-    float32 rounding, whatever the tile; its band spans ``(outputs - 1) d +
-    K`` rows behind one padding column (139 at 16 outputs and D=5)."""
+    """The emulation of the kernel's audio FIR (two FMA chains per output,
+    its even and its odd taps) computes the decimating FIR of the plain
+    version, to float32 rounding, over ``8 * outputs`` outputs a channel
+    (whole tiles of the plain version's 64)."""
     rng = np.random.default_rng(31 + d + outputs)
-    n = 4 * d * 16
+    n = 8 * d * outputs
     x = T(rng.uniform(-1, 1, (n, 8)).astype(np.float32))
     hist = T(rng.uniform(-1, 1, (K - 1, 8)).astype(np.float32))
     wa = T(fir.toeplitz_weights(
         firdesign.design_lowpass_fir(8_000, 240_000), d, 64))
     want, want_hist = fir.fir_decimate_toeplitz_tm(x, wa, d, hist)
-    got, got_hist = fir.fir_decimate_banded_tf32x3_tm(x, wa[:K, 0], d, hist,
-                                                     outputs=outputs)
+    got, got_hist = fir.fir_decimate_chain_tm(x, wa[:K, 0], d, hist)
     assert got.shape == (n // d, 8) and float(want.abs().max()) > 0.1
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-6)
     assert torch.equal(got_hist, want_hist)
-    with pytest.raises(ValueError, match="group"):
-        fir.fir_decimate_banded_tf32x3_tm(x[:-d], wa[:K, 0], d, hist,
-                                          outputs=outputs)
+    if d > 1:
+        with pytest.raises(ValueError, match="decimation"):
+            fir.fir_decimate_chain_tm(x[:-1], wa[:K, 0], d, hist)
     with pytest.raises(ValueError, match="history"):
-        fir.fir_decimate_banded_tf32x3_tm(x, wa[:K, 0], d, hist[1:],
-                                          outputs=outputs)
+        fir.fir_decimate_chain_tm(x, wa[:K, 0], d, hist[1:])
 
 
 def _classes(mode, cols):

@@ -15,6 +15,8 @@ angle per sample, while the JAX kernel's factored phasor rounds two
 float32 angles (up to ~5e-7 rad), which bounds the mixed-history gap.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -240,9 +242,10 @@ def test_kernel_separate_planes_and_input_checks_on_card(cuda_device):
 
 
 def _card_args(s, dev, d, mode):
-    # a tile of 64 outputs holds the K-1 row halo at every decimation
+    # the plain version's output tile: up to 64 outputs, dividing the
+    # block's and holding the K-1 row halo at every decimation
     wa = fir.toeplitz_weights(firdesign.design_lowpass_fir(8_000, 240_000),
-                              d, 64)
+                              d, math.gcd(64, ND // d))
     return (T(s["phase0"].astype(np.int64)).to(dev),
             T(s["step"].astype(np.int64)).to(dev), T(s["w"]).to(dev),
             T(wa).to(dev), d, T(np.asarray(mode, np.int32)).to(dev))
@@ -252,8 +255,9 @@ def _card_args(s, dev, d, mode):
 @pytest.mark.parametrize("tile_rows", [128, 640])
 @pytest.mark.parametrize("d", [5, 10, 2, 1])
 def test_kernel_at_other_decimations_on_card(cuda_device, d, tile_rows):
-    """Decimation 5 runs the audio FIR on the tensor cores, every other one
-    the float32 loop; both hold the same bounds, two carried blocks."""
+    """The audio FIR's FMA groups at the stock decimation 5 (four outputs a
+    lane) and at 10, 2 and 1; every output holds the same bounds over two
+    carried blocks."""
     s = _setup(41 + d)
     dev = cuda_device
     common = _card_args(s, dev, d, s["mode"])
@@ -269,6 +273,49 @@ def test_kernel_at_other_decimations_on_card(cuda_device, d, tile_rows):
         assert got[0].shape == (ND // d, C)
         assert float(ref[0].abs().max()) > 1e-2
         for g, r, atol in zip(got, ref, (1e-5, 1e-6, 1e-6, 1e-6, 1e-5)):
+            np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
+                                       rtol=0, atol=atol)
+        np.testing.assert_allclose(got[5].cpu().numpy(),
+                                   ref[5].cpu().numpy(), rtol=1e-5, atol=0)
+        carry, ref_carry = got[1:5], ref[1:5]
+        common = (common[0] + ND * common[1] & 0x7FFFFFFF, *common[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_rows", [128, 640])
+@pytest.mark.parametrize("d", [8, 16, 40, 64])
+def test_kernel_audio_fir_groups_at_wide_decimations_on_card(cuda_device, d,
+                                                             tile_rows):
+    """The audio FIR's groups past D=7, where a group of four outputs a
+    lane would outrun the 128-row demod ring: three outputs a lane at 8,
+    two at 16, one at 40, a group of one output from 50 on. Over two
+    carried blocks the audio is within 1e-5 of the plain version off the
+    FM slots and, on them, by the flip rule of PERF.md section 2; the
+    carries and the power (which the decimation does not touch) by the
+    bounds above, but for the carried demod tail: its FM rows are raw
+    demod rows (the rule of ``tests/test_torch_tail_split.py``), held at
+    the decimations of the test above."""
+    s = _setup(41 + d)
+    dev = cuda_device
+    common = _card_args(s, dev, d, s["mode"])
+    fm = s["mode"] == 1
+    flip = float(common[3][:K, 0].abs().max())
+    carry = ref_carry = tuple(T(a).to(dev) for a in s["carry"])
+    for _ in range(2):
+        prod = T(s["u"](ND, 2 * C)).to(dev)
+        got = tail_tm._launch(prod, prod, *common, *carry, True, True,
+                              tile_rows)
+        torch.cuda.synchronize()
+        ref = tail_tm.fused_tail_audio_tm_ref(prod, prod, *common,
+                                              *ref_carry, packed=True,
+                                              fast=True)
+        assert got[0].shape == (ND // d, C)
+        assert float(ref[0].abs().max()) > 1e-2
+        err = (got[0] - ref[0]).abs().cpu().numpy()
+        assert err[:, ~fm].max() <= 1e-5
+        assert (err[:, fm] > 1e-5).sum() <= 1e-4 * err[:, fm].size
+        assert err[:, fm].max() <= 2 * flip + 1e-5
+        for g, r, atol in zip(got[1:4], ref[1:4], (1e-6, 1e-6, 1e-6)):
             np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
                                        rtol=0, atol=atol)
         np.testing.assert_allclose(got[5].cpu().numpy(),
@@ -368,3 +415,19 @@ def test_kernel_short_blocks_on_card(cuda_device, nd, tile_rows):
                                    ref[5].cpu().numpy(), rtol=1e-5, atol=0)
         carry, ref_carry = got[1:5], ref[1:5]
         common = (common[0] + nd * common[1] & 0x7FFFFFFF, *common[1:])
+
+
+@pytest.mark.cuda
+def test_accuracy_rule_through_the_kernel_on_card(cuda_device):
+    """``bench_torch.py --accuracy`` (C=128, 33 SNRs against float64)
+    through kernel #1, once a step: every key at least the JAX law's less
+    0.5 dB (the tier rule, ``bench_torch.JAX_LAW_SNR_DB``) and at least the
+    plain tail's (``tail_kernel="xla"``) less 0.5 dB."""
+    import bench_torch
+
+    acc = bench_torch.accuracy(cuda_device)
+    plain = bench_torch.accuracy(cuda_device, tail_kernel="xla")
+    assert acc["kernel_launches"] == 33 and plain["kernel_launches"] == 0
+    assert acc["below_jax_law"] == {}
+    for key in bench_torch.JAX_LAW_SNR_DB:
+        assert acc[key] >= plain[key] - bench_torch.LAW_SLACK_DB, key

@@ -59,7 +59,9 @@ def explicit_law(tier):
     return channelize
 
 
-def main(argv) -> int:
+def law_snrs(c: int, pairs) -> dict:
+    """The JAX step's SNRs at the (fir, pfb) ``pairs``, C=``c``: a dict
+    with ``bench_torch.py --accuracy``'s keys."""
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -68,7 +70,6 @@ def main(argv) -> int:
     from webradio_tpu.pipeline import channelized as jch
     from webradio_tpu_torch.pipeline import channelized as tch
 
-    c = int(argv[1]) if len(argv) > 1 else bt.ACCURACY_C
     rx = bt.offset_ifs(c)
     cfg0 = tch.ChannelizedConfig(num_channels=c)
     params0 = tch.make_channelized_params(cfg0, rx, 80_000, 8_000, "FM",
@@ -77,10 +78,9 @@ def main(argv) -> int:
     refs = {name: bt.f64_reference(cfg0, params0,
                                    sig.astype(np.float32).astype(np.float64))
             for name, sig in signals.items()}
-    out = {"metric": "channelized_audio_snr_db_vs_float64", "channels": c,
-           "device": "cpu", "package": "webradio_tpu (JAX), explicit laws"}
+    out = {}
     orig = jch._channelize_tm
-    for fir, pfb in bt.ACCURACY_PAIRS:
+    for fir, pfb in pairs:
         cfg = jch.ChannelizedConfig(num_channels=c, fir_precision=fir,
                                     pfb_precision=pfb)
         params = jch.make_channelized_params(cfg, rx, 80_000, 8_000, "FM")
@@ -95,6 +95,16 @@ def main(argv) -> int:
                     bt.snr_db(refs[name], got), 1)
         finally:
             jch._channelize_tm = orig
+    return out
+
+
+def main(argv) -> int:
+    import bench_torch as bt
+
+    c = int(argv[1]) if len(argv) > 1 else bt.ACCURACY_C
+    out = {"metric": "channelized_audio_snr_db_vs_float64", "channels": c,
+           "device": "cpu", "package": "webradio_tpu (JAX), explicit laws",
+           **law_snrs(c, bt.ACCURACY_PAIRS)}
     print(json.dumps(out))
     return 0
 

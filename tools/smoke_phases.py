@@ -1,13 +1,17 @@
 """Run some of ``chip_smoke.py``'s phases alone on the card: the build,
 then each named phase, a failure printed and the next phase run.
 
-    python3 tools/smoke_phases.py [--tree DIR] [sharded] [offline]
-        [multihost] [two_process] [bench]
+    python3 tools/smoke_phases.py [--tree DIR] [sharded] [sharded_channel]
+        [offline] [multihost] [two_process] [bench] [accuracy]
 
-With no phase named it runs the first four (the multi-device layer and the
-offline runners, ~2 minutes with the build); ``bench`` is the smoke's
-``bench_torch.py`` phase (``--parity``, two sweep points, the point past
-2^31 elements held against the plain tail). ``--tree DIR`` runs another
+With no phase named it runs the first five (the multi-device layer and the
+offline runners, ~3 minutes with the build); ``sharded_channel`` is the
+sharded engine's per-channel body on kernel #4 (its (2, 2) and (4, 1)
+runs, a live bandwidth switch); ``bench`` is the smoke's ``bench_torch.py``
+phase (``--parity``, two sweep points, the point past 2^31 elements held
+against the plain tail); ``accuracy`` is ``bench_torch.py --accuracy``
+through kernel #1 and the plain tail, gated on the JAX laws (the tier
+rule). ``--tree DIR`` runs another
 checkout's ``chip_smoke.py`` and package (an unpacked ``git archive`` of
 another commit, for an A/B in one call: run the trees in turns). Prints
 the card's name and power limit first, each phase's log as the smoke
@@ -34,13 +38,17 @@ import chip_smoke  # noqa: E402
 PHASES = {
     "sharded": lambda dev, results: chip_smoke.phase_sharded(dev, results,
                                                             {}),
+    "sharded_channel": lambda dev, results: chip_smoke.phase_sharded_channel(
+        dev, results, {"fused_receiver_tail": {}}),
     "offline": chip_smoke.phase_offline,
     "multihost": lambda dev, results: chip_smoke.phase_multihost(results),
     "two_process": lambda dev, results: chip_smoke.phase_two_process(
         results),
     "bench": chip_smoke.phase_bench,
+    "accuracy": chip_smoke.phase_accuracy,
 }
-DEFAULT = ("sharded", "offline", "multihost", "two_process")
+DEFAULT = ("sharded", "sharded_channel", "offline", "multihost",
+           "two_process")
 
 
 def main(argv) -> int:

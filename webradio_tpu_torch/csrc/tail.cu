@@ -9,7 +9,9 @@
 // The Pallas kernel walks 8-channel tiles and loops over 1,024-lane chunks
 // in order; here every (time chunk, channel) pair is an independent block.
 //
-// Design: a block owns one channel and one chunk of TCH samples. All its
+// Design: a block owns one channel and one chunk of TCH samples (the last
+// chunk of a block that is not whole chunks holds the rest, a multiple of
+// 16 samples; its window threads past the rest make nothing). All its
 // threads mix the chunk and a K-sample left halo of the raw input (from
 // raw_hist for the first chunk, from the block's own input after it) into
 // shared memory, threads along time so the global reads are coalesced; the
@@ -85,6 +87,8 @@ receiver_tail_kernel(const float* __restrict__ chan_in,
   const int c = blockIdx.x;
   const int chunk = blockIdx.y;
   const int base = chunk * TCH;
+  const int len = min(TCH, nd - base);  // samples of this chunk
+  const int nwin = len / R;             // window threads with outputs
   const float* xi = chan_in + (size_t)c * nd;
   const float* xq = chan_in + ((size_t)C + c) * nd;
   const float* hi = raw_hist + (size_t)c * (K - 1);
@@ -96,7 +100,7 @@ receiver_tail_kernel(const float* __restrict__ chan_in,
   // ---- mix the chunk and its halo (the table law; this kernel has no
   // other): sample -K is the zero lane of the first chunk, never read by an
   // emitted output
-  for (int l = t; l < TCH + K; l += NTHREADS) {
+  for (int l = t; l < len + K; l += NTHREADS) {
     const int n = base + l - K;
     float vi = 0.0f, vq = 0.0f;
     if (n >= 0) {
@@ -120,7 +124,7 @@ receiver_tail_kernel(const float* __restrict__ chan_in,
   // ---- shaping FIR: output o (sample m = base - 1 + o) reads mixed
   // l = o..o+K-1. Window thread t makes o = R*t + 1 + j, j < R
   float ai[R], aq[R];
-  if (t < NWIN) {
+  if (t < nwin) {
 #pragma unroll
     for (int j = 0; j < R; ++j) ai[j] = aq[j] = 0.0f;
     // the window: mixed l = R*t + 4*q + e; it is tap l - o of output o
@@ -164,7 +168,7 @@ receiver_tail_kernel(const float* __restrict__ chan_in,
 
   // ---- demod and power of the thread's outputs, in order
   float pacc = 0.0f;
-  if (t < NWIN) {
+  if (t < nwin) {
     float a[R];
     float li = last_i[t], lq = last_q[t];
 #pragma unroll
@@ -194,11 +198,12 @@ receiver_tail_kernel(const float* __restrict__ chan_in,
 #pragma unroll
     for (int j = 0; j < R; j += 4)
       out[j / 4] = make_float4(a[j], a[j + 1], a[j + 2], a[j + 3]);
-    if (t == NWIN - 1 && base + TCH == nd) {
+    if (t == nwin - 1 && base + len == nd) {
       prev[c] = ai[R - 1];
       prev[C + c] = aq[R - 1];
     }
-
+  }
+  if (t < NWIN) {
     // ---- the chunk's power, reduced in a fixed order
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
@@ -224,21 +229,21 @@ extern "C" {
 // Launch the time-minor tail on `stream`. chan_in [2, C, nd]; phase0/step
 // [C] int64 holding uint32; coeff [C, K] design-order coefficients; mode [C]
 // int32; raw_hist [2, C, K-1] (pre-mix); prev0/prev [2, C]; audio [C, nd],
-// 16-byte aligned; power_part [nd / 1024, C] scratch; power [C]. Returns
-// cudaGetLastError().
+// 16-byte aligned; power_part [ceil(nd / 1024), C] scratch; power [C]; nd a
+// multiple of 16, at least K. Returns cudaGetLastError().
 int webradio_receiver_tail_launch(
     const void* chan_in, const void* phase0, const void* step,
     const void* coeff, const void* mode, const void* raw_hist,
     const void* prev0, void* audio, void* prev, void* power_part,
     void* power, int nd, int C, int K, int device, void* stream) {
-  if (K != kTaps || nd < TCH || nd % TCH != 0 || C < 1 || nd / TCH > 65535 ||
+  const int n_chunks = (nd + TCH - 1) / TCH;
+  if (K != kTaps || nd < K || nd % 16 != 0 || C < 1 || n_chunks > 65535 ||
       reinterpret_cast<uintptr_t>(audio) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n_chunks = nd / TCH;
   dim3 grid(C, n_chunks);
   receiver_tail_kernel<kTaps><<<grid, NTHREADS, 0, s>>>(
       static_cast<const float*>(chan_in),

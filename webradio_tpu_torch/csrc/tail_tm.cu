@@ -63,7 +63,9 @@
 // dropped is at most 2^-22 of |a||b| per term, which is float32 accuracy for
 // a FIR whose output is of its terms' size. The tensor cores round their
 // accumulator toward zero, which would bias a long chain, so a_hi*b_hi is
-// kept apart from the two small terms. The warp's mixed rows live in two
+// kept apart from the two small terms (a fresh a_hi*b_hi accumulator every
+// k-step, added with round to nearest, read the same SNR against float64
+// and cost time: PERF.md section 6). The warp's mixed rows live in two
 // rings (I, Q) of K+S = 80 rows x 16 columns, five slots of 16 rows: a
 // chunk's new rows overwrite the oldest slot, nothing slides. The chunk's
 // shaped rows are Y[16, 16] = T[16, 80] . M[80, 16] per plane, T the banded
@@ -91,19 +93,29 @@
 // column by three XOR shuffles: a fixed order that depends on neither the
 // column a channel sits in nor the laws beside it.
 //
-// Audio FIR: the demod rows go to a third ring of 128 rows. At D = 5 (the
-// stock 240 -> 48 kHz) the decimating FIR runs on the tensor cores too, per
-// 40 rows: Out[16 channels, 8 outputs] = A[16, 104] . TA[104, 8], A the
-// ring's rows G-64..G+39 as stored and TA[j, o] = h_audio_rev[j - 5o - 1],
-// the banded form of the shared audio kernel with stride 5, pre-split in
-// shared memory (its fragments would take 54 registers); the same
-// three-term split with the three terms in three accumulators. A group runs
-// as soon as its last row is in the ring, so it trails the chunks by up to
-// 24 rows; a tile's first and last group are whole groups too (rows outside
-// the tile meet zeros of the band or feed outputs that are not stored).
-// Every other D keeps a SIMT loop, one FMA chain per output over the ring
-// column (plain rows there), two lanes a column taking every second output.
-// The launch picks by D alone.
+// Audio FIR: the demod rows go to a third ring of 128 rows (plain rows of
+// the warp's 16 columns), and the decimating FIR runs on float32 FMAs at
+// every decimation D, in groups of outputs: a group is `ago` consecutive
+// outputs m (demod row mD) of each column, run as soon as its last row is
+// in the ring. Lane (hm, cm) makes the group's outputs m0 + hm + 2i, i <
+// `anh`, of column cm: `anh` (4 at the stock D = 5) outputs at once, each
+// in two float32 FMA chains at round to nearest, its even and its odd taps,
+// each in tap order (tap k on row mD - 63 + k, oldest first), added at the
+// end. The lane walks its rows (m0 + hm) D - 63 .. once, two at a time; row
+// j of the walk is tap j - 2Di of output i (so its parity is the tap's),
+// and one ring value and one broadcast float4 of the tap table atab[j]
+// (those four taps, zero outside the kernel) feed its chains: 2
+// shared-memory loads per 4 FMAs, where one chain per output took 2 per
+// FMA. One chain of 64 taps per output read 0.6 dB under the plain tail
+// against float64 (its rounding grows with the partial sums); two chains
+// read 2-4 dB above it (PERF.md section 6). The two halves of the warp read
+// rows D apart, so at odd D they fall in the two halves of the banks. A
+// group spans (ago - 1) D + 64 rows, which the ring holds where (ago - 1) D
+// <= 49: anh = 4 up to D = 7, then 3, 2 and 1 (ago = 2 anh), and a group
+// of one output (half 1 idle) from D = 50; the table has the taps of
+// outputs past anh zeroed, so their chains compute nothing that is stored.
+// A tile's last group is run after its last chunk with the outputs past
+// the tile unstored.
 //
 // PFB: the product for 64 rows at a time, P[64, 128] = F[64, 2K_p] .
 // W[2K_p, 128] (the block's 64 I columns and 64 Q columns of the packed
@@ -132,19 +144,19 @@
 //
 // What bounds them on the H100 (times and shares in PERF.md): the float32
 // operations bound of PERF.md counts the FIRs and the product at the SIMT
-// peak. With both FIRs on the tensor cores the body is bound by the tensor
-// pipe as mma.sync drives it: a warp issues 120 m16n8k8 TF32 mma a chunk
-// for the shaping FIR and 31 for the audio FIR, and a third more of them
-// cost a fifth more time (measured), about 12 cycles each on its SM
-// sub-core, a third of the card's TF32 peak. The three terms are the price
-// of float32 accuracy and the band wastes 16 of 80 columns; what is left
-// is wgmma, whose 64-row tiles waste half a band. Beside the tensor pipe
-// sit the warp issue slots of what feeds it (ring loads and integer splits,
-// about half of a chunk's ~1,000 instructions a warp), the LO and the FM
-// law, at 12 warps an SM: AUDIO takes 72 KB of shared memory a block (3
-// blocks an SM fill its 227 KB; ~150 registers a thread), CHANRATE 40 KB,
-// PFB 106 KB (2 blocks; its product's FMA and shared-memory pipes come on
-// top). At C=1,024 the main path has 256 blocks for 396 places.
+// peak. With the shaping FIR on the tensor cores the body is bound by the
+// tensor pipe as mma.sync drives it: a warp issues 120 m16n8k8 TF32 mma a
+// chunk, about 12 cycles each on its SM sub-core, a third of the card's
+// TF32 peak. The three terms are the price of float32 accuracy and the band
+// wastes 16 of 80 columns; what is left is wgmma, whose 64-row tiles waste
+// half a band. The audio FIR's FMAs (at D = 5, 94 rows of 4 FMAs a lane per
+// 40 rows) and its ring and table loads issue beside the tensor pipe. Beside
+// it sit the warp issue slots of what feeds it (ring loads and integer
+// splits, about half of a chunk's ~1,000 instructions a warp), the LO and
+// the FM law, at 12 warps an SM: AUDIO takes 72 KB of shared memory a block
+// (3 blocks an SM fill its 228 KB; ~150 registers a thread), CHANRATE 40
+// KB, PFB 106 KB (2 blocks; its product's FMA and shared-memory pipes come
+// on top). At C=1,024 the main path has 256 blocks for 396 places.
 //
 // Precision: every FIR tier ("highest", "hx5", "hx4", "high") is computed
 // as the three-term split-TF32 product, which holds the float32 bounds.
@@ -193,13 +205,10 @@ constexpr int KSTEPS = WIN / 8;    // mma k-steps over the ring
 constexpr int BAND_PAD = 16;       // leading zeros of the band table
 constexpr int BAND_TAB = 96;       // table length: reads reach index 94
 constexpr int ARING = 128;         // demod ring rows (a power of two)
-// the audio FIR on the tensor cores
-constexpr int AD = 5;              // the decimation it is built for
-constexpr int AOUT = 8;            // outputs per group: one mma n-tile
-constexpr int AGROUP = AD * AOUT;  // rows per group
-constexpr int AKSTEPS = (K + AGROUP) / 8;  // k-steps over rows G-K..G+39
-constexpr int ATAB_PAD = AD * (AOUT - 1) + 1;  // leading zeros of its table
-constexpr int ATAB = 144;          // table length: reads reach index 138
+// the audio FIR: accumulators a lane, and the tap table's rows (a lane's
+// walk is at most K + 2 * 7 * 3 = 106 rows, at D = 7)
+constexpr int ALANE = 4;
+constexpr int ATAB = 112;
 // the in-kernel filterbank product
 constexpr int PM = 64;             // rows per product group (4 chunks)
 constexpr int KS = 16;             // taps per staged slice
@@ -297,8 +306,8 @@ __device__ __forceinline__ int swz(int row, int col) {
 // = 2K_p; float32 at T_HIGHEST, else the bfloat16 hi half, and xc the lo
 // half, read at T_HIGH only). out is audio48 [nd/D, C], or the channel-rate
 // audio [nd, C] (CHANRATE, which reads no h_audio/ahist0 and writes no
-// ahist). TCA: the audio FIR on the tensor cores (D == AD).
-template <bool FAST, int KIND, bool TCA, int IN>
+// ahist).
+template <bool FAST, int KIND, int IN>
 __global__ void __launch_bounds__(NTHR, KIND == PFB ? 2 : 3)
 tail_tm_kernel(const void* __restrict__ xa, const void* __restrict__ xb,
                const void* __restrict__ xc, long long row_stride,
@@ -324,8 +333,7 @@ tail_tm_kernel(const void* __restrict__ xa, const void* __restrict__ xb,
   constexpr int ARING_FLOATS = HAS_AUDIO_FIR ? NWARP * ARING * WC : 0;
   extern __shared__ __align__(16) float smem[];
   __shared__ uint32_t band_hi[BAND_TAB], band_lo[BAND_TAB];
-  __shared__ uint32_t atab_hi[TCA ? ATAB : 1], atab_lo[TCA ? ATAB : 1];
-  __shared__ float ha[TCA ? 1 : K];  // the SIMT audio FIR's reversed kernel
+  __shared__ float4 atab[HAS_AUDIO_FIR ? ATAB : 1];  // the audio FIR's taps
   __shared__ int colch[NC];  // [warp][column] -> the warp's channel there
 
   const int tid = threadIdx.x;
@@ -349,28 +357,31 @@ tail_tm_kernel(const void* __restrict__ xa, const void* __restrict__ xb,
   const int r0 = tile * tile_rows;
   const int r1 = min(r0 + tile_rows, nd);
 
+  // the audio FIR's group (see the notes at the top): anh outputs a lane,
+  // ago outputs a column
+  const int anh = D <= 7 ? 4 : D <= 9 ? 3 : D <= 16 ? 2 : 1;
+  const int ago = D <= 49 ? 2 * anh : 1;
+
   // ---- tables and rings. The band table holds the reversed shaping kernel
-  // between zeros, split: band[i] = h_shape[i - BAND_PAD]; the audio table
-  // likewise, atab[i] = h_audio[i - ATAB_PAD]
+  // between zeros, split: band[i] = h_shape[i - BAND_PAD]. Row j of the
+  // audio table holds the taps that row j of a lane's walk meets in its
+  // outputs i < anh: h_audio[j - 2Di], zero outside the kernel
   for (int i = tid; i < BAND_TAB; i += NTHR) {
     const float v =
         (i >= BAND_PAD && i < BAND_PAD + K) ? h_shape[i - BAND_PAD] : 0.0f;
     split_tf32(v, band_hi[i], band_lo[i]);
   }
-  if (TCA) {
-    for (int i = tid; i < ATAB; i += NTHR) {
-      const float v =
-          (i >= ATAB_PAD && i < ATAB_PAD + K) ? h_audio[i - ATAB_PAD] : 0.0f;
-      split_tf32(v, atab_hi[i], atab_lo[i]);
+  if (HAS_AUDIO_FIR) {
+    for (int j = tid; j < ATAB; j += NTHR) {
+      float v[ALANE];
+#pragma unroll
+      for (int i = 0; i < ALANE; ++i) {
+        const int k = j - 2 * D * i;
+        v[i] = i < anh && k >= 0 && k < K ? h_audio[k] : 0.0f;
+      }
+      atab[j] = make_float4(v[0], v[1], v[2], v[3]);
     }
-  } else if (HAS_AUDIO_FIR) {
-    for (int k = tid; k < K; k += NTHR) ha[k] = h_audio[k];
   }
-  // the demod ring is swizzled for the tensor-core form's fragment loads;
-  // the SIMT loop walks a column of plain rows
-  auto aswz = [](int row, int col) {
-    return TCA ? swz(row, col) : row * WC + col;
-  };
   // zeros everywhere: rows that no emitted output reads still meet zeros of
   // the bands, so they have to be finite
   for (int i = tid; i < RING_FLOATS + ARING_FLOATS; i += NTHR) smem[i] = 0.0f;
@@ -443,7 +454,7 @@ tail_tm_kernel(const void* __restrict__ xa, const void* __restrict__ xb,
       ring_i[swz(S + 1 + j, cm)] = hist_i0[(size_t)j * C + c_mix];
       ring_q[swz(S + 1 + j, cm)] = hist_q0[(size_t)j * C + c_mix];
       if (HAS_AUDIO_FIR)
-        ba[aswz(ARING - (K - 1) + j, cm)] = ahist0[(size_t)j * C + c_mix];
+        ba[(ARING - (K - 1) + j) * WC + cm] = ahist0[(size_t)j * C + c_mix];
     }
 #pragma unroll
     for (int cc = 0; cc < 4; ++cc) {
@@ -472,46 +483,40 @@ tail_tm_kernel(const void* __restrict__ xa, const void* __restrict__ xb,
   // three blocks an SM leave a thread)
   const int band_at = t - g + 7;
 
-  // ---- one group of the tensor-core audio FIR: outputs at rows G + 5o,
-  // o < 8, of the warp's 16 channels, from demod rows G-K..G+39 (row G-K
-  // meets the band's padding column). A[m, j]: channel column 2(m % 8) +
-  // m / 8, ring row G - K + j; B[j, o] = atab[j - 5o - 1 + ATAB_PAD]
-  const int atab_at = t - AD * g - 1 + ATAB_PAD;
-  auto audio_group = [&](int G) {
-    float d_hh[4], d_lh[4], d_hl[4];
+  // ---- one group of the audio FIR: outputs m0 .. m0 + ago - 1 of the
+  // warp's columns; this lane's are m0 + hm + 2i, i < anh, of column cm
+  // (channel c_mix), each an even-tap and an odd-tap FMA chain in tap
+  // order, fed by one walk over the ring rows (m0 + hm) D - 63 .. (m0 + hm
+  // + 2 (anh - 1)) D, an even number of them
+  auto audio_group = [&](int m0) {
+    float even[ALANE], odd[ALANE];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) d_hh[i] = d_lh[i] = d_hl[i] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < AKSTEPS; ++kk) {
-      const float* const p =
-          ba + ((G - K + 8 * kk) & (ARING - 1)) * WC + frag;
-      const float2 v0 = *reinterpret_cast<const float2*>(p);
-      const float2 v1 = *reinterpret_cast<const float2*>(p + 4 * WC);
-      uint32_t ah[4], al[4];
-      split_tf32(v0.x, ah[0], al[0]);
-      split_tf32(v0.y, ah[1], al[1]);
-      split_tf32(v1.x, ah[2], al[2]);
-      split_tf32(v1.y, ah[3], al[3]);
-      const uint32_t b0h = atab_hi[atab_at + 8 * kk];
-      const uint32_t b1h = atab_hi[atab_at + 8 * kk + 4];
-      const uint32_t b0l = atab_lo[atab_at + 8 * kk];
-      const uint32_t b1l = atab_lo[atab_at + 8 * kk + 4];
-      mma_tf32(d_lh, al[0], al[1], al[2], al[3], b0h, b1h);
-      mma_tf32(d_hh, ah[0], ah[1], ah[2], ah[3], b0h, b1h);
-      mma_tf32(d_hl, ah[0], ah[1], ah[2], ah[3], b0l, b1l);
-    }
-    // d0, d1: channel column 2g, outputs 2t, 2t+1; d2, d3: column 2g+1
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = G + AD * (2 * t + (i & 1));
-      if (row >= r0 && row < r1) {
-        const int ch = cw + colch[warp * WC + 2 * g + (i >> 1)];
-        if (ch < C)
-          out[(size_t)(row / AD) * C + ch] = (d_lh[i] + d_hl[i]) + d_hh[i];
+    for (int i = 0; i < ALANE; ++i) even[i] = odd[i] = 0.0f;
+    if (hm < ago) {
+      const int n = K + 2 * D * (anh - 1);
+      const int row = (m0 + hm) * D - (K - 1);
+      for (int j = 0; j < n; j += 2) {
+        const float x0 = ba[((row + j) & (ARING - 1)) * WC + cm];
+        const float x1 = ba[((row + j + 1) & (ARING - 1)) * WC + cm];
+        const float4 h0 = atab[j], h1 = atab[j + 1];
+        even[0] = fmaf(h0.x, x0, even[0]);
+        even[1] = fmaf(h0.y, x0, even[1]);
+        even[2] = fmaf(h0.z, x0, even[2]);
+        even[3] = fmaf(h0.w, x0, even[3]);
+        odd[0] = fmaf(h1.x, x1, odd[0]);
+        odd[1] = fmaf(h1.y, x1, odd[1]);
+        odd[2] = fmaf(h1.z, x1, odd[2]);
+        odd[3] = fmaf(h1.w, x1, odd[3]);
       }
     }
+#pragma unroll
+    for (int i = 0; i < ALANE; ++i) {
+      const int m = m0 + hm + 2 * i;
+      if (live && i < anh && hm + 2 * i < ago && m * D >= r0 && m * D < r1)
+        out[(size_t)m * C + c_mix] = even[i] + odd[i];
+    }
   };
-  int ag = (r0 / AGROUP) * AGROUP;  // the next audio group's first row
+  int am = (r0 + D - 1) / D;  // the next audio group's first output
 
   // product rows of the current chunk, this lane's rows 2r + hm of column
   // cm, in registers. AUDIO and CHANRATE load them from the product, the
@@ -908,38 +913,16 @@ tail_tm_kernel(const void* __restrict__ xa, const void* __restrict__ xb,
 
         if (HAS_AUDIO_FIR) {
           // rows n0 + g and n0 + g + 8 of columns 4t..4t+3
-          float* const p = ba + aswz((n0 + g) & (ARING - 1), 4 * t);
+          float* const p = ba + ((n0 + g) & (ARING - 1)) * WC + 4 * t;
           *reinterpret_cast<float4*>(p) =
               make_float4(a[0][0], a[1][0], a[2][0], a[3][0]);
           *reinterpret_cast<float4*>(p + 8 * WC) =
               make_float4(a[0][1], a[1][1], a[2][1], a[3][1]);
           __syncwarp();
-          if (TCA) {
-            // ---- decimating audio FIR, every group whose rows are in
-            while (ag + AGROUP <= n0 + S) {
-              audio_group(ag);
-              ag += AGROUP;
-            }
-          } else {
-            // ---- decimating audio FIR: outputs m*D in [max(n0, r0),
-            // n0 + S), every second one this lane's. Output nn reads demod
-            // rows nn-K+1..nn of column cm
-            // rows nn-K+1..nn of column cm; they wrap at most once
-            const int first = max(n0, r0);
-            const int lim = min(n0 + S, r1);
-            for (int nn = ((first + D - 1) / D) * D; nn < lim; nn += D) {
-              if (((nn / D) & 1) != hm) continue;
-              const int row = (nn - (K - 1)) & (ARING - 1);
-              const int k1 = min(K, ARING - row);  // taps before the wrap
-              const float* p = ba + row * WC + cm;
-              float acc = 0.0f;
-#pragma unroll 4
-              for (int k = 0; k < k1; ++k) acc = fmaf(ha[k], p[k * WC], acc);
-              p = ba + cm - k1 * WC;
-#pragma unroll 4
-              for (int k = k1; k < K; ++k) acc = fmaf(ha[k], p[k * WC], acc);
-              if (live) out[(size_t)(nn / D) * C + c_mix] = acc;
-            }
+          // ---- decimating audio FIR: every group whose rows are in
+          while ((am + ago - 1) * D < n0 + S) {
+            audio_group(am);
+            am += ago;
           }
         } else if (n0 >= r0) {
           // ---- channel-rate audio: rows n0 + g and n0 + g + 8; 16 bytes a
@@ -971,7 +954,7 @@ tail_tm_kernel(const void* __restrict__ xa, const void* __restrict__ xb,
   }
   // the tile's last audio group: its rows from r1 on are an earlier
   // chunk's, finite, and meet only outputs that are not stored
-  if (TCA && ag < r1) audio_group(ag);
+  if (HAS_AUDIO_FIR && am * D < r1) audio_group(am);
 
   // the tile's power: a lane's rows in order, then the column's eight lanes
 #pragma unroll
@@ -994,7 +977,7 @@ tail_tm_kernel(const void* __restrict__ xa, const void* __restrict__ xb,
       hist_q[(size_t)j * C + c_mix] = ring_q[swz(at, cm)];
       if (HAS_AUDIO_FIR)
         ahist[(size_t)j * C + c_mix] =
-            ba[aswz((nd - (K - 1) + j) & (ARING - 1), cm)];
+            ba[((nd - (K - 1) + j) & (ARING - 1)) * WC + cm];
     }
     if (g == 0) {
 #pragma unroll
@@ -1009,16 +992,11 @@ tail_tm_kernel(const void* __restrict__ xa, const void* __restrict__ xb,
 }
 
 
-// the kernel for (KIND, IN), picked by the decimation (the audio FIR's
-// form) and the LO law
+// the kernel for (KIND, IN), picked by the LO law
 template <int KIND, int IN>
-auto pick_kernel(int D, int fast) {
-  constexpr bool HAS_AUDIO_FIR = KIND != CHANRATE;
-  return HAS_AUDIO_FIR && D == AD
-             ? (fast ? tail_tm_kernel<true, KIND, HAS_AUDIO_FIR, IN>
-                     : tail_tm_kernel<false, KIND, HAS_AUDIO_FIR, IN>)
-             : (fast ? tail_tm_kernel<true, KIND, false, IN>
-                     : tail_tm_kernel<false, KIND, false, IN>);
+auto pick_kernel(int fast) {
+  return fast ? tail_tm_kernel<true, KIND, IN>
+              : tail_tm_kernel<false, KIND, IN>;
 }
 
 template <int KIND>
@@ -1060,12 +1038,12 @@ int launch(const void* xa, const void* xb, const void* xc,
   const size_t smem_bytes = smem_floats * sizeof(float);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  auto kernel = pick_kernel<KIND, 0>(D, fast);
+  auto kernel = pick_kernel<KIND, 0>(fast);
   if constexpr (KIND == PFB) {
-    if (in == T_DEFAULT) kernel = pick_kernel<KIND, T_DEFAULT>(D, fast);
-    if (in == T_HIGH) kernel = pick_kernel<KIND, T_HIGH>(D, fast);
+    if (in == T_DEFAULT) kernel = pick_kernel<KIND, T_DEFAULT>(fast);
+    if (in == T_HIGH) kernel = pick_kernel<KIND, T_HIGH>(fast);
   } else {
-    if (in == IN_BF16) kernel = pick_kernel<KIND, IN_BF16>(D, fast);
+    if (in == IN_BF16) kernel = pick_kernel<KIND, IN_BF16>(fast);
   }
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -11,8 +11,8 @@ float32 matmuls against a banded (Toeplitz) weight matrix built on the host
 to the JAX package's. :func:`fir_dispatch` routes one call between the two
 forms. :func:`overlap_save_decimate` is the frequency-domain form the
 direct engine takes under ``ChainConfig.use_overlap_save``.
-:func:`fir_decimate_banded_tf32x3_tm` is the plain emulation of the CUDA
-tails' tensor-core audio FIR.
+:func:`fir_decimate_chain_tm` is the plain emulation of the CUDA tails'
+audio FIR, two FMA chains per output (its even and its odd taps).
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .precision import full_fp32, matmul_tf32x3
+from .precision import full_fp32
 
 
 def toeplitz_tile(nd_out: int, decimation: int, fir_length: int) -> int:
@@ -220,42 +220,37 @@ def fir_decimate_toeplitz_tm(
     return y.reshape(nd, c), x[n - (k - 1):]
 
 
-def fir_decimate_banded_tf32x3_tm(
+def fir_decimate_chain_tm(
     x: torch.Tensor,
     h_rev: torch.Tensor,
     decimation: int,
     history: torch.Tensor,
-    outputs: int = 8,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain emulation of the CUDA tails' decimating audio FIR on the
-    tensor cores (``csrc/tail_tm.cu``, built for decimation 5): the contract
-    of :func:`fir_decimate_toeplitz_tm` with the reversed kernel ``h_rev
-    [K]`` in place of the banded weights.
+    """Plain emulation of the CUDA tails' decimating audio FIR
+    (``csrc/tail_tm.cu``): the contract of :func:`fir_decimate_toeplitz_tm`
+    with the reversed kernel ``h_rev [K]`` in place of the banded weights.
 
-    Per group of ``outputs * D`` rows starting at row ``G``, ``outputs``
-    consecutive outputs are ``band [outputs, K + outputs * D] . window``,
-    where the window is rows ``G - K .. G + outputs * D - 1`` of the stream
-    and ``band[o, j] = h_rev[j - D * o - 1]`` (column 0 is padding), as a
-    three-term TF32 split with float32 sums
-    (:func:`..precision.matmul_tf32x3`). ``N`` must be whole groups.
+    Output ``m`` (stream row ``m D``) is the sum of two float32 FMA chains,
+    its even and its odd taps, each in tap order: tap ``k`` on row ``m D - K
+    + 1 + k``, oldest first, each step's product and sum taken in float64
+    and rounded to float32 (an FMA's one rounding, but for a rare double
+    rounding).
     """
     d = int(decimation)
     k = h_rev.shape[0]
-    n, c = x.shape
-    group = outputs * d
+    n = x.shape[0]
     if history.shape[0] != k - 1:
         raise ValueError("history length does not match the kernel length")
-    if n % group:
-        raise ValueError(f"{n} rows is not a multiple of the group {group}")
-    span = k + group
-    band = torch.zeros(outputs, span, dtype=torch.float32, device=x.device)
-    for o in range(outputs):
-        band[o, d * o + 1:d * o + 1 + k] = h_rev
-    pad = torch.zeros(1, c, dtype=x.dtype, device=x.device)
-    ext = torch.cat([pad, history, x], dim=0)  # row i is stream row i - K
-    win = ext.unfold(0, span, group)  # [n / group, C, span]
-    y = matmul_tf32x3(band, win.transpose(1, 2).contiguous())
-    return y.reshape(n // d, c), x[n - (k - 1):]
+    _check_block(n, d)
+    ext = torch.cat([history, x], dim=0)  # row i is stream row i - (K - 1)
+    h = h_rev.double()
+    chains = torch.zeros((2, n // d, x.shape[1]), dtype=torch.float32,
+                         device=x.device)
+    for j in range(k):
+        rows = ext[j:j + n - d + 1:d]  # rows m D - K + 1 + j
+        chains[j % 2] = (chains[j % 2].double()
+                         + h[j] * rows.double()).float()
+    return chains[0] + chains[1], x[n - (k - 1):]
 
 
 def _next_pow2(n: int) -> int:

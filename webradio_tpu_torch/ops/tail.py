@@ -24,21 +24,30 @@ from .launches import count_launch
 from .nco import PHASE_MASK, nco_mix
 from .tail_tm import KERNEL_TAPS, _check, _empty
 
-#: samples per CUDA block (the JAX kernel's time chunk too): nd must be a
-#: multiple. The kernel runs one block per channel, so any channel count
-#: passes (the JAX kernel's 8-channel tile is a Pallas tile)
+#: samples per CUDA block (the JAX kernel's time chunk too); a block of
+#: samples that is not whole chunks ends in a shorter one. The kernel runs
+#: one block per channel, so any channel count passes (the JAX kernel's
+#: 8-channel tile is a Pallas tile)
 TIME_CHUNK = 1024
+#: nd must be a multiple (a kernel thread makes 8 outputs, 16-byte stores)
+#: and at least the FIR's length (the new history is the block's last K-1)
+TIME_ROWS = 16
 
 
 def shape_refusal(nd: int, taps: int) -> str | None:
     """Why the kernel cannot take these shapes, or None: the CUDA
     kernel's own test, which the wrapper raises with and the card's
-    selection rule reads (``pipeline.channelized.tail_branch``)."""
+    selection rule reads (``pipeline.channelized.tail_branch``, and on
+    each time shard ``parallel.sharded_channelized``). The JAX kernel
+    takes whole chunks of :data:`TIME_CHUNK`; this one any multiple of
+    :data:`TIME_ROWS` (the time shards of a stock block hold 2,560 rows on
+    a (4, 1) mesh)."""
     if taps != KERNEL_TAPS:
         return (f"the kernel is built for {KERNEL_TAPS}-tap shaping FIRs, "
                 f"got {taps}")
-    if nd < TIME_CHUNK or nd % TIME_CHUNK or nd // TIME_CHUNK > 65_535:
-        return f"block {nd} must be a multiple of {TIME_CHUNK}"
+    if nd < taps or nd % TIME_ROWS or -(-nd // TIME_CHUNK) > 65_535:
+        return (f"block {nd} must be a multiple of {TIME_ROWS}, at least "
+                f"the {taps} taps")
     return None
 
 
@@ -84,7 +93,7 @@ def _launch(chan_in, phase0, phase_step, chan_coeff, mode, raw_hist,
         _check(name, x, dt, shape, dev)
     audio = _empty(dev, c, nd)
     new_prev = _empty(dev, 2, c)
-    power_part = _empty(dev, nd // TIME_CHUNK, c)
+    power_part = _empty(dev, -(-nd // TIME_CHUNK), c)
     power = _empty(dev, c)
 
     lib = _build.load_library()
@@ -114,7 +123,7 @@ def fused_receiver_tail(
 
     Args (the JAX function's):
       chan_in: ``[2, C, nd]`` float32; ``nd`` a multiple of
-        :data:`TIME_CHUNK`, any ``C``.
+        :data:`TIME_ROWS`, any ``C``.
       phase0 / phase_step: ``[C]`` int64 holding the uint32 residual NCO
         phase of this block's first sample and the per-sample step.
       chan_coeff: ``[C, K]`` float32 design-order coefficients.
@@ -129,9 +138,9 @@ def fused_receiver_tail(
     CUDA tensors go to the kernel (``fused_receiver_tail.launches`` counts
     each launch); CPU tensors to :func:`fused_receiver_tail_ref`.
     """
-    nd = chan_in.shape[2]
-    if nd % TIME_CHUNK:
-        raise ValueError(f"block {nd} must be a multiple of {TIME_CHUNK}")
+    why = shape_refusal(chan_in.shape[2], KERNEL_TAPS)
+    if why:
+        raise ValueError(why)
     args = (chan_in, phase0, phase_step, chan_coeff, mode, raw_hist,
             demod_prev)
     if chan_in.device.type == "cuda":

@@ -24,10 +24,10 @@ and "high" name TPU MXU pass counts and have no Hopper meaning yet. The
 kernels make the shaping FIR on the tensor cores as a three-term TF32 split
 (``ops.precision.matmul_tf32x3`` is its plain emulation,
 ``ops.nco.nco_mix_tm_rotated`` that of the ``fast`` LO), the decimating
-audio FIR likewise where the decimation is 5
-(``ops.fir.fir_decimate_banded_tf32x3_tm``; a float32 FMA loop for any
-other), and the filterbank product as float32 FMA chains in tap order; the
-plain versions stay true float32.
+audio FIR as two float32 FMA chains per output (its even and its odd
+taps, each in tap order) at every decimation
+(``ops.fir.fir_decimate_chain_tm``), and the filterbank product
+as float32 FMA chains in tap order; the plain versions stay true float32.
 
 The filterbank tiers (``ops.channelizer``) reach the kernels two ways. The
 packed product of the "bf16" tier is bfloat16: :func:`fused_tail_audio_tm`

@@ -19,23 +19,36 @@ filterbank and the receiver tails per shard (port of
   its phase at a shard boundary is ``(phase0 + shard_start * step) mod
   2^31``.
 
-Two bodies, as in the JAX package, each a list of stages
-(``parallel.graphs``). The time-major body (:data:`TM_STAGES`) recomputes
-the three tail halos from the shard's last ``2K - 1`` product rows and
-then runs the single-card time-major tail on the shard: kernel #1
+Three bodies, each a list of stages (``parallel.graphs``); the JAX
+package has the first two. The time-major body (:data:`TM_STAGES`)
+recomputes the three tail halos from the shard's last ``2K - 1`` product
+rows and then runs the single-card time-major tail on the shard: kernel #1
 (``ops.tail_tm.fused_tail_audio_tm``), or kernel #2 (``fused_tail_tm``)
 and the Toeplitz audio FIR where the local block admits no audio time
 tile, wherever the single-card step's rule selects it on the shard's
 LOCAL sizes (:func:`_tm_uses_kernel`: on the card at every width, on the
 CPU the JAX package's per-shard rule), else the plain tail. Its
 halos move in one exchange, so the body is two segments of work on a card
-between three moves. The stage body (:data:`STAGE_STAGES`) serves shards
-whose slots do not share one FIR kernel, stage by stage with an exchange
-between stages, plain on every device: neither body calls kernel #3 or #4
-(the JAX package's sharded engine has no per-channel kernel branch either;
-the per-channel kernel's raw history across time shards needs a design of
-its own). On the card a front end whose tails run plain says why in
-``plain_tail``, and in the log when it is built.
+between three moves. Shards whose slots do not share one FIR kernel run
+a per-channel body. On the card it is :data:`CHANNEL_STAGES`, the
+time-major body's shape on kernel #4 (``ops.tail.fused_receiver_tail``,
+the single card's per-channel fallback): the shard's RAW filterbank
+planes, the halos recomputed from its last ``2K - 1`` raw rows with #4's
+LO law (:func:`_channel_rows`), one exchange, then #4 at the shard's start
+phase and the audio FIR, wherever :func:`_channel_uses_kernel` selects it
+(the single card's rule on the shard's rows). Elsewhere, and with
+``tail_kernel="xla"`` or where #4 refuses a shard, it is the JAX
+package's stage body (:data:`STAGE_STAGES`), stage by stage with an
+exchange between stages, plain. No body calls kernel #3. On the card a
+front end whose tails run plain says why in ``plain_tail``, and in the log
+when it is built.
+
+Kernel #4 carries the RAW history in ``chan_hist``, the other bodies the
+mixed one (as on the single card, ``pipeline.channelized.carries_raw``):
+:meth:`ShardedChannelizedFrontEnd.update_params` converts the carried
+history where a parameter set moves the front end between them, and the
+state leaves (``gathered_state``) and enters (``run_capture_sharded``) in
+the domain the single-card step of the same parameters carries.
 
 The next block's carries are the last time shard's
 (:meth:`.comm.Comm.from_last_into`), and the squelch gate reads the whole
@@ -53,8 +66,8 @@ import logging
 import torch
 
 from ..ops.channelizer import pfb_channelize_direct
-from ..ops.demod import demodulate_tm
-from ..ops.fir import fir_decimate_toeplitz_tm, fir_dispatch
+from ..ops.demod import demodulate, demodulate_tm
+from ..ops.fir import fir_decimate, fir_decimate_toeplitz_tm, fir_dispatch
 from ..ops.nco import (
     PHASE_MASK,
     nco_advance,
@@ -63,6 +76,7 @@ from ..ops.nco import (
     nco_mix_tm_fast,
 )
 from ..ops.precision import full_fp32
+from ..ops.tail import fused_receiver_tail
 from ..ops.tail_tm import (
     fused_tail_audio_tm,
     fused_tail_tm,
@@ -77,6 +91,7 @@ from ..pipeline.channelized import (
     _channelize_tm,
     init_channelized_state,
     scatter_params_slots,
+    switch_hist_domain,
 )
 from ..pipeline.graph import Kept, carry, clone_tree, shapes
 from .comm import Comm
@@ -133,6 +148,47 @@ def _tail_rows(cfg, prm, mix_tm, y2, phase, c_local):
                                   torch.stack([st_i[0], st_q[0]]))
     return (mt_i[t_rows - (k - 1):], mt_q[t_rows - (k - 1):],
             torch.stack([st_i[-1], st_q[-1]]), audio_tail)
+
+
+def _channel_rows(cfg, prm, chan_in, phase):
+    """The per-channel twin of :func:`_tail_rows`: every halo the right
+    neighbour's kernel #4 needs, from the shard's last ``2K - 1`` RAW rows
+    of ``chan_in [2, C, nd]`` (first sample at ``phase``): its last ``K -
+    1`` raw samples (#4's ``raw_hist``, a slice), the last shaped sample
+    (the FM lag) and the last ``K - 1`` demodulated samples (the audio
+    FIR's history), the shaped ones remade from the raw rows re-mixed at
+    their phase with #4's LO law (the table law) and the per-channel
+    coefficients, as ``ops.tail.fused_receiver_tail_ref`` makes them."""
+    k = cfg.fir_length
+    t_rows = 2 * k - 1
+    nd = chan_in.shape[-1]
+    phase_t = (phase + (nd - t_rows) * prm.residual_step) & PHASE_MASK
+    mixed = nco_mix(chan_in[..., nd - t_rows:], phase_t, prm.residual_step)
+    shaped, _ = fir_decimate(mixed[..., k - 1:], prm.chan_coeff, 1,
+                             mixed[..., :k - 1])  # samples nd-K .. nd-1
+    audio_tail, _ = demodulate(shaped[..., 1:], prm.mode, shaped[..., 0])
+    return chan_in[..., nd - (k - 1):], shaped[..., -1], audio_tail
+
+
+def _channel_refusal(cfg: ChannelizedConfig, nd_local: int) -> str | None:
+    """Why kernel #4 cannot run the per-channel body on time shards of
+    ``nd_local`` rows, or None: its own shape test, and the ``2K - 1`` rows
+    the halos are remade from."""
+    why = _ch.channel_shape_refusal(nd_local, cfg.fir_length)
+    if why is None and nd_local < 2 * cfg.fir_length - 1:
+        why = (f"time shards of {nd_local} rows are shorter than the "
+               f"{2 * cfg.fir_length - 1} its halos are remade from")
+    return why
+
+
+def _channel_uses_kernel(cfg: ChannelizedConfig, nd_local: int,
+                         params) -> bool:
+    """Whether the per-channel body runs kernel #4 (:data:`CHANNEL_STAGES`):
+    the single card's rule (``pipeline.channelized.channel_kernel_rule``)
+    on the shard's rows. On the CPU the JAX package's sharded engine,
+    which has no per-channel kernel branch: the stage body."""
+    return (_ch.channel_kernel_rule(cfg, nd_local, params)
+            and _channel_refusal(cfg, nd_local) is None)
 
 
 def _tm_uses_kernel(cfg: ChannelizedConfig, nd_local: int, c_local: int,
@@ -275,6 +331,51 @@ def _stage_filterbank(ws, pos):
         ws.carries_head[p] = [pfb_tail]
 
 
+def _channel_filterbank(ws, pos):
+    """The per-channel body's spectrum, filterbank product (time-minor RAW
+    planes: kernel #4 mixes them) and the halos the right neighbour needs
+    (:func:`_channel_rows`)."""
+    cfg, m = ws.cfg, ws.mesh
+    nd_local = cfg.block_frames // m.time // cfg.num_bins
+    for p in pos:
+        prm, st, iq = ws.params[p], ws.state[p], ws.iq[p]
+        if p % m.chan == 0:
+            spectra_out(ws, p, iq)
+        ws.chan_in[p], ws.pfb_tail[p] = pfb_channelize_direct(
+            iq, prm.pfb_weights, cfg.num_bins, _pfb_hist(ws, p),
+            precision=cfg.pfb_precision,
+            weights_split=prm.pfb_weights_split)  # [2, C_local, nd_local]
+        start = (p // m.chan) * nd_local
+        ws.phase[p] = (st.nco_phase + start * prm.residual_step) & PHASE_MASK
+        ws.send("tails", p,
+                list(_channel_rows(cfg, prm, ws.chan_in[p], ws.phase[p])))
+
+
+def _channel_tail(ws, pos):
+    """Kernel #4 on each shard at its start phase, its histories the
+    carried state at time shard 0 and the moved halos after, then the
+    audio FIR (``fir_dispatch``, as the single card's fallback runs it);
+    the next block's carries are #4's and the audio FIR's own."""
+    cfg = ws.cfg
+    for p in pos:
+        prm, st = ws.params[p], ws.state[p]
+        halo = ws.recv("tails").get(p)
+        if halo is None:
+            raw_hist, prev, audio_hist = (st.chan_hist, st.demod_prev,
+                                          st.audio_hist)
+        else:
+            raw_hist, prev, audio_hist = halo
+        audio_if, raw_tail, prev_tail, pw = fused_receiver_tail(
+            ws.chan_in[p], ws.phase[p], prm.residual_step, prm.chan_coeff,
+            prm.mode, raw_hist.contiguous(), prev.contiguous())
+        ws.audio[p], audio_tail = fir_dispatch(
+            audio_if, prm.audio_coeff, prm.audio_toep, cfg.audio_decim,
+            audio_hist)
+        ws.send("power", p, [pw])
+        ws.send("carries", p, [ws.pfb_tail[p], raw_tail, prev_tail,
+                               audio_tail])
+
+
 def _finish(time_major: bool):
     def fn(ws, pos):
         """Gate every shard on the whole block's power; the next block's
@@ -298,6 +399,12 @@ def _finish(time_major: bool):
 #: exchange, the tails, the gate and the carries
 TM_STAGES = [Move(_pfb_halo), Local(_tm_filterbank), shift("tails"),
              Local(_tm_tail), FINISH_MOVE, _finish(time_major=True)]
+#: the per-channel body on kernel #4: the RAW filterbank planes with the
+#: recomputed halos, one exchange, #4 and the audio FIR, the gate and the
+#: carries
+CHANNEL_STAGES = [Move(_pfb_halo), Local(_channel_filterbank),
+                  shift("tails"), Local(_channel_tail), FINISH_MOVE,
+                  _finish(time_major=False)]
 #: the stage body: each halo taken from its materialized output
 STAGE_STAGES = ([Move(_pfb_halo), Local(_stage_filterbank)]
                 + fir_stages(lambda x: x, lambda cfg, *a: fir_dispatch(*a),
@@ -334,6 +441,11 @@ class ShardedChannelizedFrontEnd(ShardedPipeline):
                         cfg.num_channels, mesh.time, mesh.chan, why)
 
     @property
+    def nd_local(self) -> int:
+        """Channel-rate rows of a time shard."""
+        return self.cfg.block_frames // self.mesh.time // self.cfg.num_bins
+
+    @property
     def plain_tail(self) -> str | None:
         """On the card, why the shards' tails run plain although
         ``tail_kernel`` does not ask for it, else None (on the CPU the JAX
@@ -342,11 +454,10 @@ class ShardedChannelizedFrontEnd(ShardedPipeline):
         if not _ch.on_card(prm.mode) or self.cfg.tail_kernel == "xla":
             return None
         if not self.time_major:
-            return ("the per-channel body of the sharded engine has no "
-                    "kernel yet")
-        nd_local = (self.cfg.block_frames // self.mesh.time
-                    // self.cfg.num_bins)
-        why = _ch.tm_kernel_refusal(self.cfg, nd_local, self.c_local, prm)
+            why = _channel_refusal(self.cfg, self.nd_local)
+            return why and f"per-channel tail kernel on each shard: {why}"
+        why = _ch.tm_kernel_refusal(self.cfg, self.nd_local, self.c_local,
+                                    prm)
         return why and f"time-major tail kernel on each shard: {why}"
 
     @property
@@ -354,8 +465,47 @@ class ShardedChannelizedFrontEnd(ShardedPipeline):
         any_params = self._placed[self.mesh.local_positions[0]]
         return _tm_body_eligible(self.cfg, self.mesh.time, any_params)
 
+    def carries_raw(self) -> bool:
+        """Whether the body carries the RAW history: the per-channel body
+        on kernel #4."""
+        prm = self._placed[self.mesh.local_positions[0]]
+        return not self.time_major and _channel_uses_kernel(
+            self.cfg, self.nd_local, prm)
+
     def _stages(self) -> list:
-        return TM_STAGES if self.time_major else STAGE_STAGES
+        if self.time_major:
+            return TM_STAGES
+        return CHANNEL_STAGES if self.carries_raw() else STAGE_STAGES
+
+    def update_params(self, params: ChannelizedParams) -> None:
+        """:meth:`.sharded.ShardedPipeline.update_params`, with each
+        shard's carried history converted where the new parameters move
+        the front end between the raw-history body and a mixed one (a
+        bandwidth leaving or rejoining the shared FIR kernels on the
+        card)."""
+        was_raw, old = self.carries_raw(), self._placed
+        super().update_params(params)
+        if self.carries_raw() == was_raw:
+            return
+        lo = old if was_raw else self._placed
+        for p in distinct(self.state):
+            st = self.state[p]
+            st.chan_hist.copy_(switch_hist_domain(
+                st.chan_hist, st.nco_phase, lo[p].residual_step,
+                not was_raw))
+
+    def _single_card_domain(self, state: ChannelizedState,
+                            to_body: bool) -> ChannelizedState:
+        """A whole state carried between the history domain of this body
+        and the one the single-card step of the same parameters carries
+        (``pipeline.channelized.carries_raw``): into the body's where
+        ``to_body``, else out of it."""
+        raw = self.carries_raw()
+        if raw == _ch.carries_raw(self.cfg, self.params):
+            return state
+        step = self.params.residual_step.to(state.chan_hist.device)
+        return state._replace(chan_hist=switch_hist_domain(
+            state.chan_hist, state.nco_phase, step, raw == to_body))
 
     def _place_params(self, params: ChannelizedParams) -> dict:
         return place(params, PARAMS_AXES, self.mesh, self.c_local)
@@ -387,9 +537,11 @@ class ShardedChannelizedFrontEnd(ShardedPipeline):
 
     def gathered_state(self, device=None) -> ChannelizedState:
         """The carried state, whole, on ``device`` (default: the front
-        end's)."""
-        return gather_columns(self.state, STATE_AXES, self.mesh,
-                              device or self.device)
+        end's), its history in the domain of the single-card step of the
+        same parameters."""
+        return self._single_card_domain(gather_columns(
+            self.state, STATE_AXES, self.mesh, device or self.device),
+            to_body=False)
 
 
 #: the front ends kept between offline runs, by configuration, mesh and
@@ -415,7 +567,9 @@ def run_capture_sharded(cfg: ChannelizedConfig, params: ChannelizedParams,
     The front end (its graphs, its placed copy of the parameters) is kept
     for a later call of the same configuration, mesh and parameter layout,
     which copies its parameters and state into it instead of warming and
-    capturing again. One process drives every position."""
+    capturing again. One process drives every position. ``state`` and
+    the final state hold the history in the domain of the single-card
+    step of the same parameters (``pipeline.channelized.carries_raw``)."""
     bf, af = cfg.block_frames, cfg.audio_frames
     n_blocks = iq.shape[-1] // bf
     if n_blocks == 0:
@@ -427,8 +581,9 @@ def run_capture_sharded(cfg: ChannelizedConfig, params: ChannelizedParams,
                                         graph=graph)
     else:
         fe.update_params(params)
-    fe.load_state(place(state if state is not None
-                        else init_channelized_state(cfg, "cpu"),
+    if state is None:
+        state = init_channelized_state(cfg, "cpu")
+    fe.load_state(place(fe._single_card_domain(state, to_body=True),
                         STATE_AXES, mesh, fe.c_local))
     audio = torch.empty((cfg.num_channels, n_blocks * af),
                         dtype=torch.float32, device=iq.device)

@@ -442,15 +442,22 @@ def _use_tm(cfg: ChannelizedConfig, nd: int, params) -> bool:
     )
 
 
-def _use_kernel_channel(cfg: ChannelizedConfig, nd: int, params) -> bool:
-    """Whether the per-channel fallback runs its kernel
-    (``ops.tail.fused_receiver_tail``): under ``use_pallas_tail`` on every
-    device (its wrapper raises where it refuses the shapes), and on the
-    card unless ``tail_kernel="xla"`` or the kernel refuses them."""
-    if cfg.use_pallas_tail:
-        return True
+def channel_kernel_rule(cfg: ChannelizedConfig, nd: int, params) -> bool:
+    """Whether a per-channel tail over ``nd`` rows runs its kernel
+    (``ops.tail.fused_receiver_tail``) by the card's rule: on the card,
+    unless ``tail_kernel="xla"`` or the kernel refuses the shapes; never
+    elsewhere. The single-card fallback's rule with the whole block's rows
+    (:func:`_use_kernel_channel`), the sharded per-channel body's with a
+    shard's (``parallel.sharded_channelized``)."""
     return (on_card(params.mode) and cfg.tail_kernel != "xla"
             and channel_shape_refusal(nd, cfg.fir_length) is None)
+
+
+def _use_kernel_channel(cfg: ChannelizedConfig, nd: int, params) -> bool:
+    """Whether the per-channel fallback runs its kernel: under
+    ``use_pallas_tail`` on every device (its wrapper raises where it
+    refuses the shapes), else by :func:`channel_kernel_rule`."""
+    return cfg.use_pallas_tail or channel_kernel_rule(cfg, nd, params)
 
 
 def tail_branch(cfg: ChannelizedConfig, params) -> tuple[bool, bool]:
