@@ -1093,7 +1093,7 @@ def soak(seconds: float = 30, capacity: int = 1024, consumers: int = 8,
         "dropped_total_with_warmup": end["dropped_blocks"],
         "fanout_dropped": end["fanout_dropped"] - base["fanout_dropped"],
         "throughput_factor": end["throughput_factor"],
-        "sampled_latency_ns_per_frame": end["ns_per_frame"],
+        "step_ns_per_frame": end["ns_per_frame"],
         "last_step_ms": end["last_step_ms"],
         "last_dispatch_ms": end["last_dispatch_ms"],
         "graph": end["graph"], "audio_format": fmt,

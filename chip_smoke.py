@@ -115,6 +115,16 @@ Phases (each fails the run on error):
    A fifth receiver on tuner 0 (AM) writes a ``file:`` audio sink whose
    WAV must hold 1 kHz with no sink drop; a receiver on tuner 1 asks for
    "pulse", which without libpulse-simple stays unbound;
+13b. the clocks: one tone tuner at C=16,384 served by ``RadioApp`` with a
+   ``file:`` sink on its receiver, and a ``/profile`` trace of its live
+   pump, whose ``trace.json`` holds the host's tracks from the flight
+   recorder (``webradio_tpu_torch.trace``) beside the card's kernels: for
+   at least 99% of the traced blocks the graph launch of the block's step
+   lies in its ``dispatch`` span, the step's first kernel starts after
+   that span starts, and the block's ``fetch`` ends after the last kernel
+   of the next block's step (which the one stream runs before the copy);
+   and the recorder's host cost a block, its calls of one served block
+   timed in a loop;
 14. the soundcard tuner: a ``"soundcard"`` tuner on a libpulse-simple
    stand-in at a 96 kHz line-in clock, served by ``RadioApp`` on the card,
    its AM receiver heard over HTTP;
@@ -2990,9 +3000,7 @@ def phase_server(results):
         results["server_recaptures"] = captures
         m_serving = mark()  # HTTP requests, audio streams, control writes
         # the server's own real-time factor over serving, read before this
-        # script's profiler windows: the 1 s window's trace parse holds the
-        # interpreter for ~0.9 s, and a sampled block that it stalls reads
-        # ~1 s, which then weighs on the cumulative factor in /status
+        # script's profiler windows
         serving_status = json.loads(http_call(port, "GET", "/status")[1])
         watch.mark("1 s profiler window")  # and the pump catching up
         # the device's idle share while serving, from the device's own
@@ -3113,7 +3121,7 @@ def phase_server(results):
             "realtime_factor_serving": serving_status["front_ends"][
                 fe.uuid]["realtime_factor"],
             "throughput_factor": st["throughput_factor"],
-            "sampled_ms_per_block": ms, "step_samples": st["step_samples"],
+            "step_ms_per_block": ms, "step_samples": st["step_samples"],
             "last_dispatch_ms": st["last_dispatch_ms"],
         }
         o = out[fe.uuid]
@@ -3127,8 +3135,9 @@ def phase_server(results):
             f"{o['serving_throughput']:.4f}); fan-out drops "
             f"{st['fanout_dropped']}, real-time factor "
             f"{o['realtime_factor_serving']} over serving, at the end "
-            f"{st['realtime_factor']} ({ms:.3f} ms/block sampled over "
-            f"{st['step_samples']} blocks, dispatch to completion), "
+            f"{st['realtime_factor']} ({ms:.3f} ms/block on the card, the "
+            f"step's mean over the last blocks of {st['step_samples']} "
+            f"read), "
             f"throughput since start {st['throughput_factor']}")
     # kernel #1: every block of tuner 0 and of tuner 2 on both sides of its
     # growth, plus the warm blocks of tuner 0's and tuner 2's pipelines and
@@ -3203,6 +3212,186 @@ AGREE_CALLS = 50
 #: the card every virtual mesh repeats, and the multihost phase's backend
 CARD = "cuda:0"
 MULTIHOST_BACKEND = "nccl"
+
+
+#: the /profile trace of the clocks phase, and the share of its blocks
+#: that must be causally ordered against the card's kernels
+CLOCK_TRACE_S = 2.0
+CLOCK_GATE_SHARE = 0.99
+
+
+def clock_gate(doc: dict) -> dict:
+    """Lay a ``/profile`` trace's host tracks (``trace.HOST_PID``: each
+    block's ``dispatch`` and ``fetch``, by block id) against its device
+    kernels: a block's step is the kernels of the ``cudaGraphLaunch``
+    (their ``correlation``) made inside the block's ``dispatch`` span.
+    Counts the traced blocks (a step whose launch is in the trace), those
+    whose launch falls in no dispatch span, and those causally ordered:
+    the step's first kernel starts after its dispatch span starts and,
+    where the block was fetched and the next block's step is traced, the
+    fetch ends after that step's last kernel."""
+    import bisect
+    import collections
+
+    from webradio_tpu_torch import trace
+
+    events = doc["traceEvents"]
+    host = [e for e in events if e.get("pid") == trace.HOST_PID
+            and e.get("ph") == "X"]
+    dispatch = sorted((e["ts"], e["ts"] + e["dur"], e["args"]["block"])
+                      for e in host if e["name"] == "dispatch")
+    fetched = {e["args"]["block"]: e["ts"] + e["dur"] for e in host
+               if e["name"] == "fetch"}
+    kernels = collections.defaultdict(list)
+    for e in events:
+        if e.get("cat") == "kernel":
+            kernels[e.get("args", {}).get("correlation")].append(
+                (e["ts"], e["ts"] + e["dur"]))
+    launches = [(e["ts"], e.get("args", {}).get("correlation"))
+                for e in events if e.get("cat") == "cuda_runtime"
+                and e.get("name") == "cudaGraphLaunch"]
+    starts = [d[0] for d in dispatch]
+    step, unmatched = {}, 0
+    for ts, corr in launches:
+        ks = kernels.get(corr)
+        if not ks:
+            continue
+        i = bisect.bisect_right(starts, ts) - 1
+        if i < 0 or ts > dispatch[i][1]:
+            unmatched += 1
+            continue
+        step[dispatch[i][2]] = (dispatch[i][0], min(k[0] for k in ks),
+                                max(k[1] for k in ks))
+    ordered = fetch_checked = 0
+    for bid, (d0, k0, _) in step.items():
+        ok = k0 >= d0
+        nxt = step.get(bid + 1)
+        if ok and bid in fetched and nxt is not None:
+            fetch_checked += 1
+            ok = fetched[bid] >= nxt[2]
+        ordered += ok
+    traced = len(step) + unmatched
+    return {"traced": traced, "unmatched": unmatched, "ordered": ordered,
+            "fetch_checked": fetch_checked,
+            "share": ordered / traced if traced else 0.0,
+            "launches": len(launches), "host_events": len(host)}
+
+
+def recorder_cost_us(consumers: int, n: int = 20_000) -> float:
+    """The flight recorder's host microseconds a served block: the calls
+    ``io.ring.BlockRing.put``, ``radio.FrontEnd.run_once`` (one block a
+    call, the card's two timing events) and ``_fanout_worker`` make into
+    it for one block, and ``AudioStreamManager.publish``'s counters for
+    ``consumers`` consumers (their clock reads, drop checks and queue
+    depths), timed in a loop of ``n`` blocks on a recorder of its own."""
+    import queue
+
+    import torch
+
+    from webradio_tpu_torch import trace
+
+    rec = trace.Recorder("cost")
+    now = trace.now
+    depths = queue.Queue(8).queue
+    events = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+    events[0].record()
+    events[1].record()
+    torch.cuda.synchronize()
+    stream = torch.cuda.current_stream()
+    t0 = time.perf_counter_ns()
+    for bid in range(n):
+        rec.begin(bid, now(), 1)
+        rec.got(bid, now(), 0, 1)
+        c0, c1 = now(), now()
+        events[0].record(stream)
+        d0, d1 = now(), now()
+        rec.dispatched(bid, c0, c1, d0, d1)
+        events[1].record(stream)
+        if events[1].query():
+            rec.step(bid, int(events[0].elapsed_time(events[1]) * 1e6))
+        p0 = now()
+        rec.published(bid, p0, now(), 64)
+        h0, h1 = now(), now()
+        rec.handed(bid, h0, h1, 0)
+        picked, f0, f1 = now(), now(), now()
+        encode = drops = deepest = 0
+        for _ in range(consumers):  # a mount a consumer, as in the cells
+            e0 = now()
+            encode += now() - e0
+            before = drops
+            drops += before != drops
+            depth = len(depths)
+            if depth > deepest:
+                deepest = depth
+        rec.delivered(bid, picked, f0, f1, 1, f1, now(), encode,
+                      consumers, drops, deepest)
+    return (time.perf_counter_ns() - t0) / n / 1e3
+
+
+def phase_clocks(results):
+    """The recorder's clocks against the card's (see the module
+    docstring, phase 13b)."""
+    import pathlib
+    import shutil
+    import tempfile
+
+    from webradio_tpu_torch import app as tapp
+    from webradio_tpu_torch import trace
+    from webradio_tpu_torch.radio import Radio
+
+    trace.clear()  # the earlier phases' front ends
+    work = pathlib.Path(tempfile.mkdtemp(prefix="webradio_clocks_"))
+    tuner = {"driver": "tone", "centre_frequency": 124_325_000,
+             "sample_rate": SAMPLE_RATE, "block_frames": BLOCK_FRAMES}
+    app = tapp.RadioApp({
+        "server": {"port": 0, "host": "127.0.0.1", "html": "html"},
+        "tuners": [dict(tuner, capacity=WIDE_CHANNELS, engine="auto")],
+        "receivers": [{"tuner": 0, "if_frequency": 0, "demodulator": "AM",
+                       "audio_sink": f"file:{work / 'rx.wav'}"}]})
+    try:
+        if not app.start():
+            raise AssertionError("the clocks phase's server did not start")
+        fe = app.front_ends[0]
+        port = app.server.port
+        deadline = time.monotonic() + 60
+        while fe.block_count < 10:
+            if time.monotonic() > deadline or app.failed is not None:
+                raise AssertionError(f"no blocks served: {app.failed}")
+            time.sleep(0.05)
+        trace_dir = str(work / "trace")
+        status, _ = http_call(port, "POST", "/profile",
+                              {"action": "start", "dir": trace_dir})
+        time.sleep(CLOCK_TRACE_S)
+        status2, data = http_call(port, "POST", "/profile",
+                                  {"action": "stop"})
+        if (status, status2) != (200, 200):
+            raise AssertionError(f"/profile failed: {data[:500]}")
+        summary = json.loads(http_call(port, "GET", "/status")[1])[
+            "front_ends"][fe.uuid]["trace"]
+    finally:
+        app.close()
+        Radio.reset()
+    doc = json.loads((pathlib.Path(trace_dir) / "trace.json").read_text())
+    shutil.rmtree(work, ignore_errors=True)
+    gate = clock_gate(doc)
+    log(f"  /profile trace of {CLOCK_TRACE_S:.0f} s: {gate['traced']} "
+        f"traced blocks ({gate['launches']} graph launches, "
+        f"{gate['host_events']} host spans), {gate['ordered']} causally "
+        f"ordered ({100 * gate['share']:.2f}%; fetch checked on "
+        f"{gate['fetch_checked']}), {gate['unmatched']} launches in no "
+        f"dispatch span")
+    log(f"  /status trace over the last blocks: {json.dumps(summary)}")
+    results["clock_gate"] = gate
+    results["clock_status_trace"] = summary
+    cost = {k: recorder_cost_us(k) for k in (0, 8, 64)}
+    log(f"  the recorder's host cost a block (its calls of one block in a "
+        f"loop; by consumers pushed): " + ", ".join(
+            f"{k}: {v:.2f} us" for k, v in cost.items()))
+    results["recorder_cost_us"] = cost
+    if gate["traced"] < 10 or gate["share"] < CLOCK_GATE_SHARE:
+        raise AssertionError(f"the host's and the card's clocks disagree: "
+                             f"{gate}")
 
 
 def virtual_mesh(t: int, c: int):
@@ -3826,7 +4015,7 @@ def phase_multihost(results):
         elapsed = time.monotonic() - t_served
         drops = PumpWatch.dropped(fe) - drops0
         samples = fe.step_samples
-        step_ms = fe.last_step_ns / 1e6
+        step_ms = fe.trace.latest("step_ns") / 1e6
         served = fe.block_count
         graphs = fe.pipeline.graph_stats()
         nodes = fe.pipeline.graph_kernels_per_block()
@@ -3838,8 +4027,9 @@ def phase_multihost(results):
     launches = tail_wrappers()["fused_tail_audio_tm"].launches
     log(f"  served {blocks} blocks in {elapsed:.2f} s (throughput "
         f"{blocks * BLOCK_MS / 1e3 / elapsed:.3f}), {drops} dropped; last "
-        f"sampled step {step_ms:.2f} ms ({samples} samples); kernel #1 "
-        f"launches {launches} for {fe.block_count} blocks + {warm} warm")
+        f"step {step_ms:.2f} ms on the card ({samples} blocks read); "
+        f"kernel #1 launches {launches} for {fe.block_count} blocks + "
+        f"{warm} warm")
     log(f"  graphs: {graphs}, {nodes} kernel nodes a block")
     if drops:
         raise AssertionError(f"the multihost pump dropped {drops} blocks")
@@ -3983,8 +4173,8 @@ def phase_two_process(results):
             f"graphs {rec['graph']}; {rec['source']}")
     log(f"  two-process app: C={done['channels']}, rank 0 heard "
         f"{done['tone_hz']:.2f} Hz, throughput {done['throughput']:.3f}, "
-        f"{done['listened_drops']} dropped while it listened, last sampled "
-        f"step {done['last_step_ms']:.2f} ms")
+        f"{done['listened_drops']} dropped while it listened, last "
+        f"step {done['last_step_ms']:.2f} ms on the card")
     if abs(done["tone_hz"] - 440.0) > TONE_TOLERANCE_HZ:
         raise AssertionError(f"the two-process app's rank 0 heard "
                              f"{done['tone_hz']:.2f} Hz, not 440")
@@ -4182,7 +4372,7 @@ def worker_app(url: str, rank: int) -> None:
         rec, tone_hz=tone, channels=TWO_PROC_APP_CHANNELS,
         throughput=(rec["blocks"] - b0) * BLOCK_MS / 1e3 / dt,
         listened_drops=rec["drops"] - d0,
-        last_step_ms=fe.last_step_ns / 1e6)), flush=True)
+        last_step_ms=fe.trace.latest("step_ns") / 1e6)), flush=True)
     while app.failed is None:
         time.sleep(0.2)
     raise SystemExit(f"rank 0 failed: {app.failed}")
@@ -4327,6 +4517,8 @@ def main() -> int:
     phase_entry(dev, results)
     log("== the server: RadioApp over HTTP")
     phase_server(results)
+    log("== the clocks: a live pump's /profile trace, host against card")
+    phase_clocks(results)
     log("== the soundcard tuner on a libpulse-simple stand-in")
     phase_soundcard(results)
     log(f"== sharded: (2, 2) virtual mesh of the card at C={WIDE_CHANNELS}, "

@@ -392,6 +392,10 @@ def test_profile_endpoint_writes_a_trace(app, tmp_path):
     assert got["kernel_events"] is None
     trace = json.loads((pathlib.Path(trace_dir) / "trace.json").read_text())
     assert "traceEvents" in trace
+    # the flight recorder's spans of the traced blocks, on the host's
+    # tracks beside the profiler's events
+    host = [e for e in trace["traceEvents"] if e.get("cat") == "webradio_host"]
+    assert {"put", "dispatch", "publish"} <= {e["name"] for e in host}
     assert request(app, "POST", "/profile", {"action": "stop"})[0] == 400
     assert request(app, "POST", "/profile", b"{bad json")[0] == 400
 

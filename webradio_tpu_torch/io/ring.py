@@ -6,6 +6,12 @@ The reference decouples USB DMA cadence from DSP cadence with a 4-slot ring
 (src/io/rtlsdrtuner.cxx:33-34,86-117). Same semantics here: a bounded
 deque of IQ blocks filled by a reader thread; ``get`` blocks the pipeline
 thread until a block is ready; overruns drop the oldest block and count it.
+
+Each block put is numbered (its id: ``first_id`` plus the blocks put
+before it) and, where the ring has a flight recorder (``trace.Recorder``),
+begins that block's row there with its ``put`` time and the ring's depth
+after the put. The ids travel beside the blocks; the pump takes those of
+the blocks it popped with :meth:`BlockRing.take_ids`.
 """
 
 from __future__ import annotations
@@ -22,9 +28,18 @@ class BlockRing:
     """Bounded block queue with drop-oldest overflow (depth 4 like
     N_BUFFERS_LOG2=2, rtlsdrtuner.cxx:33-34)."""
 
-    def __init__(self, depth: int = 4):
+    def __init__(self, depth: int = 4, recorder=None, first_id: int = 0):
         self.depth = depth
         self._q: collections.deque = collections.deque()
+        # the ids of the blocks in _q, and of those popped since the last
+        # take_ids() with the ring's depth just after each pop (a pump's
+        # get and drain pop at most 1 + depth; a reader that never takes
+        # them keeps the latest only)
+        self._ids: collections.deque = collections.deque()
+        self._popped: collections.deque = collections.deque(
+            maxlen=2 * depth + 2)
+        self.recorder = recorder
+        self.first_id = first_id
         self._lock = threading.Lock()
         self._ready = threading.Condition(self._lock)
         self._closed = False
@@ -36,14 +51,20 @@ class BlockRing:
         with self._lock:
             if len(self._q) >= self.depth:
                 self._q.popleft()
+                self._ids.popleft()
                 self.dropped_blocks += 1
                 now = time.monotonic()
                 if now - self._last_drop_log >= 1.0:  # rate-limited
                     self._last_drop_log = now
                     log.warning("ingest overrun: dropping blocks (%d total)",
                                 self.dropped_blocks)
+            bid = self.first_id + self.total_blocks
             self._q.append(block)
+            self._ids.append(bid)
             self.total_blocks += 1
+            if self.recorder is not None:
+                self.recorder.begin(bid, time.perf_counter_ns(),
+                                    len(self._q))
             self._ready.notify()
 
     def get(self, timeout: float | None = None):
@@ -54,7 +75,20 @@ class BlockRing:
                     return None
                 if not self._ready.wait(timeout):
                     return None
-            return self._q.popleft()
+            return self._pop()
+
+    def _pop(self):
+        block = self._q.popleft()
+        self._popped.append((self._ids.popleft(), len(self._q)))
+        return block
+
+    def take_ids(self) -> list:
+        """``(id, depth after the pop)`` of each block popped by ``get`` and
+        ``drain`` since the last call, in order."""
+        with self._lock:
+            out = list(self._popped)
+            self._popped.clear()
+        return out
 
     def drain(self, max_n: int) -> list:
         """Pop up to ``max_n`` immediately-available blocks, no waiting
@@ -62,7 +96,7 @@ class BlockRing:
         out: list = []
         with self._lock:
             while self._q and len(out) < max_n:
-                out.append(self._q.popleft())
+                out.append(self._pop())
         return out
 
     @property

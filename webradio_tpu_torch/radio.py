@@ -26,10 +26,16 @@ publishes the block, so both are ordered before the replay that rewrites
 those outputs (each block is a CUDA graph replay into fixed outputs,
 ``pipeline.graph``); audio leaves the card only in the fan-out thread (one
 copy of the gathered rows into pinned host memory, a wait on a CUDA event
-recorded after that copy); profile samples wait on an event recorded
-after their step in a side thread, and the spectrum row is copied to the
-host on HTTP demand. Everything runs on the current (default) CUDA stream,
-so each copy is ordered after the step that made its input.
+recorded after that copy); the step's device time is read from two timing
+events around it once they have completed (the pump polls them at its
+next blocks), and the spectrum row is copied to the host on HTTP demand.
+Everything runs on the current (default) CUDA stream, so each copy is
+ordered after the step that made its input.
+
+Every block is stamped in the front end's flight recorder (``trace``), by
+its id from the ring on: the pump's spans around each call into the
+control plane, the pipeline, the publish and the hand-off, and the
+fan-out's around its fetch and delivery, with counters of each.
 
 ``engine="sharded"`` spreads a front end over a mesh of devices
 (``parallel.sharded_channelized``); ``multihost=True`` runs that engine's
@@ -49,7 +55,7 @@ import time
 import numpy as np
 import torch
 
-from . import require_cuda
+from . import require_cuda, trace
 from .io.ring import BlockRing, CaptureThread
 from .io.tuner import Tuner
 from .ops.demod import MODES
@@ -69,10 +75,6 @@ from .pipeline.state import ChainConfig, grow_state, make_receiver_params
 #: "auto" engine switches to the shared polyphase filterbank once the
 #: channel batch is wide enough that per-channel wideband mixing dominates
 CHANNELIZED_AUTO_THRESHOLD = 16
-
-#: every Nth live block's dispatch->completion latency is sampled for
-#: /status, on a side thread (see FrontEnd._sample_step_async)
-PROFILE_SAMPLE_EVERY = 16
 
 #: blocks a front end's ingest ring holds on the card (682.7 ms at stock
 #: rates): deep enough to ride out a 200-570 ms stall of the pump (a
@@ -233,6 +235,20 @@ class DropOldestQueue:
     @property
     def closed(self) -> bool:
         return self._closed
+
+
+class Handoff(list):
+    """One ``run_once``'s gathered audio for the fan-out: the ``(gathered,
+    rows)`` pairs :meth:`FrontEnd._publish` returned, and in ``ids`` the
+    block id of each pair (None where the block has none)."""
+
+    def __init__(self):
+        super().__init__()
+        self.ids: list = []
+
+    def add(self, bid, pairs) -> None:
+        self.extend(pairs)
+        self.ids.extend([bid] * len(pairs))
 
 
 class SinkWriter:
@@ -444,22 +460,26 @@ class FrontEnd:
         # the subscribed rows of the last publish, their device and their
         # index there: made again only when they change
         self._rows_on_device: tuple = ((), None, None)
-        self.ring = BlockRing(self.ring_blocks)
+        #: this front end's flight recorder (``trace``): every block, by id
+        self.trace = trace.recorder(self.uuid)
+        self.ring = BlockRing(self.ring_blocks, self.trace)
+        # the block whose outputs the pipeline holds (it hands them back
+        # at the next call); the step timing events not yet read, and
+        # those free for another block
+        self._inflight_id = None
+        self._step_events: collections.deque = collections.deque()
+        self._free_events: list = []
+        self._step_stream = None
+        # what the last _deliver_rows did, for the fan-out's recorder row:
+        # its start and end, encode ns, consumers pushed, consumers whose
+        # queue dropped the block, the deepest consumer queue
+        self._delivery = (0, 0, 0, 0, 0, 0)
         self._capture: CaptureThread | None = None
         self.running = False
         # latest spectrum dB row (on the device) for HTTP readers
         self._spec_lock = threading.Lock()
         self._spectrum_db: torch.Tensor | None = None
-        # profiling: the pump dispatches block N and hands on block N-1, so
-        # per-call wall time measures the HANDOFF; every
-        # PROFILE_SAMPLE_EVERY-th block is timed from dispatch to the
-        # completion of an event recorded after its step, in a side thread
         self.block_count = 0
-        self.last_dispatch_ns = 0
-        self.last_step_ns = 0
-        self.total_step_ns = 0
-        self.step_samples = 0
-        self._sampler: threading.Thread | None = None
         self._fanout = DropOldestQueue(FANOUT_QUEUE_DEPTH)
         self._fanout_thread: threading.Thread | None = None
         #: (what failed, the error) of the fan-out worker or of a growth
@@ -758,7 +778,10 @@ class FrontEnd:
         except BaseException:
             self.tuner.stop()
             raise
-        self.ring = BlockRing(self.ring_blocks)
+        # block ids go on from those of the last ring
+        self.ring = BlockRing(self.ring_blocks, self.trace,
+                              first_id=self.trace.next_id)
+        self._inflight_id = None
         self._capture = CaptureThread(self.tuner, self.ring)
         self._capture.start()
         self.running = True
@@ -924,7 +947,9 @@ class FrontEnd:
         if pmesh.world()[0] == 0:
             payload = json.dumps(self._control_blob()).encode()
         ctl = json.loads(phost.broadcast_blob(payload))
+        c0 = trace.now()
         self._apply_control_blob(ctl)
+        c1 = trace.now()
         block, index = self._agreed_block()
         if block is None:
             self.running = False
@@ -932,13 +957,19 @@ class FrontEnd:
         self.served.append((self._mh_round, index))
         lo, hi = self._mh_slice
         planes = _to_planes(block)[:, lo:hi]
-        t0 = time.perf_counter_ns()
+        # a round's block id is the count of rounds served before it
+        bid = self.block_count
+        self.trace.begin(bid)
+        self.trace.got(bid, trace.now(), 0, 1)
+        events = self._step_begin()
+        d0 = trace.now()
         out = self.pipeline.process_host(planes)
+        d1 = trace.now()
+        self.trace.dispatched(bid, c0, c1, d0, d1)
+        self._step_end(bid, events, d0, d1)
         self.block_count += 1
-        self._maybe_sample(t0)
         if out is not None:
             self._publish_multihost(out, ctl["rows"], ctl["want_spectrum"])
-        self.last_dispatch_ns = time.perf_counter_ns() - t0
         return True
 
     def _publish_multihost(self, out, rows, want_spectrum: bool) -> None:
@@ -1008,7 +1039,9 @@ class FrontEnd:
         old = self.pipeline
         leftover = old.flush()
         # in the OLD pipeline's audio layout
-        gathered = [] if leftover is None else self._publish(leftover)
+        gathered = ([] if leftover is None
+                    else self._publish_block(leftover, self._inflight_id))
+        self._inflight_id = None
         width = new_pipe.cfg.num_channels
         # into the grown pipeline's own buffers: its graphs stay valid
         if isinstance(old, ChannelizedPipeline) and isinstance(
@@ -1084,9 +1117,6 @@ class FrontEnd:
             self._capture.join(timeout=5.0)
             self._capture = None
         self.ring.close()
-        if self._sampler is not None:
-            self._sampler.join(timeout=2.0)
-            self._sampler = None
         if self._fanout_thread is not None:
             self._fanout.close()  # worker drains what's queued, then exits
             self._fanout_thread.join(timeout=2.0)
@@ -1103,7 +1133,14 @@ class FrontEnd:
         the host a replay a block (the JAX package scans a fixed number of
         blocks in one dispatch). An error of the step, or of the fan-out
         worker or a growth build since the last block, propagates: nothing
-        here carries on past a failed device step."""
+        here carries on past a failed device step.
+
+        Each block's row in the flight recorder gets ``got`` (with the
+        ring's depth and the blocks served in this call), ``control``
+        (the writes applied before it), ``dispatch`` (``process_host``) and
+        later its step's device time; the block whose outputs
+        ``process_host`` handed back gets ``publish`` (with the rows
+        gathered) and ``handoff`` (with the fan-out queue's depth)."""
         if self._fault is not None:
             (what, fault), self._fault = self._fault, None
             raise RuntimeError(
@@ -1113,58 +1150,84 @@ class FrontEnd:
         block = self.ring.get(timeout)
         if block is None:
             return False
-        gathered = []
-        for blk in [block] + self.ring.drain(self.ring.depth):
+        got = trace.now()
+        blocks = [block] + self.ring.drain(self.ring.depth)
+        drained = trace.now()
+        popped = self.ring.take_ids()
+        if len(popped) != len(blocks):  # a stand-in ring's blocks
+            popped = [(None, 0)] * len(blocks)
+        rec = self.trace
+        for k, (bid, depth) in enumerate(popped):
+            rec.got(bid, drained if k else got, depth, len(blocks))
+        handoff = Handoff()
+        for blk, (bid, _) in zip(blocks, popped):
             if self._pending_swap is not None:
-                gathered.extend(self._swap_grown_pipeline())
+                flushed = self._inflight_id
+                handoff.add(flushed, self._swap_grown_pipeline())
+            c0 = trace.now()
             self.apply_control()
+            c1 = trace.now()
             iq_planes = _to_planes(blk)
-            t0 = time.perf_counter_ns()
+            events = self._step_begin()
+            d0 = trace.now()
             out = self.pipeline.process_host(iq_planes)
-            self.last_dispatch_ns = time.perf_counter_ns() - t0
+            d1 = trace.now()
+            rec.dispatched(bid, c0, c1, d0, d1)
+            self._step_end(bid, events, d0, d1)
             self.block_count += 1
-            self._maybe_sample(t0)
+            out_id, self._inflight_id = self._inflight_id, bid
             if out is not None:  # None: pipeline priming
-                gathered.extend(self._publish(out))
-        if gathered:
-            self._fanout.put(gathered)
+                handoff.add(out_id, self._publish_block(out, out_id))
+        if handoff:
+            depth = len(self._fanout._q)
+            h0 = trace.now()
+            self._fanout.put(handoff)
+            h1 = trace.now()
+            for bid in handoff.ids:
+                rec.handed(bid, h0, h1, depth)
         return True
 
-    def _maybe_sample(self, t0_ns: int) -> None:
-        """Sample the first and every PROFILE_SAMPLE_EVERY-th block: an
-        event recorded after its step on the device that ran its last stage
-        (the sharded engine's last time shard)."""
-        if not (self.block_count == 1
-                or self.block_count % PROFILE_SAMPLE_EVERY == 0):
+    def _step_begin(self):
+        """Two timing events for the next block's step, the first recorded
+        on the pump's stream before its H2D copy; None off the card. Like
+        the staging copies' events, they are recorded outside
+        ``pipeline.graph.LAUNCH_LOCK``: only a graph launch deadlocked
+        against a profiler's stop."""
+        if self._step_stream is None:
+            dev = getattr(self.pipeline, "device", self.device)
+            if dev.type != "cuda":
+                return None
+            # the device's current stream, where process_host queues its
+            # copy and replay (a lookup costs the host microseconds)
+            self._step_stream = torch.cuda.current_stream(dev)
+        pair = self._free_events.pop() if self._free_events else (
+            torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+        pair[0].record(self._step_stream)
+        return pair
+
+    def _step_end(self, bid, events, d0: int, d1: int) -> None:
+        """After block ``bid``'s ``process_host``: record the second event
+        after its replay, and store the device time of every earlier step
+        whose events have completed, without a wait. Off the card the step
+        ran inside ``process_host``: its host time is its time."""
+        if events is None:
+            self.trace.step(bid, d1 - d0)
             return
-        dev = getattr(self.pipeline, "device", self.device)
-        event = None
-        if dev.type == "cuda":
-            event = torch.cuda.Event()
-            # completes when this block's step has run
-            event.record(torch.cuda.current_stream(dev))
-        self._sample_step_async(t0_ns, event)
+        events[1].record(self._step_stream)
+        self._step_events.append((bid, events))
+        while self._step_events and self._step_events[0][1][1].query():
+            done, (a, b) = self._step_events.popleft()
+            self.trace.step(done, int(a.elapsed_time(b) * 1e6))
+            self._free_events.append((a, b))
 
-    def _sample_step_async(self, t0_ns: int, event) -> None:
-        """Time one block from its dispatch to the completion of the event
-        recorded after its step, in a side thread (the pump never waits)."""
-        if self._sampler is not None and self._sampler.is_alive():
-            return  # previous sample still in flight
-
-        def run():
-            try:
-                if event is not None:
-                    event.synchronize()
-            except Exception:
-                return  # teardown race: sampling is best-effort
-            dt = time.perf_counter_ns() - t0_ns
-            self.last_step_ns = dt
-            self.total_step_ns += dt
-            self.step_samples += 1
-
-        self._sampler = threading.Thread(target=run, daemon=True,
-                                         name=f"profile-{self.uuid}")
-        self._sampler.start()
+    def _publish_block(self, out, bid) -> list:
+        """:meth:`_publish` of block ``bid``'s outputs, stamped."""
+        p0 = trace.now()
+        pairs = self._publish(out)
+        self.trace.published(bid, p0, trace.now(),
+                             sum(len(rows) for _, rows in pairs))
+        return pairs
 
     def _publish(self, out) -> list:
         """Hand (audio, spectrum) to HTTP readers, on the pump's stream
@@ -1205,14 +1268,24 @@ class FrontEnd:
                  rows)]
 
     def _fanout_worker(self) -> None:
-        """Audio fan-out off the pump thread (see _publish)."""
+        """Audio fan-out off the pump thread (see _publish). Each block of
+        a hand-off gets ``picked`` (the queue's get returned), ``fetch``
+        (the copy to the host and its wait, with the bytes copied) and
+        ``deliver`` (with the encode time, the consumers pushed, those
+        whose queue dropped it and the deepest queue after the push)."""
+        rec = self.trace
         while True:
             item = self._fanout.get(timeout=0.5)
             if item is None:
                 if self._fanout.closed or not self.running:
                     return
                 continue
-            for gathered, rows in item:
+            picked = trace.now()
+            ids = getattr(item, "ids", ())
+            if len(ids) != len(item):
+                ids = [None] * len(item)
+            for (gathered, rows), bid in zip(item, ids):
+                t0 = trace.now()
                 try:
                     sel = _rows_to_host(gathered)
                 except BaseException as e:
@@ -1220,23 +1293,41 @@ class FrontEnd:
                                   self.uuid)
                     self._fault = ("audio fan-out", e)
                     return
+                t1 = trace.now()
                 if sel.ndim == 3:  # a backlog's [blocks, k, af]
+                    parts = []
                     for b in range(sel.shape[0]):
                         self._deliver_rows(rows, sel[b])
+                        parts.append(self._delivery)
+                    d0, d1 = parts[0][0], parts[-1][1]
+                    counts = [sum(p[j] for p in parts) for j in (2, 3, 4)]
+                    delivery = (d0, d1, *counts, max(p[5] for p in parts))
                 else:
                     self._deliver_rows(rows, sel)
+                    delivery = self._delivery
+                rec.delivered(bid, picked, t0, t1, sel.nbytes, *delivery)
 
     def _deliver_rows(self, rows, sel) -> None:
-        """Push fetched audio rows to stream consumers and local sinks."""
+        """Push fetched audio rows to stream consumers and local sinks;
+        leaves its span and the pushes' counters in ``_delivery``."""
         from .web.audiostream import AudioStreamManager
 
+        t0 = trace.now()
+        encode_ns = pushed = drops = deepest = 0
         for k, i in enumerate(rows):
             rx = self._slots[i] if i < len(self._slots) else None
             if rx is None:
                 continue
             row = sel[k]
             if AudioStreamManager.has_consumers(rx.uuid):
-                AudioStreamManager.publish(rx.uuid, row, self.cfg.audio_rate)
+                done = AudioStreamManager.publish(rx.uuid, row,
+                                                  self.cfg.audio_rate)
+                if done is not None:
+                    encode_ns += done[0]
+                    pushed += done[1]
+                    drops += done[2]
+                    if done[3] > deepest:
+                        deepest = done[3]
             if rx.audio_sink is not None:
                 with rx._sink_lock:
                     sink = rx.audio_sink
@@ -1255,6 +1346,7 @@ class FrontEnd:
                             sink.close()
                         except Exception:
                             pass
+        self._delivery = (t0, trace.now(), encode_ns, pushed, drops, deepest)
 
     # ---- readers (HTTP threads) ---------------------------------------
     def get_spectrum_db(self) -> np.ndarray:
@@ -1270,12 +1362,23 @@ class FrontEnd:
             return np.full(self.cfg.fft_size, -10000.0, np.float32)
         return spec.cpu().numpy().copy()
 
+    @property
+    def step_samples(self) -> int:
+        """Blocks whose step device time has been read."""
+        return self.trace.steps
+
     def profile_ns_per_frame(self) -> float:
-        """Sampled dispatch-to-completion cost per input frame
-        (dspblock.cxx:93-104's metric)."""
-        if self.step_samples == 0:
+        """The step's mean device time per input frame over the last
+        ``trace.STATUS_BLOCKS`` blocks whose time was read: the per-frame
+        processing cost of dspblock.cxx:93-104 (off the card the step's
+        host time in ``process_host``)."""
+        rec = self.trace
+        steps = rec.column(rec.rows(rec.next_id - trace.STATUS_BLOCKS),
+                           "step_ns")
+        steps = steps[steps > 0]
+        if not steps.size:
             return 0.0
-        return self.total_step_ns / (self.step_samples * self.cfg.block_frames)
+        return float(steps.mean()) / self.cfg.block_frames
 
     def throughput_factor(self) -> float | None:
         """Processed signal time / wall time since capture started: ~1.0

@@ -18,6 +18,7 @@ from __future__ import annotations
 import logging
 import queue
 import threading
+import time
 
 import numpy as np
 
@@ -113,29 +114,46 @@ class AudioStreamManager:
         return bool(mount and mount.consumers)
 
     @classmethod
-    def publish(cls, mountpoint: str, audio: np.ndarray, sample_rate: int) -> None:
+    def publish(cls, mountpoint: str, audio: np.ndarray,
+                sample_rate: int) -> tuple | None:
         """Encode and fan out one block of mono audio. No-op with zero
-        consumers (audiostream.cxx:67-68)."""
+        consumers (audiostream.cxx:67-68). Returns what it did for the
+        front end's flight recorder: ``(ns in the encoders, consumers
+        pushed, consumers whose queue dropped the block, the deepest
+        consumer queue after the push)``, or None for a no-op."""
         with cls._lock:
             mount = cls._mounts.get(mountpoint)
         if mount is None:
-            return
+            return None
         with mount.lock:
             if mount.closed or not mount.consumers:
-                return
+                return None
             mount.sample_rate = sample_rate
             by_fmt: dict[str, list[StreamConsumer]] = {}
             for c in mount.consumers:
                 by_fmt.setdefault(c.fmt, []).append(c)
+            encode_ns = pushed = drops = deepest = 0
             for fmt, consumers in by_fmt.items():
                 enc = mount.encoders.get(fmt)
                 if enc is None:
                     enc = make_encoder(fmt, sample_rate)
                     mount.encoders[fmt] = enc
+                t0 = time.perf_counter_ns()
                 data = enc.encode(audio)
+                encode_ns += time.perf_counter_ns() - t0
                 if data:
                     for c in consumers:
+                        before = c.dropped
                         c.push(data)
+                        if c.dropped != before:
+                            drops += 1
+                        # read without the queue's lock: a count, not a
+                        # condition to act on
+                        depth = len(c._q.queue)
+                        if depth > deepest:
+                            deepest = depth
+                    pushed += len(consumers)
+        return encode_ns, pushed, drops, deepest
 
     # ---- client side ---------------------------------------------------
     @classmethod

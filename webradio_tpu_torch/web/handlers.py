@@ -32,6 +32,7 @@ import tempfile
 import threading
 import time
 
+from .. import trace as flight
 from ..pipeline.graph import LAUNCH_LOCK
 from ..radio import Radio, Receiver
 
@@ -112,21 +113,22 @@ class StatusHandler(HttpRequestHandler):
                 "running": fe.running,
                 "blocks": fe.block_count,
                 "dropped_blocks": fe.dropped_blocks,
-                # sampled dispatch->completion metrics (every Nth block,
-                # fetched on a side thread — radio.PROFILE_SAMPLE_EVERY).
-                # On a remote backend these include one host-link round
-                # trip; throughput_factor is the latency-free health signal
+                # the step's device time a frame over the last blocks
+                # (trace.STATUS_BLOCKS), from the flight recorder; on the
+                # CPU its host time. throughput_factor is the served
+                # signal time over wall time since start
                 "ns_per_frame": round(nspf, 1),
                 "realtime_factor": round(budget / nspf, 2) if nspf else None,
                 "throughput_factor": (
                     round(tput, 3)
                     if (tput := fe.throughput_factor()) is not None
                     else None),
-                "last_step_ms": round(fe.last_step_ns / 1e6, 2),
+                "last_step_ms": round(fe.trace.latest("step_ns") / 1e6, 2),
                 "step_samples": fe.step_samples,
-                # per-call handoff cost (dispatch N + fetch N-1), what the
-                # pump actually pays each block
-                "last_dispatch_ms": round(fe.last_dispatch_ns / 1e6, 2),
+                # the host time of the last block's process_host
+                "last_dispatch_ms": round(
+                    (fe.trace.latest("dispatch1")
+                     - fe.trace.latest("dispatch0")) / 1e6, 2),
                 # fan-out worker overflow: device audio arrays dropped
                 # before their consumer rows could be fetched (slow
                 # host link; the compute loop is unaffected by design)
@@ -148,6 +150,10 @@ class StatusHandler(HttpRequestHandler):
                 # why a tail runs plain where no option asks for it (None:
                 # the kernels serve, or the CPU)
                 "graph": dict(fe.graph_stats(), plain_tail=fe.plain_tail()),
+                # the flight recorder over the last 1,024 blocks: each
+                # span's p50 and p95 ms, each counter's mean
+                # (webradio_tpu_torch.trace)
+                "trace": fe.trace.summary(),
                 "receivers": sorted(fe.receivers),
             }
         return self.send_json(
@@ -261,6 +267,25 @@ def check_trace_has_kernels(trace: pathlib.Path, served: int,
     return kernels
 
 
+def add_host_tracks(path: pathlib.Path, t0_ns: int, t1_ns: int) -> int:
+    """Write the flight recorders' spans of ``[t0_ns, t1_ns]``
+    (``perf_counter_ns``) into the Chrome trace at ``path`` as a "webradio
+    host" process (``trace.chrome_events``), in the trace's own time base:
+    the profiler's wall-clock nanoseconds less the trace's
+    ``baseTimeNanoseconds``. Returns the events added."""
+    with open(path) as f:
+        doc = json.load(f)
+    base = int(doc.get("baseTimeNanoseconds", 0))
+    offset = time.time_ns() - time.perf_counter_ns()
+    events = flight.chrome_events(
+        t0_ns, t1_ns, lambda ns: (ns + offset - base) / 1e3)
+    if len(events) > 1:
+        doc.setdefault("traceEvents", []).extend(events)
+        with open(path, "w") as f:
+            json.dump(doc, f)
+    return len(events) - 1
+
+
 def warm_profiler() -> float:
     """Start and stop one ``torch.profiler`` session of the card's
     activity and return the ms it took. The first start in a process sets
@@ -289,6 +314,10 @@ class _TraceSession:
     device's activity, every stream and thread; host operations would be
     the profiler thread's own only, so they are recorded only where there
     is no card (the trace then holds that thread's few events).
+
+    The export adds the host's spans of the session from the front ends'
+    flight recorders (:func:`add_host_tracks`): each block's pump, fan-out
+    and capture stamps beside the card's kernels.
 
     The profiler's stop (on the card it holds up the pump's CUDA calls
     while the capture threads run on, and at times the interpreter too),
@@ -337,6 +366,7 @@ class _TraceSession:
             prof = profile(activities=acts)
             with LAUNCH_LOCK:  # no graph launch meanwhile (graph.py)
                 self._timed("start", prof.start)
+            t0_ns = time.perf_counter_ns()
             kernels0 = _graph_kernels()
         except BaseException as e:
             self.error = e
@@ -349,6 +379,7 @@ class _TraceSession:
             expected = expected_kernel_events(kernels0, _graph_kernels())
             if card:
                 self._timed("sync", torch.cuda.synchronize)
+            t1_ns = time.perf_counter_ns()
             with LAUNCH_LOCK:
                 self._timed("stop", prof.stop)
             served = _blocks_served() - self._blocks0
@@ -357,8 +388,12 @@ class _TraceSession:
             path.mkdir(parents=True, exist_ok=True)
             trace = path / "trace.json"
             mark = _pump_mark()
-            self._timed("export",
-                        lambda: prof.export_chrome_trace(str(trace)))
+
+            def export():
+                prof.export_chrome_trace(str(trace))
+                add_host_tracks(trace, t0_ns, t1_ns)
+
+            self._timed("export", export)
             self._timed("wait_after_export", lambda: wait_for_pump(mark))
             if card:
                 self.expected_kernel_events = expected
