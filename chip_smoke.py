@@ -9,7 +9,8 @@ Phases (each fails the run on error):
 2. build: compile the CUDA kernels from the checkout's sources;
 3. kernel against plain version, each on the card at the shapes its path
    gives it, two carried blocks: ``fused_tail_audio_tm`` (nd=10,240,
-   C=1,024, both LO laws), ``fused_tail_tm`` (nd=25,600, both LO laws,
+   C=1,024, both LO laws, on its mma.sync and its wgmma body, then #1's
+   time on each body at C=1,024, 16,384 and 69,632), ``fused_tail_tm`` (nd=25,600, both LO laws,
    packed and separate planes), ``fused_pfb_tail_audio_tm`` (frames from
    tone-source blocks, both LO laws) and ``fused_receiver_tail``
    (per-channel coefficients of alternating 12.5 / 80 kHz designs); each
@@ -59,7 +60,8 @@ Phases (each fails the run on error):
 9. the headline topology, ``examples/headline_monitor.json``'s front end:
    C=69,632, 16 blocks of 8-bit-grid input back to back at u8exact,
    highest and bf16: ms/block, real-time factor (u8exact must be above 1),
-   kernel #1 once a block, the AM and FM tones, peak device memory;
+   kernel #1 once a block and every launch on its wgmma body (the shape
+   rule's at that width), the AM and FM tones, peak device memory;
 9b. the bench (``bench_torch.py``): ``--parity`` on the card with its
    ``ok`` gated; one sweep point at C=16,384 "highest" through the bench's
    timing (device-resident input through ``step_device``, kernel #1 once a
@@ -490,8 +492,11 @@ def tail_wrappers():
 
 
 def reset_counts():
+    from webradio_tpu_torch.ops import tail_tm
+
     for fn in tail_wrappers().values():
         fn.launches = 0
+    tail_tm.fused_tail_audio_tm.wgmma_launches = 0
 
 
 def expect_counts(path: str, **expected):
@@ -654,23 +659,29 @@ def phase_kernel_vs_plain(dev, results, kernels):
     fm = mode == 1
     flip_step = float(wa[:k, 0].abs().max())
     worst = Worst()
-    for fast in (True, False):
-        phase = torch.from_numpy(rng.integers(0, 2**31, c)).to(dev)
-        carry = ref_carry = (u(k - 1, c), u(k - 1, c), u(2, c), u(k - 1, c))
-        for blk in range(2):
-            prod = u(nd, 2 * c)
-            common = (phase, step, w, wa, d, mode)
-            got = tail_tm.fused_tail_audio_tm(prod, prod, *common, *carry,
-                                              packed=True, fast=fast)
-            torch.cuda.synchronize()
-            ref = tail_tm.fused_tail_audio_tm_ref(prod, prod, *common,
-                                                  *ref_carry, packed=True,
-                                                  fast=fast)
-            worst.add(compare(f"fast={fast} block {blk}", AUDIO_NAMES,
-                              BOUNDS, got, ref, fm, flip_step,
-                              raw=("audio_hist",), filtered=("audio48",)))
-            carry, ref_carry = got[1:5], ref[1:5]
-            phase = (phase + nd * step) & 0x7FFFFFFF
+    rows = tail_tm.tile_rows_for(nd, c)
+    # both bodies of #1: the warp body (the shape rule's at this width) and
+    # the wgmma body
+    for body in (tail_tm.BODY_WARP, tail_tm.BODY_WG):
+        for fast in (True, False):
+            phase = torch.from_numpy(rng.integers(0, 2**31, c)).to(dev)
+            carry = ref_carry = (u(k - 1, c), u(k - 1, c), u(2, c),
+                                 u(k - 1, c))
+            for blk in range(2):
+                prod = u(nd, 2 * c)
+                common = (phase, step, w, wa, d, mode)
+                got = tail_tm._launch(prod, prod, *common, *carry, True, fast,
+                                      rows, body)
+                torch.cuda.synchronize()
+                ref = tail_tm.fused_tail_audio_tm_ref(prod, prod, *common,
+                                                      *ref_carry, packed=True,
+                                                      fast=fast)
+                worst.add(compare(f"body {body} fast={fast} block {blk}",
+                                  AUDIO_NAMES, BOUNDS, got, ref, fm,
+                                  flip_step, raw=("audio_hist",),
+                                  filtered=("audio48",)))
+                carry, ref_carry = got[1:5], ref[1:5]
+                phase = (phase + nd * step) & 0x7FFFFFFF
     results["kernel_vs_plain_max_audio_err_non_fm"] = worst.non_fm
     results["kernel_vs_plain_max_audio_err_fm"] = worst.fm
     results["kernel_vs_plain_fm_flips"] = worst.flips
@@ -691,20 +702,38 @@ def phase_kernel_vs_plain(dev, results, kernels):
     kernels["fused_tail_audio_tm"] = worst.record(
         results["tail_kernel_ms"], plain_ms, tail_flops(nd, c, k, d),
         io_bytes(args, got))
-    cw = WIDE_CHANNELS
-    prod = torch.empty(nd, 2 * cw, device=dev).uniform_(-0.5, 0.5)
-    z = lambda *s: torch.zeros(s, device=dev)
-    wide = (prod, prod, torch.zeros(cw, dtype=torch.int64, device=dev),
-            step.repeat(cw // c), w, wa, d, mode.repeat(cw // c),
-            z(k - 1, cw), z(k - 1, cw), z(2, cw), z(k - 1, cw))
-    ms = cuda_ms(lambda: tail_tm.fused_tail_audio_tm(
-        *wide, packed=True, fast=True), 10)
-    out = tail_tm.fused_tail_audio_tm(*wide, packed=True, fast=True)
-    bound, by = roofline(tail_flops(nd, cw, k, d), io_bytes(wide, out))
-    log(f"  tail kernel at C={cw}: {ms:.4f} ms (bound {bound:.4f} ms, "
-        f"{by})")
-    results[f"tail_kernel_ms_c{cw}"] = ms
-    results[f"tail_bound_ms_c{cw}"] = bound
+    # #1 at the main path's widths on the body its shape rule picks and on
+    # the other, in turns (the wrapper's, then the other, twice)
+    for cw in (c, WIDE_CHANNELS, HEADLINE_CHANNELS):
+        prod = torch.empty(nd, 2 * cw, device=dev).uniform_(-0.5, 0.5)
+        z = lambda *s: torch.zeros(s, device=dev)
+        wide = (prod, prod, torch.zeros(cw, dtype=torch.int64, device=dev),
+                step.repeat(cw // c), w, wa, d, mode.repeat(cw // c),
+                z(k - 1, cw), z(k - 1, cw), z(2, cw), z(k - 1, cw))
+        rows = tail_tm.tile_rows_for(nd, cw)
+        body = tail_tm.tail_body(nd, cw, rows,
+                                 tail_tm.sm_count(dev.index))
+        other = (tail_tm.BODY_WARP if body == tail_tm.BODY_WG
+                 else tail_tm.BODY_WG)
+        reps = 50 if cw == c else 10
+        times = {body: [], other: []}
+        for _ in range(2):
+            for b in (body, other):
+                times[b].append(cuda_ms(lambda: tail_tm._launch(
+                    *wide, True, True, rows, b), reps))
+        out = tail_tm.fused_tail_audio_tm(*wide, packed=True, fast=True)
+        bound, by = roofline(tail_flops(nd, cw, k, d), io_bytes(wide, out))
+        ms, ms_other = min(times[body]), min(times[other])
+        name = {tail_tm.BODY_WG: "wgmma", tail_tm.BODY_WARP: "mma.sync"}
+        log(f"  tail kernel at C={cw}: {ms:.4f} ms on the {name[body]} body"
+            f" (the {name[other]} body {ms_other:.4f} ms; bound "
+            f"{bound:.4f} ms, {by}; {100 * bound / ms:.1f}% of it)")
+        if cw != c:
+            results[f"tail_kernel_ms_c{cw}"] = ms
+            results[f"tail_bound_ms_c{cw}"] = bound
+        results[f"tail_body_c{cw}"] = name[body]
+        results[f"tail_other_body_ms_c{cw}"] = ms_other
+        del prod, wide, out
 
 
 def phase_chanrate_vs_plain(dev, results, kernels):
@@ -1987,6 +2016,7 @@ def phase_headline(dev, results):
     factor, kernel #1 once a block, the AM and FM tones of slots 0 and 1
     (only their audio leaves the card), and the device memory's peak."""
     import torch
+    from webradio_tpu_torch.ops import tail_tm
     from webradio_tpu_torch.pipeline import channelized as ch
 
     c = HEADLINE_CHANNELS
@@ -2019,6 +2049,11 @@ def phase_headline(dev, results):
         ms = 1e3 * (time.perf_counter() - t0) / len(blocks)
         slots.append(pipe.flush()[0][:, :2].clone())
         expect_counts(f"headline {tier}", fused_tail_audio_tm=len(blocks))
+        # every launch at the headline's width on the wgmma body
+        wg = tail_tm.fused_tail_audio_tm.wgmma_launches
+        if wg != len(blocks):
+            raise AssertionError(f"headline {tier}: {wg} of {len(blocks)} "
+                                 "launches of #1 on the wgmma body")
         audio = torch.cat(slots).cpu()
         if not bool(torch.isfinite(audio).all()):
             raise AssertionError(f"headline {tier}: non-finite audio")
@@ -2029,8 +2064,8 @@ def phase_headline(dev, results):
                      "launches": len(blocks), "peak_mem_gb": peak}
         log(f"  headline C={c} at {tier}: back to back {ms:.3f} ms/block, "
             f"real-time factor {BLOCK_MS / ms:.2f}, kernel #1 "
-            f"{len(blocks)} launches for {len(blocks)} blocks, peak device "
-            f"memory {peak:.1f} GB")
+            f"{len(blocks)} launches for {len(blocks)} blocks ({wg} on the "
+            f"wgmma body), peak device memory {peak:.1f} GB")
         del pipe, slots
         torch.cuda.empty_cache()
     results["headline"] = out

@@ -456,18 +456,24 @@ def test_column_order_makes_every_class_share_a_law(mode):
     assert all(len(set(c)) == 1 for c in _classes(mode, cols))
 
 
-def test_column_order_is_a_stable_permutation_for_any_mode():
+@pytest.mark.parametrize("classes", [4, 2])
+def test_column_order_is_a_stable_permutation_for_any_mode(classes):
+    """Both bodies' rules: four column classes of four (the warp body) and
+    two of eight (the warpgroup body)."""
     from hypothesis import given, settings, strategies as st
+
+    per = 16 // classes  # columns a class
 
     @settings(max_examples=300, deadline=None, database=None,
               derandomize=True)
     @given(st.lists(st.integers(-2, 7), min_size=16, max_size=16))
     def check(mode):
-        cols = tail_tm.law_sorted_columns(mode)
+        cols = tail_tm.law_sorted_columns(mode, classes)
         assert sorted(cols) == list(range(16))  # a permutation
-        assert cols == tail_tm.law_sorted_columns(list(mode))  # a function
+        # a function
+        assert cols == tail_tm.law_sorted_columns(list(mode), classes)
         key = [m if 0 <= m <= 3 else 3 for m in mode]
-        if all(key[j] == key[j % 4] for j in range(16)):
+        if all(key[j] == key[j % classes] for j in range(16)):
             assert cols == list(range(16))
             return
         # the kernel's form of the rule: a channel's sorted position is the
@@ -477,29 +483,84 @@ def test_column_order_is_a_stable_permutation_for_any_mode():
         for j in range(16):
             pos = (sum(k < key[j] for k in key)
                    + sum(key[i] == key[j] for i in range(j)))
-            by_col[4 * (pos % 4) + pos // 4] = j
+            by_col[classes * (pos % per) + pos // per] = j
         assert by_col == cols
         # dealt back in class order the channels are sorted by law, and
         # channels of one law keep their order (stable)
-        dealt = [cols[4 * t + cc] for cc in range(4) for t in range(4)]
+        dealt = [cols[classes * t + cc] for cc in range(classes)
+                 for t in range(per)]
         assert [key[j] for j in dealt] == sorted(key)
         for a, b in zip(dealt, dealt[1:]):
             assert key[a] < key[b] or a < b
         # a class mixes laws only where one law's run ends inside it: never
-        # when every law's count is a multiple of 4
-        mixed = sum(len(set(key[j] for j in dealt[4 * cc:4 * cc + 4])) > 1
-                    for cc in range(4))
+        # when every law's count is a multiple of the class's size
+        mixed = sum(len(set(key[j] for j in dealt[per * cc:per * cc + per]))
+                    > 1 for cc in range(classes))
         assert mixed <= len(set(key)) - 1
-        if all(key.count(law) % 4 == 0 for law in range(4)):
+        if all(key.count(law) % per == 0 for law in range(4)):
             assert mixed == 0
 
     check()
     # a partial last warp: the kernel's channels past the count sort as
     # law 3, the default
-    assert (tail_tm.law_sorted_columns([0] * 8)
-            == tail_tm.law_sorted_columns([0] * 8 + [3] * 8))
-    assert tail_tm.law_sorted_columns([1] * 5) == tail_tm.law_sorted_columns(
-        [1] * 5 + [7] * 11)
+    assert (tail_tm.law_sorted_columns([0] * 8, classes)
+            == tail_tm.law_sorted_columns([0] * 8 + [3] * 8, classes))
+    assert (tail_tm.law_sorted_columns([1] * 5, classes)
+            == tail_tm.law_sorted_columns([1] * 5 + [7] * 11, classes))
     for bad in ([], [0] * 17):
         with pytest.raises(ValueError, match="1 to 16 channels"):
-            tail_tm.law_sorted_columns(bad)
+            tail_tm.law_sorted_columns(bad, classes)
+    with pytest.raises(ValueError, match="column classes"):
+        tail_tm.law_sorted_columns([0] * 16, 3)
+
+
+@pytest.mark.parametrize("mode,want,uniform", [
+    ([0] * 16, list(range(16)), True),            # one law: the identity
+    ([1] * 16, list(range(16)), True),
+    ([1, 3] * 8, list(range(16)), True),          # period 2: the identity
+    # period 4: sorted, laws 0 and 1 share the even columns, 2 and 3 the
+    # odd ones
+    ([0, 1, 2, 3] * 4,
+     [0, 2, 4, 6, 8, 10, 12, 14, 1, 3, 5, 7, 9, 11, 13, 15], False),
+    # mixed: eight AM slots and eight FM ones, scattered, come out one law
+    # a class
+    ([1, 0, 0, 1, 1, 1, 0, 0, 0, 1, 0, 1, 1, 0, 1, 0],
+     [1, 0, 2, 3, 6, 4, 7, 5, 8, 9, 10, 11, 13, 12, 15, 14], True),
+    # mixed, five FM: the even columns hold AM, the odd ones three AM
+    # slots and the five FM ones
+    ([0, 1] * 5 + [0] * 6,
+     [0, 13, 2, 14, 4, 15, 6, 1, 8, 3, 10, 5, 11, 7, 12, 9], False),
+])
+def test_warpgroup_column_order_on_uniform_period_4_and_mixed_laws(
+        mode, want, uniform):
+    """The warpgroup body's rule (two classes: a lane demodulates columns
+    2g and 2g + 1 of its warp): the identity where the even and the odd
+    columns each hold one law, else the law-sorted channels dealt eight to
+    a class."""
+    cols = tail_tm.law_sorted_columns(
+        mode, tail_tm.BODY_CLASSES[tail_tm.BODY_WG])
+    assert cols == want
+    halves = [[mode[cols[2 * g + cc]] for g in range(8)] for cc in range(2)]
+    assert all(len(set(h)) == 1 for h in halves) == uniform
+
+
+@pytest.mark.parametrize("channels,body", [
+    (1_024, tail_tm.BODY_WARP),    # 96 blocks of 192 channels, one wave 73%
+    (16_384, tail_tm.BODY_WARP),   # 344 blocks, 3 waves 87% filled
+    (32_768, tail_tm.BODY_WARP),   # 684, 6 waves 86%
+    (25_344, tail_tm.BODY_WG),     # 528, 4 waves 100%
+    (49_152, tail_tm.BODY_WG),     # 1,024, 8 waves 97%
+    (57_344, tail_tm.BODY_WG),     # 1,196, 10 waves 91%
+    (65_536, tail_tm.BODY_WG),     # 1,368, 11 waves 94%
+    (69_632, tail_tm.BODY_WG),     # 1,452, 11 waves 100%: the headline
+])
+def test_body_rule_at_the_measured_widths(channels, body):
+    """The audio-fused kernel's body for a block of 10,240 rows on a card
+    of 132 SMs, at each width whose two bodies were timed on an H100: the
+    warpgroup body where its blocks fill their last wave, else the warp
+    body. The rule reads the SM count it is given."""
+    nd = 10_240
+    rows = tail_tm.tile_rows_for(nd, channels)
+    assert tail_tm.tail_body(nd, channels, rows, 132) == body
+    # 1,024 channels' 96 blocks fill one wave of a card of 96 SMs
+    assert tail_tm.tail_body(nd, 1_024, 640, 96) == tail_tm.BODY_WG

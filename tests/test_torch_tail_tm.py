@@ -353,6 +353,111 @@ def test_kernel_with_mixed_laws_in_a_warp_on_card(cuda_device, fast):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("c,nd,tile_rows,bf16,fast,laws", [
+    (69_632, 5_120, 2_560, False, True, "cycling"),  # the headline's tile
+    (16, 2_560, 640, False, True, "cycling"),        # a partial last group
+    (1_000, 2_560, 640, False, True, "random"),
+    (1_000, 2_560, 640, True, True, "cycling"),      # a bfloat16 product
+    (128, 2_560, 640, True, False, "random"),
+    (128, 2_560, 128, False, False, "random"),       # mixed laws, 128 tiles
+])
+def test_warpgroup_body_matches_plain_version_on_card(cuda_device, c, nd,
+                                                      tile_rows, bf16, fast,
+                                                      laws):
+    """The wgmma body (``BODY_WG``) over two carried blocks against the
+    plain version: off the FM slots every output within the bounds above;
+    on them the audio and the raw demod tail by the flip rule of the wide
+    decimations' test (an FM sample near a zero of the shaped signal may
+    flip by up to two steps of the audio FIR)."""
+    rng = np.random.default_rng(c + nd + 3 * bf16 + fast)
+    dev = cuda_device
+    u = lambda *shape: T(rng.uniform(-0.5, 0.5, shape).astype(
+        np.float32)).to(dev)
+    s = _setup(81)
+    mode = (np.arange(c) % 4 if laws == "cycling"
+            else rng.integers(0, 4, c)).astype(np.int32)
+    fm = T(mode == 1).to(dev)
+    flip = float(T(s["wa"])[:K, 0].abs().max())
+    common = (T(rng.integers(0, 2**31, c)).to(dev),
+              T(rng.integers(0, 2**32, c)).to(dev), T(s["w"]).to(dev),
+              T(s["wa"]).to(dev), D, T(mode).to(dev))
+    carry = ref_carry = (u(K - 1, c), u(K - 1, c), u(2, c), u(K - 1, c))
+    for _ in range(2):
+        prod = u(nd, 2 * c)
+        if bf16:
+            prod = prod.bfloat16()
+        before = tail_tm.fused_tail_audio_tm.wgmma_launches
+        got = tail_tm._launch(prod, prod, *common, *carry, True, fast,
+                              tile_rows, tail_tm.BODY_WG)
+        torch.cuda.synchronize()
+        assert tail_tm.fused_tail_audio_tm.wgmma_launches == before + 1
+        ref = tail_tm.fused_tail_audio_tm_ref(prod, prod, *common,
+                                              *ref_carry, packed=True,
+                                              fast=fast)
+        assert float(ref[0].abs().max()) > 1e-2
+        for i in (0, 4):  # audio, raw demod tail
+            err = (got[i] - ref[i]).abs()
+            assert float(err[:, ~fm].max()) <= 1e-5, i
+            if bool(fm.any()):
+                efm = err[:, fm]
+                assert int((efm > 1e-5).sum()) <= 1e-4 * efm.numel(), i
+                assert float(efm.max()) <= 2 * flip + 1e-5, i
+        for g, r in zip(got[1:4], ref[1:4]):
+            np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
+                                       rtol=0, atol=1e-6)
+        np.testing.assert_allclose(got[5].cpu().numpy(),
+                                   ref[5].cpu().numpy(), rtol=1e-5, atol=0)
+        carry, ref_carry = got[1:5], ref[1:5]
+        common = (common[0] + nd * common[1] & 0x7FFFFFFF, *common[1:])
+        del ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body", [tail_tm.BODY_WARP, tail_tm.BODY_WG])
+def test_fm_law_on_subnormal_products_on_card(cuda_device, body):
+    """Every slot FM on a product of ~4e-19: the FM law's products, and so
+    the divisor of its angle, are subnormal (every channel's power is below
+    float32's normal range). Each body stays finite (a division by way of
+    a flushing reciprocal gives NaN there) and meets the plain version by
+    the bounds above, scaled to the level, and on the audio and the raw
+    demod tail by the flip rule with a share of 1e-3: at this level the
+    products' own rounding (2^-149 apart) moves the plain version, against
+    itself on the same inputs at a normal level, by up to 2.4e-5 on up to
+    4 of 8,064 raw demod samples, on the CPU."""
+    scale = 4e-19
+    c, nd = 128, 2_560
+    rng = np.random.default_rng(91 + body)
+    dev = cuda_device
+    u = lambda *shape: T((rng.uniform(-0.5, 0.5, shape) * scale).astype(
+        np.float32)).to(dev)
+    s = _setup(91)
+    flip = float(T(s["wa"])[:K, 0].abs().max())
+    common = (T(rng.integers(0, 2**31, c)).to(dev),
+              T(rng.integers(0, 2**32, c)).to(dev), T(s["w"]).to(dev),
+              T(s["wa"]).to(dev), D,
+              torch.ones(c, dtype=torch.int32, device=dev))
+    carry = (u(K - 1, c), u(K - 1, c), u(2, c), u(K - 1, c))
+    prod = u(nd, 2 * c)
+    got = tail_tm._launch(prod, prod, *common, *carry, True, True, 640, body)
+    torch.cuda.synchronize()
+    ref = tail_tm.fused_tail_audio_tm_ref(prod, prod, *common, *carry,
+                                          packed=True, fast=True)
+    assert float(ref[5].max()) < 2.0**-126
+    assert float(ref[0].abs().max()) > 1e-2
+    for g in got:
+        assert bool(torch.isfinite(g).all())
+    for i in (0, 4):  # audio, raw demod tail: every slot FM
+        err = (got[i] - ref[i]).abs()
+        assert int((err > 1e-5).sum()) <= 1e-3 * err.numel(), i
+        assert float(err.max()) <= 2 * flip + 1e-5, i
+    for g, r in zip(got[1:4], ref[1:4]):
+        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
+                                   rtol=0, atol=1e-6 * scale)
+    np.testing.assert_allclose(got[5].cpu().numpy(), ref[5].cpu().numpy(),
+                               rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
 def test_power_and_carries_do_not_depend_on_the_laws_on_card(cuda_device):
     """The power, the mixed carries and the FM lag are sums and samples
     from before the demod law: whatever laws the slots hold, and so wherever

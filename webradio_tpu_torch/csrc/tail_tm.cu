@@ -1,5 +1,5 @@
 // Fused time-major receiver tails for Hopper (sm_90a), three kernels from
-// one body:
+// one body (AUDIO has a second, the warpgroup body, below):
 //   AUDIO     residual NCO mix -> 64-tap shaping FIR -> AM/FM/USB/LSB demod
 //             -> squelch power -> 64-tap decimating audio FIR, every carry;
 //   CHANRATE  the same chain without the audio FIR: the demod row is
@@ -142,21 +142,79 @@
 // the plain version's matmul computes, so it agrees with it as the packed
 // path does.
 //
+// The warpgroup body (AUDIO, WG = 3; the wrapper's shape rule,
+// ops/tail_tm.tail_body, takes it where its blocks fill eight waves of the
+// card, the headline's 69,632 channels among them) makes the shaping FIR
+// with wgmma. A warpgroup is the four warps of 64 channels as above (the
+// mix, the rings, the demod ring and the audio FIR are the warp body's);
+// a block holds three, 192 channels, one block an SM. Per chunk and plane
+// D[64 channels, 16 rows] = A[64, 80] . B[80, 16]: the channels on wgmma's
+// M, the chunk's rows on N = 16 (k = 80, a fifth of the band wasted), A
+// the window of mixed rows, B the banded Toeplitz table. Ten k-steps of
+// m64n16k8 TF32, each three terms a plane: a_hi b_hi into its own
+// accumulator, a_lo b_hi and a_hi b_lo into a second, as in the warp body.
+// - B: K-major in shared memory without swizzle (core matrices of 8 rows x
+//   16 bytes, LBO 128 bytes along K, SBO 256 along N), hi then lo. The
+//   window's K runs in reverse (k' = 79 - k), so core matrix (n-block nb,
+//   k-block kb) holds the same values as (nb + 1, kb - 2): each split is
+//   22 distinct core matrices, 2.8 KB, and k-step kk's descriptor starts
+//   2kk of them on.
+// - A: in registers, loaded from the warp's rings as the warp body loads
+//   its fragments (a float2 gives channels 2g and 2g+1 of a row: M rows g
+//   and g + 8 of the warp's 16), and split there. The tensor cores read a
+//   float32 operand as TF32 by truncation, so lo is left unmasked.
+// - Pipelining: four register buffers of A, loaded and split two k-steps
+//   ahead; a k-step's six wgmma are one commit group, and wait_group 2
+//   after each leaves two k-steps in flight while the buffer of the k-step
+//   two back is refilled (never a buffer an in-flight wgmma reads). Three
+//   buffers with one k-step in flight ran 3% slower, two 4%. The demod
+//   waits for the chunk's last group.
+// - Accumulators: thread (g, t) of warp w holds d[4j + 2cc + e], channel
+//   2g + cc of the warp's columns, row 8j + 2t + e. The demod works from
+//   there: the FM lag of rows 2t and 2t + 8 comes from lane t - 1 by
+//   shuffle (the lanes t == 0 take it from the carried lag and from lane t
+//   = 3's row 7), the others are the lane's own. A warp demodulates two
+//   column classes (2g and 2g + 1), so law_sorted_columns deals the sorted
+//   channels eight to a class (the identity where the laws cycle with
+//   period 2). The power is summed a lane's rows in order, then over the
+//   four lanes of a column by two XOR shuffles.
+// - Shared memory: 72 KB a warpgroup (the warp body's rings and demod
+//   ring), the two band tables 5.5 KB, the audio taps and the column
+//   orders 2.5 KB: 229 KB a block of three, the SM's whole.
+// - A warpgroup whose first channel is past C returns; a warp past C in a
+//   live warpgroup runs on clamped columns (every warp meets in every
+//   wgmma) and stores nothing.
+// Alternatives measured on the card and not taken
+// (PERF.md): A from registers, not from split rings in shared
+// memory (hi and lo rings of both planes take 80 KB a warpgroup: one
+// warpgroup an SM); N = 16, not 32 (a 32-row chunk needs a 96-row ring:
+// two warpgroups an SM, and fewer warps hide less of the demod's latency);
+// no overlap of one chunk's products with the last chunk's demod inside a
+// warpgroup (slower: the registers of the A buffers, the pending rows
+// and the demod do not fit 168), nor producer and consumer warpgroups
+// handing the shaped rows over (slower: at two blocks an SM a thread gets
+// 128 registers and the producer spills).
+//
 // What bounds them on the H100 (times and shares in PERF.md): the float32
 // operations bound of PERF.md counts the FIRs and the product at the SIMT
-// peak. With the shaping FIR on the tensor cores the body is bound by the
-// tensor pipe as mma.sync drives it: a warp issues 120 m16n8k8 TF32 mma a
-// chunk, about 12 cycles each on its SM sub-core, a third of the card's
-// TF32 peak. The three terms are the price of float32 accuracy and the band
-// wastes 16 of 80 columns; what is left is wgmma, whose 64-row tiles waste
-// half a band. The audio FIR's FMAs (at D = 5, 94 rows of 4 FMAs a lane per
-// 40 rows) and its ring and table loads issue beside the tensor pipe. Beside
-// it sit the warp issue slots of what feeds it (ring loads and integer
-// splits, about half of a chunk's ~1,000 instructions a warp), the LO and
-// the FM law, at 12 warps an SM: AUDIO takes 72 KB of shared memory a block
-// (3 blocks an SM fill its 228 KB; ~150 registers a thread), CHANRATE 40
-// KB, PFB 106 KB (2 blocks; its product's FMA and shared-memory pipes come
-// on top). At C=1,024 the main path has 256 blocks for 396 places.
+// peak. The warp body issues a warp's 120 m16n8k8 TF32 mma a chunk, about
+// 12 cycles each on its SM sub-core, a third of the card's TF32 peak; the
+// three terms are the price of float32 accuracy and the band wastes 16 of
+// 80 columns. The warpgroup body's m64n16k8 runs at about 17 cycles an
+// instruction (half the TF32 peak; m64n32k8 would run at about two
+// thirds): a chunk's 60 take an SM about 1,000 cycles when its three
+// warpgroups are in their FIR at once, which they mostly are, and the
+// demod, the audio FIR and the mix follow. Both bodies are bound by issue
+// more than by any one pipe: the split and the ring addressing on the
+// integer pipe (half rate), the audio FIR's FMAs, the FM law, the loads
+// of the product; a warp of the warpgroup body issues about 1,100
+// instructions a chunk. The audio FIR's FMAs (at D = 5, 94 rows of 4 FMAs
+// a lane per 40 rows) and its ring and table loads issue beside the
+// tensor pipe. The warp body takes 72 KB of shared memory a block for
+// AUDIO (3 blocks an SM fill its 228 KB; ~150 registers a thread),
+// CHANRATE 40 KB, PFB 106 KB (2 blocks; its product's FMA and
+// shared-memory pipes come on top). At C=1,024 the main path has 256
+// blocks for 396 places.
 //
 // Precision: every FIR tier ("highest", "hx5", "hx4", "high") is computed
 // as the three-term split-TF32 product, which holds the float32 bounds.
@@ -223,6 +281,10 @@ static_assert(2 * KS * LDBH <= 2 * KS * LDB, "bf16 slices exceed the stage");
 constexpr int NTILES = 2 * NC / 8; // n-tiles of a product group's row
 constexpr int PFB_FLOATS =
     2 * STAGE_FLOATS > PM * LDP ? 2 * STAGE_FLOATS : PM * LDP;
+// the warpgroup body: the band table of one split, as the distinct 8 x 4
+// core matrices of Toeplitz form (22 for S = 16)
+constexpr int WG_CORES = 2 * KSTEPS + 2 * (S / 8 - 1);
+constexpr int WG_TAB = WG_CORES * 32;
 
 enum Kind { AUDIO = 0, CHANRATE = 1, PFB = 2 };
 // the IN template argument: the packed product's type for AUDIO and
@@ -237,11 +299,14 @@ constexpr uint32_t FULL = 0xFFFFFFFFu;
 // cvt.rna.tf32.f32 gives; in integer operations, because the conversion
 // runs at a fraction of their rate and the split sits in the inner loops);
 // lo = x - hi, exact in float32 and at most 12 significant bits, cut to
-// TF32's 11
+// TF32's 11. The tensor cores read a float32 operand as TF32 by truncation,
+// which is what the cut does: MASK_LO false leaves it to them
+template <bool MASK_LO = true>
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
                                            uint32_t& lo) {
   hi = (__float_as_uint(x) + 0x1000u) & TF32_MASK;
-  lo = __float_as_uint(x - __uint_as_float(hi)) & TF32_MASK;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+  if (MASK_LO) lo &= TF32_MASK;
 }
 
 // d += a[16x8, row-major] * b[8x8, col-major], TF32 in, float32 out. With
@@ -269,6 +334,56 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A K-major operand in shared memory without swizzle, for wgmma: core
+// matrices of 8 rows x 16 bytes (four TF32 values of K), `lbo` bytes apart
+// along K and `sbo` bytes apart along M or N
+__device__ __forceinline__ uint64_t wg_desc(const void* p, uint32_t lbo,
+                                            uint32_t sbo) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return static_cast<uint64_t>((a & 0x3FFFFu) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+// wait until at most N committed groups of this warpgroup are in flight
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+// a register an in-flight wgmma reads or writes: its value stays where it
+// is, untouched, up to this point
+__device__ __forceinline__ void wg_keep(uint32_t& r) {
+  asm volatile("" : "+r"(r)::"memory");
+}
+__device__ __forceinline__ void wg_keep(float& r) {
+  asm volatile("" : "+f"(r)::"memory");
+}
+
+// d[64x16] (+)= a[64x8] * b[8x16] for the warpgroup, TF32 in, float32 out;
+// a in registers, b through its descriptor (K-major). A thread of warp w,
+// g = lane / 4, t = lane % 4, holds a0 (16w+g, t), a1 (16w+g+8, t), a2
+// (16w+g, t+4), a3 (16w+g+8, t+4) and d[4j+e] at row 16w+g+8(e/2), column
+// 8j+2t+(e%2). acc false: d = a * b
+__device__ __forceinline__ void wgmma_tf32(float (&d)[8],
+                                           const uint32_t (&a)[4],
+                                           uint64_t b, bool acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1;"
+      "\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(static_cast<int>(acc)));
 }
 
 // two float32 values rounded to bfloat16 (to nearest, ties to even, as
@@ -306,9 +421,11 @@ __device__ __forceinline__ int swz(int row, int col) {
 // = 2K_p; float32 at T_HIGHEST, else the bfloat16 hi half, and xc the lo
 // half, read at T_HIGH only). out is audio48 [nd/D, C], or the channel-rate
 // audio [nd, C] (CHANRATE, which reads no h_audio/ahist0 and writes no
-// ahist).
-template <bool FAST, int KIND, int IN>
-__global__ void __launch_bounds__(NTHR, KIND == PFB ? 2 : 3)
+// ahist). WG: 0 for the warp body (mma.sync), else the warpgroup body of
+// AUDIO (wgmma) with WG warpgroups a block.
+template <bool FAST, int KIND, int IN, int WG>
+__global__ void __launch_bounds__(WG ? WG * NTHR : NTHR,
+                                  WG ? 1 : KIND == PFB ? 2 : 3)
 tail_tm_kernel(const void* __restrict__ xa, const void* __restrict__ xb,
                const void* __restrict__ xc, long long row_stride,
                const long long* __restrict__ phase0,
@@ -325,16 +442,24 @@ tail_tm_kernel(const void* __restrict__ xa, const void* __restrict__ xb,
                float* __restrict__ ahist,
                float* __restrict__ power_part, int nd, int C, int D,
                int tile_rows) {
+  constexpr bool WGMMA = WG != 0;
+  static_assert(!WGMMA || KIND == AUDIO, "the warpgroup body is AUDIO's");
   constexpr bool HAS_AUDIO_FIR = KIND != CHANRATE;
   constexpr int HALO = HAS_AUDIO_FIR ? 2 * K : K;
   // rows per pass of the outer loop: a product group, or one chunk
   constexpr int GROUP = KIND == PFB ? PM : S;
-  constexpr int RING_FLOATS = 2 * NWARP * WIN * WC;
-  constexpr int ARING_FLOATS = HAS_AUDIO_FIR ? NWARP * ARING * WC : 0;
-  extern __shared__ __align__(16) float smem[];
-  __shared__ uint32_t band_hi[BAND_TAB], band_lo[BAND_TAB];
+  constexpr int NW = WGMMA ? 4 * WG : NWARP;  // warps a block
+  constexpr int NT = 32 * NW;
+  constexpr int BCH = NW * WC;                // channels a block
+  // column classes: the columns one demod instruction takes
+  constexpr int NCLS = WGMMA ? 2 : 4;
+  constexpr int RING_FLOATS = 2 * NW * WIN * WC;
+  constexpr int ARING_FLOATS = HAS_AUDIO_FIR ? NW * ARING * WC : 0;
+  extern __shared__ __align__(128) float smem[];
+  __shared__ uint32_t band_hi[WGMMA ? 1 : BAND_TAB];
+  __shared__ uint32_t band_lo[WGMMA ? 1 : BAND_TAB];
   __shared__ float4 atab[HAS_AUDIO_FIR ? ATAB : 1];  // the audio FIR's taps
-  __shared__ int colch[NC];  // [warp][column] -> the warp's channel there
+  __shared__ int colch[BCH];  // [warp][column] -> the warp's channel there
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -345,13 +470,15 @@ tail_tm_kernel(const void* __restrict__ xa, const void* __restrict__ xb,
   const int cm = lane & 15;  // mix: column
   // the warp's planes: mixed I and Q [WIN][WC], demod audio [ARING][WC]
   float* const ring_i = smem + warp * (WIN * WC);
-  float* const ring_q = ring_i + NWARP * WIN * WC;
+  float* const ring_q = ring_i + NW * WIN * WC;
   float* const ba = smem + RING_FLOATS + warp * (ARING * WC);
   // PFB: two slice stages, then the product [PM][LDP] over them
   float* const stage = smem + RING_FLOATS + ARING_FLOATS;
+  // the warpgroup body: the band's split tables, hi then lo
+  uint32_t* const wtab = reinterpret_cast<uint32_t*>(stage);
   // PFB walks the time tiles fastest: the blocks resident together then
   // share a few channel groups' weight columns, which stay in L2
-  const int c0 = (KIND == PFB ? blockIdx.y : blockIdx.x) * NC;
+  const int c0 = (KIND == PFB ? blockIdx.y : blockIdx.x) * BCH;
   const int cw = c0 + warp * WC;  // the warp's first channel
   const int tile = KIND == PFB ? blockIdx.x : blockIdx.y;
   const int r0 = tile * tile_rows;
@@ -366,13 +493,25 @@ tail_tm_kernel(const void* __restrict__ xa, const void* __restrict__ xb,
   // between zeros, split: band[i] = h_shape[i - BAND_PAD]. Row j of the
   // audio table holds the taps that row j of a lane's walk meets in its
   // outputs i < anh: h_audio[j - 2Di], zero outside the kernel
-  for (int i = tid; i < BAND_TAB; i += NTHR) {
-    const float v =
-        (i >= BAND_PAD && i < BAND_PAD + K) ? h_shape[i - BAND_PAD] : 0.0f;
-    split_tf32(v, band_hi[i], band_lo[i]);
+  if constexpr (WGMMA) {
+    // core matrix i, entry (r, c) = h_shape[WIN - 2 - 4i - c - r]: the
+    // band in the wgmma's K-major B form, K reversed (see the notes)
+    for (int e = tid; e < WG_TAB; e += NT) {
+      const int tap = WIN - 2 - 4 * (e >> 5) - (e & 3) - ((e >> 2) & 7);
+      const float v = tap >= 0 && tap < K ? h_shape[tap] : 0.0f;
+      split_tf32(v, wtab[e], wtab[WG_TAB + e]);
+    }
+    // the tables are read by the tensor cores' (async) proxy
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  } else {
+    for (int i = tid; i < BAND_TAB; i += NT) {
+      const float v =
+          (i >= BAND_PAD && i < BAND_PAD + K) ? h_shape[i - BAND_PAD] : 0.0f;
+      split_tf32(v, band_hi[i], band_lo[i]);
+    }
   }
   if (HAS_AUDIO_FIR) {
-    for (int j = tid; j < ATAB; j += NTHR) {
+    for (int j = tid; j < ATAB; j += NT) {
       float v[ALANE];
 #pragma unroll
       for (int i = 0; i < ALANE; ++i) {
@@ -384,12 +523,13 @@ tail_tm_kernel(const void* __restrict__ xa, const void* __restrict__ xb,
   }
   // zeros everywhere: rows that no emitted output reads still meet zeros of
   // the bands, so they have to be finite
-  for (int i = tid; i < RING_FLOATS + ARING_FLOATS; i += NTHR) smem[i] = 0.0f;
+  for (int i = tid; i < RING_FLOATS + ARING_FLOATS; i += NT) smem[i] = 0.0f;
 
   // ---- the warp's column order: channel j of the warp (lanes j and j+16)
   // goes to column `col`. Stable position `pos` by law, then dealt round the
-  // four column classes (class cc = columns 4t + cc); the identity where
-  // every class is uniform as the channels stand
+  // NCLS column classes (class cc = the columns col with col % NCLS == cc:
+  // 4t + cc in the warp body, 2g + cc in the warpgroup body); the identity
+  // where every class is uniform as the channels stand
   bool ident;
   {
     // a channel past C sorts as the default law
@@ -403,15 +543,23 @@ tail_tm_kernel(const void* __restrict__ xa, const void* __restrict__ xb,
       if (law < key) below += __popc(b);
       if (law == key) same = b;
     }
-    ident = __all_sync(FULL, key == __shfl_sync(FULL, key, lane & 3));
+    ident = __all_sync(FULL,
+                       key == __shfl_sync(FULL, key, lane & (NCLS - 1)));
     const int pos = below + __popc(same & ((1u << cm) - 1u));
-    const int col = ident ? cm : 4 * (pos & 3) + (pos >> 2);
+    constexpr int PER = WC / NCLS;  // columns a class
+    const int col = ident ? cm : NCLS * (pos % PER) + pos / PER;
     if (lane < WC) colch[warp * WC + col] = cm;
   }
   __syncthreads();
   // past the last channel: nothing of this warp is stored (no block barrier
-  // follows outside PFB, whose channel count is whole blocks)
-  if (KIND != PFB && cw >= C) return;
+  // follows outside PFB, whose channel count is whole blocks). The
+  // warpgroup body returns by whole warpgroups: its warps meet in every
+  // wgmma, so a warp past C runs on clamped columns and stores nothing
+  if constexpr (WGMMA) {
+    if (c0 + (warp >> 2) * NC >= C) return;
+  } else if (KIND != PFB && cw >= C) {
+    return;
+  }
 
   // mix role: column cm holds channel c_mix, a live one below C; its
   // product loads read column c_ld
@@ -420,16 +568,17 @@ tail_tm_kernel(const void* __restrict__ xa, const void* __restrict__ xb,
   const int c_ld = live ? c_mix : C - 1;
   const uint32_t p0 = live ? static_cast<uint32_t>(phase0[c_mix]) : 0u;
   const uint32_t st = live ? static_cast<uint32_t>(step[c_mix]) : 0u;
-  // demod role: columns 4t..4t+3
+  // demod role: columns 4t..4t+3 (the warpgroup body: 2g, 2g+1)
   int chd[4], md[4];
 #pragma unroll
-  for (int cc = 0; cc < 4; ++cc) {
-    chd[cc] = cw + colch[warp * WC + 4 * t + cc];
+  for (int cc = 0; cc < NCLS; ++cc) {
+    chd[cc] = cw + colch[warp * WC + (WGMMA ? 2 * g : 4 * t) + cc];
     md[cc] = chd[cc] < C ? mode[chd[cc]] : 3;
   }
   // lane offset of a fragment load: row t (and t + 4) of eight rows, the
-  // column pair 2g, 2g+1
-  const int frag = swz(t, 2 * g);
+  // column pair 2g, 2g+1; the warpgroup body reads its eight rows in
+  // reverse, row 7 - t (and 3 - t)
+  const int frag = swz(WGMMA ? 7 - t : t, 2 * g);
 
   // FAST: the LO of a lane's rows n0 + hm + 2r is the exact phasor of row
   // n0 + hm times the exact phasors of 2r steps (in registers for the whole
@@ -444,7 +593,9 @@ tail_tm_kernel(const void* __restrict__ xa, const void* __restrict__ xb,
   // Chunk n0 sits in ring slot (n0 / S) mod NSLOT; its window row j (row
   // n0 - K + j of the stream) is in slot cur + 1 + j / S. Demod row n sits
   // in ring row n mod ARING
-  float lag_i[4], lag_q[4];  // lanes g == 0: the shaped row before the chunk
+  // lanes g == 0 (the warpgroup body: t == 0): the shaped row before the
+  // chunk
+  float lag_i[4], lag_q[4];
 #pragma unroll
   for (int cc = 0; cc < 4; ++cc) lag_i[cc] = lag_q[cc] = 0.0f;
   int start;
@@ -457,7 +608,7 @@ tail_tm_kernel(const void* __restrict__ xa, const void* __restrict__ xb,
         ba[(ARING - (K - 1) + j) * WC + cm] = ahist0[(size_t)j * C + c_mix];
     }
 #pragma unroll
-    for (int cc = 0; cc < 4; ++cc) {
+    for (int cc = 0; cc < NCLS; ++cc) {
       if (chd[cc] < C) {
         lag_i[cc] = prev0[chd[cc]];
         lag_q[cc] = prev0[C + chd[cc]];
@@ -571,6 +722,18 @@ tail_tm_kernel(const void* __restrict__ xa, const void* __restrict__ xb,
 
   float pacc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   int cur = (start / S) % NSLOT;  // ring slot of the current chunk
+
+  // the warpgroup body's accumulators, a_hi b_hi and the two small terms
+  // of each plane, and the descriptors of k-step 0 into the band tables
+  // (k-step kk: 2kk core matrices on, 16kk in the address field)
+  float wm_i[8], wc_i[8], wm_q[8], wc_q[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) wm_i[i] = wc_i[i] = wm_q[i] = wc_q[i] = 0.0f;
+  uint64_t dhi = 0, dlo = 0;
+  if constexpr (WGMMA) {
+    dhi = wg_desc(wtab, 128, 256);
+    dlo = wg_desc(wtab + WG_TAB, 128, 256);
+  }
   for (int g0 = start; g0 < r1; g0 += GROUP) {
     if constexpr (KIND == PFB && IN != T_HIGHEST) {
       // ---- filterbank product for rows g0..g0+PM-1 on the bf16 tensor
@@ -805,7 +968,100 @@ tail_tm_kernel(const void* __restrict__ xa, const void* __restrict__ xb,
 
       const bool shaped = n0 >= fir_from;  // uniform over the block
       float y_i[4][2], y_q[4][2];  // [column 4t + cc][row g, row g + 8]
-      if (shaped) {
+      // the warpgroup body: [column 2g + cc][row 2t, 2t+1, 2t+8, 2t+9]
+      float v_i[2][4], v_q[2][4];
+      if constexpr (WGMMA) {
+        if (shaped) {
+          // ---- shaping FIR on wgmma: D[64 channels, 16 rows] = A[64, 80] .
+          // B[80, 16] per plane, k-step kk on window rows 8b .. 8b+7, b = 9
+          // - kk (K reversed). A of a k-step is loaded and split AHEAD
+          // k-steps before it is issued, into one of NBUF register buffers
+          // in turn; at most NBUF - AHEAD k-steps are in flight, so the
+          // buffer a load fills belongs to a k-step that wait_group has
+          // seen done (the registers of an in-flight wgmma are not
+          // written: PTX leaves that undefined)
+          constexpr int NBUF = 4, AHEAD = 2, INFLIGHT = NBUF - AHEAD;
+          uint32_t hi_i[NBUF][4], lo_i[NBUF][4], hi_q[NBUF][4], lo_q[NBUF][4];
+          // the ring offset of window block jb (slot cur + 1 + jb)
+          int wb[NSLOT];
+#pragma unroll
+          for (int jb = 0; jb < NSLOT; ++jb) {
+            const int slot = cur + 1 + jb;
+            wb[jb] = (slot >= NSLOT ? slot - NSLOT : slot) * (S * WC) + frag;
+          }
+          auto load_a = [&](int kk, int bf) {
+            const int b = KSTEPS - 1 - kk;
+            const int at = wb[b >> 1] + (b & 1) * 8 * WC;
+            const float2 i0 = *reinterpret_cast<const float2*>(ring_i + at);
+            const float2 i1 =
+                *reinterpret_cast<const float2*>(ring_i + at - 4 * WC);
+            const float2 q0 = *reinterpret_cast<const float2*>(ring_q + at);
+            const float2 q1 =
+                *reinterpret_cast<const float2*>(ring_q + at - 4 * WC);
+            split_tf32<false>(i0.x, hi_i[bf][0], lo_i[bf][0]);
+            split_tf32<false>(i0.y, hi_i[bf][1], lo_i[bf][1]);
+            split_tf32<false>(i1.x, hi_i[bf][2], lo_i[bf][2]);
+            split_tf32<false>(i1.y, hi_i[bf][3], lo_i[bf][3]);
+            split_tf32<false>(q0.x, hi_q[bf][0], lo_q[bf][0]);
+            split_tf32<false>(q0.y, hi_q[bf][1], lo_q[bf][1]);
+            split_tf32<false>(q1.x, hi_q[bf][2], lo_q[bf][2]);
+            split_tf32<false>(q1.y, hi_q[bf][3], lo_q[bf][3]);
+          };
+          auto keep_a = [&](int bf) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              wg_keep(hi_i[bf][i]);
+              wg_keep(lo_i[bf][i]);
+              wg_keep(hi_q[bf][i]);
+              wg_keep(lo_q[bf][i]);
+            }
+          };
+#pragma unroll
+          for (int kk = 0; kk < AHEAD; ++kk) load_a(kk, kk);
+#pragma unroll
+          for (int kk = 0; kk < KSTEPS; ++kk) {
+            const int bf = kk % NBUF;
+            const uint64_t dh = dhi + 16 * kk, dl = dlo + 16 * kk;
+            wg_fence();
+            wgmma_tf32(wm_i, hi_i[bf], dh, kk > 0);
+            wgmma_tf32(wm_q, hi_q[bf], dh, kk > 0);
+            wgmma_tf32(wc_i, lo_i[bf], dh, kk > 0);
+            wgmma_tf32(wc_q, lo_q[bf], dh, kk > 0);
+            wgmma_tf32(wc_i, hi_i[bf], dl, true);
+            wgmma_tf32(wc_q, hi_q[bf], dl, true);
+            wg_commit();
+            if (kk + AHEAD < KSTEPS) {
+              // k-steps up to kk - INFLIGHT are done, and with them k-step
+              // kk + AHEAD - NBUF, the last to read the buffer
+              wg_wait<INFLIGHT>();
+              const int nb = (kk + AHEAD) % NBUF;
+              if (kk + AHEAD >= NBUF) keep_a(nb);
+              load_a(kk + AHEAD, nb);
+            }
+          }
+          wg_wait<0>();
+#pragma unroll
+          for (int bf = 0; bf < NBUF; ++bf) keep_a(bf);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            wg_keep(wm_i[i]);
+            wg_keep(wc_i[i]);
+            wg_keep(wm_q[i]);
+            wg_keep(wc_q[i]);
+          }
+          // d[4j + 2cc + e] is column 2g + cc (M row g + 8cc), row 8j + 2t + e
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int cc = 0; cc < 2; ++cc)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int i = 4 * j + 2 * cc + e;
+                v_i[cc][2 * j + e] = wm_i[i] + wc_i[i];
+                v_q[cc][2 * j + e] = wm_q[i] + wc_q[i];
+              }
+        }
+      } else if (shaped) {
         // ---- shaping FIR on the tensor cores: window row j is stream row
         // n0 - K + j; rows 16jb..16jb+15 sit in slot cur+1+jb (mod NSLOT),
         // the chunk itself (jb = NSLOT-1) in slot cur. Tile (plane p,
@@ -862,7 +1118,74 @@ tail_tm_kernel(const void* __restrict__ xa, const void* __restrict__ xb,
       // the next chunk's product rows, in flight during the demod
       if (KIND != PFB) load_rows(n0 + S < r1 ? n0 + S : n0);
 
-      if (shaped) {
+      if constexpr (WGMMA) {
+        if (shaped) {
+          // ---- demod from the accumulators: a lane holds rows 2t, 2t+1,
+          // 2t+8, 2t+9 of columns 2g, 2g+1. The row before 2t+1 (2t+9) is
+          // its own 2t (2t+8); before 2t (2t+8) it is lane t-1's 2t-1
+          // (2t+7), and for the lanes t == 0 the carried lag (row 7, which
+          // the lanes t == 3 hold as their 2t+1)
+          const int before = (lane & ~3) | ((lane + 3) & 3);
+          float a[2][4];
+#pragma unroll
+          for (int cc = 0; cc < 2; ++cc) {
+            const float* const yi = v_i[cc];
+            const float* const yq = v_q[cc];
+            // lanes t == 0 receive row 7 and row 15, the next chunk's lag
+            const float u0i = __shfl_sync(FULL, yi[1], before);
+            const float u0q = __shfl_sync(FULL, yq[1], before);
+            const float u1i = __shfl_sync(FULL, yi[3], before);
+            const float u1q = __shfl_sync(FULL, yq[3], before);
+            const float pi[4] = {t ? u0i : lag_i[cc], yi[0], t ? u1i : u0i,
+                                 yi[2]};
+            const float pq[4] = {t ? u0q : lag_q[cc], yq[0], t ? u1q : u0q,
+                                 yq[2]};
+            lag_i[cc] = u1i;
+            lag_q[cc] = u1q;
+            switch (md[cc]) {
+              case 0:  // AM
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                  a[cc][e] = sqrtf(yi[e] * yi[e] + yq[e] * yq[e]);
+                break;
+              case 1:  // FM
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                  a[cc][e] = fm_law(yi[e], yq[e], pi[e], pq[e]);
+                break;
+              case 2:  // USB
+#pragma unroll
+                for (int e = 0; e < 4; ++e) a[cc][e] = yi[e] + yq[e];
+                break;
+              default:  // LSB
+#pragma unroll
+                for (int e = 0; e < 4; ++e) a[cc][e] = yi[e] - yq[e];
+                break;
+            }
+            // a lane's rows in order, then (after the tile) its column's
+            // four lanes
+            if (n0 >= r0) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                pacc[cc] += yi[e] * yi[e] + yq[e] * yq[e];
+            }
+          }
+          // rows n0 + 2t + {0, 1, 8, 9} of columns 2g, 2g+1 (a chunk never
+          // wraps the ring)
+          float* const p = ba + ((n0 + 2 * t) & (ARING - 1)) * WC + 2 * g;
+          *reinterpret_cast<float2*>(p) = make_float2(a[0][0], a[1][0]);
+          *reinterpret_cast<float2*>(p + WC) = make_float2(a[0][1], a[1][1]);
+          *reinterpret_cast<float2*>(p + 8 * WC) =
+              make_float2(a[0][2], a[1][2]);
+          *reinterpret_cast<float2*>(p + 9 * WC) =
+              make_float2(a[0][3], a[1][3]);
+          __syncwarp();
+          while ((am + ago - 1) * D < n0 + S) {
+            audio_group(am);
+            am += ago;
+          }
+        }
+      } else if (shaped) {
         // ---- demod from the fragments. The row before row g (g + 8) is
         // lane - 4's row g (g + 8) value; for the lanes g == 0 it is the
         // carried lag (row 7, which the lanes g == 7 hold as their row g)
@@ -957,13 +1280,20 @@ tail_tm_kernel(const void* __restrict__ xa, const void* __restrict__ xb,
   if (HAS_AUDIO_FIR && am * D < r1) audio_group(am);
 
   // the tile's power: a lane's rows in order, then the column's eight lanes
+  // (the warpgroup body: its four lanes)
+  const bool first = WGMMA ? t == 0 : g == 0;  // the lanes that store
 #pragma unroll
-  for (int cc = 0; cc < 4; ++cc) {
+  for (int cc = 0; cc < NCLS; ++cc) {
     float p = pacc[cc];
-    p += __shfl_xor_sync(FULL, p, 4);
-    p += __shfl_xor_sync(FULL, p, 8);
-    p += __shfl_xor_sync(FULL, p, 16);
-    if (g == 0 && chd[cc] < C) power_part[(size_t)tile * C + chd[cc]] = p;
+    if constexpr (WGMMA) {
+      p += __shfl_xor_sync(FULL, p, 1);
+      p += __shfl_xor_sync(FULL, p, 2);
+    } else {
+      p += __shfl_xor_sync(FULL, p, 4);
+      p += __shfl_xor_sync(FULL, p, 8);
+      p += __shfl_xor_sync(FULL, p, 16);
+    }
+    if (first && chd[cc] < C) power_part[(size_t)tile * C + chd[cc]] = p;
   }
 
   if (r1 == nd) {
@@ -979,9 +1309,9 @@ tail_tm_kernel(const void* __restrict__ xa, const void* __restrict__ xb,
         ahist[(size_t)j * C + c_mix] =
             ba[((nd - (K - 1) + j) & (ARING - 1)) * WC + cm];
     }
-    if (g == 0) {
+    if (first) {
 #pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
+      for (int cc = 0; cc < NCLS; ++cc) {
         if (chd[cc] < C) {
           prev[chd[cc]] = lag_i[cc];
           prev[C + chd[cc]] = lag_q[cc];
@@ -992,13 +1322,15 @@ tail_tm_kernel(const void* __restrict__ xa, const void* __restrict__ xb,
 }
 
 
-// the kernel for (KIND, IN), picked by the LO law
-template <int KIND, int IN>
+// the kernel for (KIND, IN, WG), picked by the LO law
+template <int KIND, int IN, int WG = 0>
 auto pick_kernel(int fast) {
-  return fast ? tail_tm_kernel<true, KIND, IN>
-              : tail_tm_kernel<false, KIND, IN>;
+  return fast ? tail_tm_kernel<true, KIND, IN, WG>
+              : tail_tm_kernel<false, KIND, IN, WG>;
 }
 
+// body (AUDIO): 0 the warp body, 3 the warpgroup body (three warpgroups a
+// block)
 template <int KIND>
 int launch(const void* xa, const void* xb, const void* xc,
            long long row_stride, const void* phase0, const void* step,
@@ -1007,7 +1339,7 @@ int launch(const void* xa, const void* xb, const void* xc,
            const void* ahist0, void* out, void* hist_i, void* hist_q,
            void* prev, void* ahist, void* power_part, void* power, int nd,
            int C, int taps, int D, int tile_rows, int fast, int in,
-           int device, void* stream) {
+           int body, int device, void* stream) {
   constexpr int halo = KIND == CHANRATE ? K : 2 * K;
   // rows come in chunks of S, or in product groups of PM whose slices are
   // copied 16 bytes at a time
@@ -1021,6 +1353,7 @@ int launch(const void* xa, const void* xb, const void* xc,
       tile_rows % rows != 0 ||
       tile_rows < halo || D < 1 || nd % D != 0 || row_stride < 1 ||
       misaligned(out, 16) ||
+      (body != 0 && (KIND != AUDIO || body != 3)) ||
       (KIND == PFB &&
        (C / NC > 65535 || row_stride % KS != 0 || in < 0 || in > 2 ||
         misaligned(xa, 16) || misaligned(xb, 16) ||
@@ -1032,9 +1365,11 @@ int launch(const void* xa, const void* xb, const void* xc,
                          misaligned(xb, 8)))))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  size_t smem_floats = 2 * NWARP * WIN * WC;
-  if (KIND != CHANRATE) smem_floats += NWARP * ARING * WC;
+  const int warps = body ? 4 * body : NWARP;
+  size_t smem_floats = 2 * warps * WIN * WC;
+  if (KIND != CHANRATE) smem_floats += warps * ARING * WC;
   if (KIND == PFB) smem_floats += PFB_FLOATS;
+  if (body) smem_floats += 2 * WG_TAB;
   const size_t smem_bytes = smem_floats * sizeof(float);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1045,16 +1380,21 @@ int launch(const void* xa, const void* xb, const void* xc,
   } else {
     if (in == IN_BF16) kernel = pick_kernel<KIND, IN_BF16>(fast);
   }
+  if constexpr (KIND == AUDIO) {
+    if (body)
+      kernel = in == IN_BF16 ? pick_kernel<KIND, IN_BF16, 3>(fast)
+                             : pick_kernel<KIND, IN_F32, 3>(fast);
+  }
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem_bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_tiles = (nd + tile_rows - 1) / tile_rows;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int groups = (C + NC - 1) / NC;
+  const int groups = (C + warps * WC - 1) / (warps * WC);
   const dim3 grid = KIND == PFB ? dim3(n_tiles, groups)
                                 : dim3(groups, n_tiles);
-  kernel<<<grid, NTHR, smem_bytes, s>>>(
+  kernel<<<grid, 32 * warps, smem_bytes, s>>>(
       xa, xb, xc, row_stride, static_cast<const long long*>(phase0),
       static_cast<const long long*>(step),
       static_cast<const float*>(h_shape), static_cast<const float*>(h_audio),
@@ -1082,8 +1422,9 @@ extern "C" {
 // phase0/step [C] int64 holding uint32; h_shape/h_audio [K] reversed
 // kernels; mode [C] int32; hist_i0/hist_q0/ahist0 and the outputs
 // hist_i/hist_q/ahist [K-1, C]; prev0/prev [2, C]; audio48 [nd/D, C],
-// 16-byte aligned; power_part [n_tiles, C] scratch; power [C]. Returns
-// cudaGetLastError().
+// 16-byte aligned; power_part [n_tiles, C] scratch; power [C]. body 0 runs
+// the warp body (mma.sync), 3 the warpgroup body (wgmma, three warpgroups a
+// block). Returns cudaGetLastError().
 int webradio_tail_tm_launch(
     const void* xi, const void* xq, long long row_stride, const void* phase0,
     const void* step, const void* h_shape, const void* h_audio,
@@ -1091,11 +1432,11 @@ int webradio_tail_tm_launch(
     const void* prev0, const void* ahist0, void* audio48, void* hist_i,
     void* hist_q, void* prev, void* ahist, void* power_part, void* power,
     int nd, int C, int taps, int D, int tile_rows, int fast, int in_bf16,
-    int device, void* stream) {
+    int body, int device, void* stream) {
   return launch<AUDIO>(xi, xq, nullptr, row_stride, phase0, step, h_shape,
                        h_audio, mode, hist_i0, hist_q0, prev0, ahist0,
                        audio48, hist_i, hist_q, prev, ahist, power_part,
-                       power, nd, C, taps, D, tile_rows, fast, in_bf16,
+                       power, nd, C, taps, D, tile_rows, fast, in_bf16, body,
                        device, stream);
 }
 
@@ -1112,7 +1453,7 @@ int webradio_tail_tm_chanrate_launch(
                           h_shape, nullptr, mode, hist_i0, hist_q0, prev0,
                           nullptr, audio, hist_i, hist_q, prev, nullptr,
                           power_part, power, nd, C, taps, 1, tile_rows, fast,
-                          in_bf16, device, stream);
+                          in_bf16, 0, device, stream);
 }
 
 // The audio-fused tail with the filterbank product made in the kernel:
@@ -1132,7 +1473,7 @@ int webradio_pfb_tail_tm_launch(
   return launch<PFB>(frames, weights, weights_lo, kp2, phase0, step, h_shape,
                      h_audio, mode, hist_i0, hist_q0, prev0, ahist0, audio48,
                      hist_i, hist_q, prev, ahist, power_part, power, nd, C,
-                     taps, D, tile_rows, fast, tier, device, stream);
+                     taps, D, tile_rows, fast, tier, 0, device, stream);
 }
 
 const char* webradio_tail_tm_error_string(int code) {

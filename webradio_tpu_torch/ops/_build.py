@@ -114,7 +114,9 @@ def load_library() -> ctypes.CDLL:
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     # (pointers..., ints..., stream): see the extern "C" block of each source
     tail = [vp] * 16 + [i32] * 8 + [vp]
-    lib.webradio_tail_tm_launch.argtypes = [vp, vp, i64] + tail
+    # the audio-fused tail takes the kernel body before the device
+    lib.webradio_tail_tm_launch.argtypes = (
+        [vp, vp, i64] + [vp] * 16 + [i32] * 9 + [vp])
     lib.webradio_pfb_tail_tm_launch.argtypes = [vp, vp, vp, i32] + tail
     lib.webradio_tail_tm_chanrate_launch.argtypes = (
         [vp, vp, i64] + [vp] * 13 + [i32] * 7 + [vp])

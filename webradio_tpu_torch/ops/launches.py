@@ -22,20 +22,23 @@ _lock = threading.Lock()
 _local = threading.local()
 
 
-def count_launch(wrapper) -> None:
+def count_launch(wrapper, counter: str = "launches") -> None:
     """One launch of ``wrapper``'s kernel: into this thread's capture tally
-    while it records a graph, else into ``wrapper.launches``."""
+    while it records a graph, else into ``wrapper.launches`` (or the
+    wrapper's other ``counter``, such as a count by kernel body)."""
+    key = wrapper if counter == "launches" else (wrapper, counter)
     tally = getattr(_local, "tally", None)
     if tally is not None:
-        tally[wrapper] = tally.get(wrapper, 0) + 1
+        tally[key] = tally.get(key, 0) + 1
         return
     with _lock:
-        wrapper.launches += 1
+        setattr(wrapper, counter, getattr(wrapper, counter) + 1)
 
 
 @contextlib.contextmanager
 def recording():
-    """The launches this thread makes in the body, as ``{wrapper: n}``,
+    """The launches this thread makes in the body, as ``{wrapper: n}``
+    (``{(wrapper, counter): n}`` for a counter other than ``launches``),
     kept out of the wrappers' counts."""
     outer = getattr(_local, "tally", None)
     _local.tally = tally = {}
@@ -48,5 +51,7 @@ def recording():
 def add_launches(tally: dict) -> None:
     """Add a recorded tally to the wrappers' counts (one graph replay)."""
     with _lock:
-        for wrapper, n in tally.items():
-            wrapper.launches += n
+        for key, n in tally.items():
+            wrapper, counter = (key if isinstance(key, tuple)
+                                else (key, "launches"))
+            setattr(wrapper, counter, getattr(wrapper, counter) + n)

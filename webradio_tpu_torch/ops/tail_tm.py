@@ -29,6 +29,20 @@ taps, each in tap order) at every decimation
 (``ops.fir.fir_decimate_chain_tm``), and the filterbank product
 as float32 FMA chains in tap order; the plain versions stay true float32.
 
+:func:`fused_tail_audio_tm` has two kernel bodies (:data:`BODY_WARP`,
+:data:`BODY_WG`), which :func:`tail_body` picks from the shapes and the
+card's SM count alone. The warp body makes the shaping FIR with warp-wide
+``mma.sync`` (64 channels a block, three blocks an SM); the warpgroup body
+with warpgroup ``wgmma``, the block's 64 channels of a warpgroup on its M
+and a chunk's 16 rows on its N, the split operands in registers, two
+k-steps in flight (192 channels a block, one an SM). The warpgroup body
+takes ~7% less time a wave of the card's SMs, so it serves where its
+blocks fill their last wave (the 69,632-slot headline monitor: 7.7 ->
+7.2 ms on an H100, all slots FM); elsewhere the warp body is the faster.
+Both compute the same arithmetic to float32 rounding; their column orders
+differ (:func:`law_sorted_columns`), and so do the orders in which a
+channel's power is summed.
+
 The filterbank tiers (``ops.channelizer``) reach the kernels two ways. The
 packed product of the "bf16" tier is bfloat16: :func:`fused_tail_audio_tm`
 and :func:`fused_tail_tm` take it as it is (the kernels upcast at load,
@@ -41,6 +55,8 @@ cores from the host-split weights, and the plain version at the same law
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -78,6 +94,19 @@ KERNEL_TAPS = 64
 #: channels per kernel warp: a warp orders its channels by demod law
 #: (:func:`law_sorted_columns`)
 WARP_CHANNELS = 16
+#: the bodies of the audio-fused kernel, by the code its entry point takes:
+#: the warp body (the shaping FIR on ``mma.sync``, four column classes a
+#: warp; blocks of 64 channels, three an SM) and the warpgroup body (on
+#: ``wgmma``, two column classes a warp; blocks of three warpgroups, 192
+#: channels, one an SM)
+BODY_WARP, BODY_WG = 0, 3
+#: column classes a warp of each body demodulates in one instruction
+BODY_CLASSES = {BODY_WARP: 4, BODY_WG: 2}
+#: the share of its waves of SMs that the warpgroup body's blocks (one an
+#: SM) must fill for it to run ahead of the warp body: it takes ~7% less a
+#: wave, and what its last wave leaves idle it pays in full (measured: the
+#: two bodies break even between 87% and 91%, :func:`tail_body`)
+WG_MIN_FILL = 0.9
 PRECISIONS = ("highest", "hx5", "hx4", "high")
 #: the filterbank tiers :func:`fused_pfb_tail_audio_tm` makes, by the
 #: kernel's tier code
@@ -95,19 +124,47 @@ def tile_rows_for(nd: int, channels: int) -> int:
     return TILE_ROWS
 
 
-def law_sorted_columns(mode) -> list[int]:
+def tail_body(nd: int, channels: int, tile_rows: int, sms: int) -> int:
+    """The audio-fused kernel's body for these shapes on a card of ``sms``
+    SMs: the warpgroup body where its blocks (one per 192 channels and time
+    tile, one an SM) fill at least :data:`WG_MIN_FILL` of the waves they
+    take, else the warp body. On an H100 (132 SMs, nd = 10,240, all slots
+    FM) the warpgroup body was the faster at 25,344, 49,152, 65,536 and
+    69,632 channels (its waves 100%, 97%, 94% and 100% filled: 2.60
+    against 2.81 ms, 5.20 against 5.57, 7.15 against 7.44, 7.2 against
+    7.8), tied at 57,344 (91%: 6.47-6.56 against 6.50-6.56) and was the
+    slower at 1,024, 16,384 and 32,768 (73%, 87%, 86%: 0.190 against
+    0.160, 1.97 against 1.92, 3.89 against 3.78)."""
+    blocks = -(-channels // (BODY_WG * BLOCK_CHANNELS)) * -(-nd // tile_rows)
+    if blocks >= WG_MIN_FILL * -(-blocks // sms) * sms:
+        return BODY_WG
+    return BODY_WARP
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SM count of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def law_sorted_columns(mode, classes: int = 4) -> list[int]:
     """Column order of one kernel warp's :data:`WARP_CHANNELS` channels,
     as ``csrc/tail_tm.cu`` builds it: entry ``col`` is the channel (0..15)
     whose samples sit in column ``col``.
 
-    One kernel instruction demodulates the columns of one class (columns
-    ``cc, cc + 4, cc + 8, cc + 12``), so the order makes a class share a
-    demod law where it can: the channels are sorted by law (stable; any
-    value outside 0..3 counts as 3, the kernel's default law) and sorted
-    entries ``4 cc .. 4 cc + 3`` go to class ``cc``. Where every class is
-    uniform as the channels stand (one law on every slot, laws cycling with
-    period 4), the order is the identity. It decides only where a channel
-    sits in the warp, never what is computed for it.
+    One kernel instruction demodulates the columns of one class: the
+    columns ``col`` with ``col % classes == cc``. The warp body has four
+    classes (``cc, cc + 4, cc + 8, cc + 12``: a lane holds four columns of
+    its ``mma.sync`` fragments), the warpgroup body two (the even and the
+    odd columns: a lane holds channels ``2g`` and ``2g + 1`` of its
+    ``wgmma`` accumulators), :data:`BODY_CLASSES`. The order makes a class
+    share a demod law where it can: the channels are sorted by law (stable;
+    any value outside 0..3 counts as 3, the kernel's default law) and
+    sorted entries ``n cc .. n cc + n - 1``, ``n = 16 / classes``, go to
+    class ``cc``. Where every class is uniform as the channels stand (one
+    law on every slot, laws cycling with period ``classes``), the order is
+    the identity. It decides only where a channel sits in the warp, never
+    what is computed for it.
 
     The last warp of a channel count that is not a multiple of 16 is
     partial: ``mode`` then holds its 1..15 live channels, and the kernel's
@@ -117,13 +174,16 @@ def law_sorted_columns(mode) -> list[int]:
     n = WARP_CHANNELS
     if not 0 < len(key) <= n:
         raise ValueError(f"a warp holds 1 to {n} channels, got {len(key)}")
+    if classes not in (2, 4):
+        raise ValueError(f"a warp has 2 or 4 column classes, not {classes}")
     key += [3] * (n - len(key))
-    if all(key[j] == key[j & 3] for j in range(n)):
+    if all(key[j] == key[j % classes] for j in range(n)):
         return list(range(n))
     order = sorted(range(n), key=lambda j: key[j])  # sorted() is stable
+    per = n // classes
     cols = [0] * n
     for pos, j in enumerate(order):
-        cols[4 * (pos & 3) + (pos >> 2)] = j
+        cols[classes * (pos % per) + pos // per] = j
     return cols
 
 
@@ -320,12 +380,15 @@ def _empty(dev, *shape):
 def _launch_audio(wrapper, entry, lead, dev, nd, c, phase0, phase_step,
                   w_toep, audio_toep, decimation, mode, chan_hist_i,
                   chan_hist_q, demod_prev, audio_hist, fast, tile_rows,
-                  variant, rows=CHUNK_ROWS, bf16=False):
+                  variant, rows=CHUNK_ROWS, bf16=False, body=None):
     """Launch an audio-fused kernel through the library's ``entry`` and
     count it on ``wrapper``; ``lead`` is the entry point's leading
     arguments, the product planes or the frames and weights; ``variant``
     the product's type (1: bfloat16, also ``bf16``) or the filterbank
-    tier's code; ``rows`` is the row granule of ``nd`` and ``tile_rows``."""
+    tier's code; ``rows`` is the row granule of ``nd`` and ``tile_rows``;
+    ``body`` the kernel body's code, which the fused filterbank's entry
+    point does not take (None). A launch on a warpgroup body is counted
+    on ``wrapper.wgmma_launches`` too."""
     from . import _build
 
     d = int(decimation)
@@ -350,25 +413,35 @@ def _launch_audio(wrapper, entry, lead, dev, nd, c, phase0, phase_step,
         demod_prev.data_ptr(), audio_hist.data_ptr(), audio48.data_ptr(),
         hist_i.data_ptr(), hist_q.data_ptr(), new_prev.data_ptr(),
         ahist.data_ptr(), power_part.data_ptr(), power.data_ptr(),
-        nd, c, k, d, tile_rows, int(bool(fast)), variant, dev.index,
+        nd, c, k, d, tile_rows, int(bool(fast)), variant,
+        *(() if body is None else (body,)), dev.index,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, code, f"{wrapper.__name__} kernel launch")
     count_launch(wrapper)
+    if body:
+        count_launch(wrapper, "wgmma_launches")
     return audio48, hist_i, hist_q, new_prev, ahist, power
 
 
 def _launch(ci_planes, cq_planes, phase0, phase_step, w_toep, audio_toep,
             decimation, mode, chan_hist_i, chan_hist_q, demod_prev,
-            audio_hist, packed, fast, tile_rows):
+            audio_hist, packed, fast, tile_rows, body=None):
+    """Launch kernel #1 with time tiles of ``tile_rows`` on ``body``
+    (:data:`BODY_WARP`, :data:`BODY_WG`; None: :func:`tail_body`'s for
+    the shapes and the card)."""
     nd, c, xi, xq, row_stride, in_bf16 = _planes(ci_planes, cq_planes,
                                                  packed)
+    if body is None:
+        body = tail_body(nd, c, tile_rows, sm_count(ci_planes.device.index))
+    if body not in BODY_CLASSES:
+        raise ValueError(f"no kernel body {body}")
     return _launch_audio(
         fused_tail_audio_tm, "webradio_tail_tm_launch",
         (xi, xq, row_stride), ci_planes.device, nd, c,
         phase0, phase_step, w_toep, audio_toep, decimation, mode,
         chan_hist_i, chan_hist_q, demod_prev, audio_hist, fast, tile_rows,
-        in_bf16, bf16=bool(in_bf16))
+        in_bf16, bf16=bool(in_bf16), body=body)
 
 
 def _weights_split(pfb_weights, pfb_weights_split, pfb_precision):
@@ -504,7 +577,9 @@ def fused_tail_audio_tm(
     new_demod_prev, new_audio_hist, power [C])``.
 
     CUDA tensors go to the kernel (``fused_tail_audio_tm.launches`` counts
-    each launch); CPU tensors to :func:`fused_tail_audio_tm_ref`.
+    each launch, ``fused_tail_audio_tm.wgmma_launches`` those on a
+    warpgroup body, :func:`tail_body`); CPU tensors to
+    :func:`fused_tail_audio_tm_ref`.
     """
     args = (ci_planes, cq_planes, phase0, phase_step, w_toep, audio_toep,
             decimation, mode, chan_hist_i, chan_hist_q, demod_prev,
@@ -622,5 +697,6 @@ def fused_pfb_tail_audio_tm(
 
 
 fused_tail_audio_tm.launches = 0
+fused_tail_audio_tm.wgmma_launches = 0
 fused_tail_tm.launches = 0
 fused_pfb_tail_audio_tm.launches = 0
