@@ -3312,39 +3312,51 @@ def clock_gate(doc: dict) -> dict:
             "launches": len(launches), "host_events": len(host)}
 
 
-def recorder_cost_us(consumers: int, n: int = 20_000) -> float:
+def recorder_cost_us(consumers: int, n: int = 20_000, cards: int = 1) -> float:
     """The flight recorder's host microseconds a served block: the calls
     ``io.ring.BlockRing.put``, ``radio.FrontEnd.run_once`` (one block a
-    call, the card's two timing events) and ``_fanout_worker`` make into
-    it for one block, and ``AudioStreamManager.publish``'s counters for
-    ``consumers`` consumers (their clock reads, drop checks and queue
+    call, its timing events and ``radio.read_steps``: a pair on one card;
+    on ``cards`` cards of a sharded front end a pair a card, recorded on
+    each card's stream as ``parallel.graphs.BlockProgram.run`` does, and
+    the launch span) and ``_fanout_worker`` make
+    into it for one block, and ``AudioStreamManager.publish``'s counters
+    for ``consumers`` consumers (their clock reads, drop checks and queue
     depths), timed in a loop of ``n`` blocks on a recorder of its own."""
+    import collections
     import queue
 
     import torch
 
     from webradio_tpu_torch import trace
+    from webradio_tpu_torch.radio import read_steps
 
     rec = trace.Recorder("cost")
     now = trace.now
     depths = queue.Queue(8).queue
-    events = (torch.cuda.Event(enable_timing=True),
-              torch.cuda.Event(enable_timing=True))
-    events[0].record()
-    events[1].record()
-    torch.cuda.synchronize()
-    stream = torch.cuda.current_stream()
-    t0 = time.perf_counter_ns()
-    for bid in range(n):
+    sharded = cards > 1
+    streams = [torch.cuda.current_stream(d) for d in range(cards)]
+    pending, free = collections.deque(), []
+
+    def block(bid):
         rec.begin(bid, now(), 1)
         rec.got(bid, now(), 0, 1)
         c0, c1 = now(), now()
-        events[0].record(stream)
+        pairs = free.pop() if free else [
+            (stream, torch.cuda.Event(enable_timing=True),
+             torch.cuda.Event(enable_timing=True)) for stream in streams]
+        if not sharded:
+            pairs[0][1].record(streams[0])
         d0, d1 = now(), now()
         rec.dispatched(bid, c0, c1, d0, d1)
-        events[1].record(stream)
-        if events[1].query():
-            rec.step(bid, int(events[0].elapsed_time(events[1]) * 1e6))
+        if sharded:
+            for k in (1, 2):  # before a card's first replay, after its last
+                for pair in pairs:
+                    pair[k].record(pair[0])
+            rec.launched(bid, d0, d1)
+        else:
+            pairs[0][2].record(streams[0])
+        pending.append((bid, pairs))
+        read_steps(rec, pending, free, sharded)
         p0 = now()
         rec.published(bid, p0, now(), 64)
         h0, h1 = now(), now()
@@ -3361,6 +3373,14 @@ def recorder_cost_us(consumers: int, n: int = 20_000) -> float:
                 deepest = depth
         rec.delivered(bid, picked, f0, f1, 1, f1, now(), encode,
                       consumers, drops, deepest)
+
+    for bid in range(100):  # the events made first
+        block(bid)
+    for d in range(cards):
+        torch.cuda.synchronize(d)
+    t0 = time.perf_counter_ns()
+    for bid in range(100, 100 + n):
+        block(bid)
     return (time.perf_counter_ns() - t0) / n / 1e3
 
 
@@ -3370,6 +3390,8 @@ def phase_clocks(results):
     import pathlib
     import shutil
     import tempfile
+
+    import torch
 
     from webradio_tpu_torch import app as tapp
     from webradio_tpu_torch import trace
@@ -3420,6 +3442,9 @@ def phase_clocks(results):
     results["clock_gate"] = gate
     results["clock_status_trace"] = summary
     cost = {k: recorder_cost_us(k) for k in (0, 8, 64)}
+    cards = min(4, torch.cuda.device_count())
+    if cards > 1:  # a sharded front end's pairs, steps and launch span
+        cost[f"8 on {cards} cards"] = recorder_cost_us(8, cards=cards)
     log(f"  the recorder's host cost a block (its calls of one block in a "
         f"loop; by consumers pushed): " + ", ".join(
             f"{k}: {v:.2f} us" for k, v in cost.items()))

@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from ..pipeline.graph import fields
+from ..trace import now
 from .comm import _into
 
 
@@ -144,7 +145,15 @@ class BlockProgram:
         self.bufs: dict = {}
         self.sends: dict = {}
         self.rounds = None
+        #: for each item of a round (both slots' rounds have one plan):
+        #: a graph's device, and whether it is that device's first and
+        #: last replay of the round; ``(None, False, False)`` for a move
+        self.marks: list = []
         self.kernels_per_block = 0
+        #: the host's stamps (``trace.now``) of the last block's first and
+        #: last card's launch: around its replays on graphs, around its
+        #: stages otherwise
+        self.launched = (0, 0)
         self._pinned = None
         self._copied = [[], []]
         self.next = 0
@@ -213,20 +222,40 @@ class BlockProgram:
     # ---- blocks -------------------------------------------------------------
     def run(self, fe, slot: int) -> dict:
         """The block in the slot's inputs through the stages: the slot's
-        outputs."""
-        if not self.graphed:
-            self._eager(fe, slot)
-        elif self.rounds is None:
-            self._warm_and_capture(fe, slot)
+        outputs. Where the pipeline holds a timing-event pair for each of
+        its devices (``fe.step_events``, taken here), each card's pair is
+        recorded on its stream around its own share of the block: on
+        graphs just before its first replay and just after its last, so
+        its step leaves out the other cards' launches before its own;
+        around every stage otherwise."""
+        timed = dict(zip(fe.devices, fe.step_events or ()))
+        fe.step_events = None
+        l0 = now()
+        if self.rounds is None or not self.graphed:
+            _record(timed, 1)
+            if not self.graphed:
+                self._eager(fe, slot)
+            else:
+                self._warm_and_capture(fe, slot)
+            _record(timed, 2)
         else:
             ws = Workspace(fe, self, slot)  # the moves' buffers
-            for item in self.rounds[slot]:
-                if isinstance(item, Move):
+            l0 = 0
+            for item, (dev, first, last) in zip(self.rounds[slot],
+                                                self.marks):
+                if dev is None:
                     item.fn(ws)
-                else:
-                    item.replay()
+                    continue
+                l0 = l0 or now()
+                pair = timed.get(dev)  # (stream, start, end)
+                if pair and first:
+                    pair[1].record(pair[0])
+                item.replay()
+                if pair and last:
+                    pair[2].record(pair[0])
             fe.graph_replays += 1
             fe.graph_kernels += self.kernels_per_block
+        self.launched = (l0, now())
         return self.outputs[slot]
 
     def _eager(self, fe, slot: int) -> None:
@@ -298,6 +327,7 @@ class BlockProgram:
 
         if not self.segmented:
             (dev,) = self.by_device
+            self.marks = [(dev, True, True)]
             return [graph(lambda: self._all_stages(ws), dev)]
 
         def segment(run, pos):
@@ -306,7 +336,7 @@ class BlockProgram:
                     stage.fn(ws, pos)
             return fn
 
-        round_, run = [], []
+        round_, devs, run = [], [], []
         for stage in self.stages + [None]:
             if isinstance(stage, Local):
                 run.append(stage)
@@ -314,8 +344,22 @@ class BlockProgram:
             if run:
                 round_ += [graph(segment(run, pos), dev)
                            for dev, pos in self.by_device.items()]
+                devs += list(self.by_device)
                 run = []
             if stage is not None:
                 round_.append(stage)
+                devs.append(None)
+        first = {d: i for i, d in reversed(list(enumerate(devs)))}
+        last = {d: i for i, d in enumerate(devs)}
+        self.marks = [(d, d is not None and first[d] == i,
+                       d is not None and last[d] == i)
+                      for i, d in enumerate(devs)]
         return round_
+
+
+def _record(timed: dict, k: int) -> None:
+    """Item ``k`` (1 the start, 2 the end) of each device's timing pair
+    (``timed``: device -> (stream, start, end)) recorded on its stream."""
+    for pair in timed.values():
+        pair[k].record(pair[0])
 

@@ -297,7 +297,13 @@ class ShardedPipeline(HostPipeline):
         #: one graph a block); a test may force it
         self.segmented = (len(devices) > 1 or self.comm.grouped
                           if _segmented is None else _segmented)
-        self._devices = devices
+        #: the distinct devices of this rank's positions, in order
+        self.devices = sorted(devices, key=lambda d: (d.type, d.index or 0))
+        #: the next block's timing-event pairs, a ``(stream, start, end)``
+        #: for each of :attr:`devices`, set by the front end and recorded
+        #: by the block's run (:meth:`.graphs.BlockProgram.run`); None
+        #: leaves the block untimed
+        self.step_events = None
         self._streams: dict = {}
         self._program: BlockProgram | None = None
         self._last = mesh.local_rows[-1] * mesh.chan
@@ -328,7 +334,7 @@ class ShardedPipeline(HostPipeline):
     # ---- graphs -------------------------------------------------------
     def graphed(self) -> bool:
         return self.use_graph and (
-            all(d.type == "cuda" for d in self._devices)
+            all(d.type == "cuda" for d in self.devices)
             or self.graph_class is not CudaStepGraph)
 
     def graph_key(self) -> tuple:
@@ -339,6 +345,13 @@ class ShardedPipeline(HostPipeline):
 
     def graph_kernels_per_block(self) -> int:
         return self._program.kernels_per_block if self._program else 0
+
+    @property
+    def launched(self) -> tuple:
+        """The host's stamps of the last block's first and last card's
+        launch (:attr:`.graphs.BlockProgram.launched`); zeros before the
+        first block."""
+        return self._program.launched if self._program else (0, 0)
 
     def capture_stream(self, dev: torch.device):
         """The side stream of ``dev`` that warms and captures (None on the

@@ -393,6 +393,22 @@ class Receiver:
         Radio.receivers.pop(self.uuid, None)
 
 
+def read_steps(rec, pending, free: list, sharded: bool) -> list | None:
+    """Store the device time of every pending step whose timing events
+    have all completed, oldest first, without a wait: the slowest card's
+    as ``step_ns`` and, on a sharded front end, the fastest card's as
+    ``step_min_ns``. ``pending``: a deque of ``(block id, a (stream,
+    start, end) a card)``; the steps read go to ``free``. Each card's step
+    of the last block read, ns (None where none was read)."""
+    ns = None
+    while pending and all(end.query() for _, _, end in pending[0][1]):
+        done, pairs = pending.popleft()
+        ns = [int(start.elapsed_time(end) * 1e6) for _, start, end in pairs]
+        rec.step(done, max(ns), min(ns) if sharded else 0)
+        free.append(pairs)
+    return ns
+
+
 class FrontEnd:
     """One tuner + spectrum + up to ``capacity`` receiver channels on one
     device, or on a mesh of devices (``engine="sharded"``).
@@ -464,12 +480,16 @@ class FrontEnd:
         self.trace = trace.recorder(self.uuid)
         self.ring = BlockRing(self.ring_blocks, self.trace)
         # the block whose outputs the pipeline holds (it hands them back
-        # at the next call); the step timing events not yet read, and
-        # those free for another block
+        # at the next call); the step timing events not yet read (a pair
+        # a card), and those free for another block; the cards' streams
+        # (None until the first block)
         self._inflight_id = None
         self._step_events: collections.deque = collections.deque()
         self._free_events: list = []
-        self._step_stream = None
+        self._step_streams: list | None = None
+        #: the last read block's step device time on each card, ns (a
+        #: sharded front end's; empty otherwise)
+        self.card_steps_ns: list = []
         # what the last _deliver_rows did, for the fan-out's recorder row:
         # its start and end, encode ns, consumers pushed, consumers whose
         # queue dropped the block, the deepest consumer queue
@@ -1188,38 +1208,56 @@ class FrontEnd:
         return True
 
     def _step_begin(self):
-        """Two timing events for the next block's step, the first recorded
-        on the pump's stream before its H2D copy; None off the card. Like
-        the staging copies' events, they are recorded outside
+        """A timing-event pair for each card the next block's step runs
+        on, each as ``(the card's stream, start, end)``; None off the card.
+        On one card the start is recorded on its current stream before the
+        block's H2D copy; a sharded pipeline records each card's pair
+        around that card's own replays (``parallel.graphs.BlockProgram.
+        run``). Like the staging copies' events, they are recorded outside
         ``pipeline.graph.LAUNCH_LOCK``: only a graph launch deadlocked
         against a profiler's stop."""
-        if self._step_stream is None:
-            dev = getattr(self.pipeline, "device", self.device)
-            if dev.type != "cuda":
-                return None
-            # the device's current stream, where process_host queues its
-            # copy and replay (a lookup costs the host microseconds)
-            self._step_stream = torch.cuda.current_stream(dev)
-        pair = self._free_events.pop() if self._free_events else (
-            torch.cuda.Event(enable_timing=True),
-            torch.cuda.Event(enable_timing=True))
-        pair[0].record(self._step_stream)
-        return pair
+        streams = self._step_streams
+        if streams is None:
+            pipe = self.pipeline
+            devs = (pipe.devices if self.engine == "sharded"
+                    else [getattr(pipe, "device", self.device)])
+            # each card's current stream, where process_host queues its
+            # copies and replays (a lookup costs the host microseconds)
+            streams = self._step_streams = [
+                torch.cuda.current_stream(d) for d in devs
+                if d.type == "cuda"]
+        if not streams:
+            return None
+        pairs = self._free_events.pop() if self._free_events else [
+            (stream, torch.cuda.Event(enable_timing=True),
+             torch.cuda.Event(enable_timing=True)) for stream in streams]
+        if self.engine == "sharded":
+            self.pipeline.step_events = pairs
+        else:
+            pairs[0][1].record(streams[0])
+        return pairs
 
     def _step_end(self, bid, events, d0: int, d1: int) -> None:
-        """After block ``bid``'s ``process_host``: record the second event
-        after its replay, and store the device time of every earlier step
-        whose events have completed, without a wait. Off the card the step
-        ran inside ``process_host``: its host time is its time."""
+        """After block ``bid``'s ``process_host``: on one card record the
+        second event after its replay, then store the device time of
+        every earlier step whose events have all completed, without a wait
+        (:func:`read_steps`). Off the card the step ran inside
+        ``process_host``: its host time is its time. A sharded front end
+        also stores its round's launch span."""
+        rec = self.trace
+        sharded = self.engine == "sharded"
+        if sharded:
+            rec.launched(bid, *self.pipeline.launched)
         if events is None:
-            self.trace.step(bid, d1 - d0)
+            ns = d1 - d0
+            rec.step(bid, ns, ns if sharded else 0)
             return
-        events[1].record(self._step_stream)
+        if not sharded:
+            events[0][2].record(self._step_streams[0])
         self._step_events.append((bid, events))
-        while self._step_events and self._step_events[0][1][1].query():
-            done, (a, b) = self._step_events.popleft()
-            self.trace.step(done, int(a.elapsed_time(b) * 1e6))
-            self._free_events.append((a, b))
+        ns = read_steps(rec, self._step_events, self._free_events, sharded)
+        if ns and sharded:
+            self.card_steps_ns = ns
 
     def _publish_block(self, out, bid) -> list:
         """:meth:`_publish` of block ``bid``'s outputs, stamped."""
@@ -1368,10 +1406,11 @@ class FrontEnd:
         return self.trace.steps
 
     def profile_ns_per_frame(self) -> float:
-        """The step's mean device time per input frame over the last
-        ``trace.STATUS_BLOCKS`` blocks whose time was read: the per-frame
-        processing cost of dspblock.cxx:93-104 (off the card the step's
-        host time in ``process_host``)."""
+        """The step's mean device time per input frame (on several cards
+        the slowest card's) over the last ``trace.STATUS_BLOCKS`` blocks
+        whose time was read: the per-frame processing cost of
+        dspblock.cxx:93-104 (off the card the step's host time in
+        ``process_host``)."""
         rec = self.trace
         steps = rec.column(rec.rows(rec.next_id - trace.STATUS_BLOCKS),
                            "step_ns")

@@ -11,12 +11,12 @@ rows, one per block id modulo that count, with a column per field of
 - Every time is ``time.perf_counter_ns()``: ``CLOCK_MONOTONIC``, the clock
   of the benchmark's spans and of its device timeline.
 - Each field has one writer thread: the capture thread writes ``put`` and
-  ``ring_depth``, the pump the fields from ``got`` to ``fanout_depth`` and
-  ``step_ns``, the fan-out the rest. :meth:`Recorder.begin` clears a row
-  and writes its ``id`` last (the id plus one; 0 is an empty row), and
-  every later stamp checks the row still holds its id, so a reader that
-  finds the id it expects before and after reading a row has that block's
-  fields (or zeros where a stamp has not come yet). Readers take no lock.
+  ``ring_depth``, the pump the fields from ``got`` to ``fanout_depth``, the
+  fan-out the rest. :meth:`Recorder.begin` clears a row and writes its
+  ``id`` last (the id plus one; 0 is an empty row), and every later stamp
+  checks the row still holds its id, so a reader that finds the id it
+  expects before and after reading a row has that block's fields (or
+  zeros where a stamp has not come yet). Readers take no lock.
 - It is always on: a stamp is a clock read and an item write, about half a
   microsecond.
 - The recorders are process-wide, like ``radio.Radio.front_ends``, and
@@ -26,6 +26,12 @@ rows, one per block id modulo that count, with a column per field of
 Spans are pairs of fields ``<name>0`` (start) and ``<name>1`` (end). A
 block's ``publish`` and ``handoff`` come one call of the pump after its own
 ``dispatch``: the pipeline hands back the previous block's outputs.
+
+On a sharded front end (``parallel``) ``step_ns`` is the slowest card's
+step and ``step_min_ns`` the fastest card's, and ``launch0`` / ``launch1``
+are the host's stamps of the first and the last card's graph launch of the
+block's round (``parallel.graphs.BlockProgram.run``); a single-card front
+end leaves the three 0.
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ FIELDS = (
     # pump
     "got", "got_depth", "drained",
     "control0", "control1", "dispatch0", "dispatch1", "step_ns",
+    "step_min_ns", "launch0", "launch1",
     "publish0", "publish1", "rows", "handoff0", "handoff1", "fanout_depth",
     # fan-out
     "picked", "fetch0", "fetch1", "d2h_bytes", "deliver0", "deliver1",
@@ -60,6 +67,7 @@ SPANS = (
     ("ring", "put", "got"),
     ("control", "control0", "control1"),
     ("dispatch", "dispatch0", "dispatch1"),
+    ("launch", "launch0", "launch1"),
     ("publish", "publish0", "publish1"),
     ("handoff", "handoff0", "handoff1"),
     ("hold", "dispatch1", "handoff1"),
@@ -78,8 +86,8 @@ WIDTH = len(FIELDS)
 # the first column each writer fills (its fields follow in FIELDS' order)
 _PUT, _GOT, _CONTROL0, _STEP = (COLUMN[n] for n in ("put", "got", "control0",
                                                     "step_ns"))
-_PUBLISH0, _HANDOFF0, _PICKED = (COLUMN[n] for n in ("publish0", "handoff0",
-                                                     "picked"))
+_LAUNCH0, _PUBLISH0, _HANDOFF0, _PICKED = (
+    COLUMN[n] for n in ("launch0", "publish0", "handoff0", "picked"))
 
 
 class Recorder:
@@ -137,12 +145,21 @@ class Recorder:
             f = self._flat
             f[base], f[base + 1], f[base + 2], f[base + 3] = c0, c1, d0, d1
 
-    def step(self, bid, ns: int) -> None:
-        """Block ``bid``'s step device time."""
+    def step(self, bid, ns: int, ns_min: int = 0) -> None:
+        """Block ``bid``'s step device time (on several cards the slowest
+        card's, and ``ns_min`` the fastest card's)."""
         base = self._row(bid)
         if base >= 0:
             self._flat[base + _STEP] = ns
+            self._flat[base + _STEP + 1] = ns_min
             self.steps += 1
+
+    def launched(self, bid, l0: int, l1: int) -> None:
+        """The first and the last card's launch of the block's round."""
+        base = self._row(bid) + _LAUNCH0
+        if base >= _LAUNCH0:
+            f = self._flat
+            f[base], f[base + 1] = l0, l1
 
     def published(self, bid, p0: int, p1: int, rows: int) -> None:
         """The publish of the block's outputs, and the rows gathered."""
@@ -215,10 +232,12 @@ class Recorder:
     def summary(self, last: int = STATUS_BLOCKS) -> dict:
         """The last ``last`` blocks: each span's p50 and p95 in ms (over
         the blocks that have both its stamps), each counter's mean, and
-        the step's device time (p50, p95 ms)."""
+        the step's device time (p50, p95 ms; on several cards the slowest
+        card's, and ``step_min`` the fastest card's)."""
         rows = self.rows(self.next_id - last)
         out: dict = {"blocks": int(len(rows))}
-        for name, a, b in SPANS + (("step", None, "step_ns"),):
+        for name, a, b in SPANS + (("step", None, "step_ns"),
+                                   ("step_min", None, "step_min_ns")):
             end = self.column(rows, b)
             if a is None:
                 ms = end[end > 0] / 1e6
@@ -296,6 +315,7 @@ def window(field: str, t0_s: float, t1_s: float):
 TRACKS = (
     ("pump", (("control", "control0", "control1"),
               ("dispatch", "dispatch0", "dispatch1"),
+              ("launch", "launch0", "launch1"),
               ("publish", "publish0", "publish1"),
               ("handoff", "handoff0", "handoff1"))),
     ("fan-out", (("fetch", "fetch0", "fetch1"),
@@ -311,7 +331,8 @@ def chrome_events(t0_ns: int, t1_ns: int, to_us) -> list:
     events of a "webradio host" process, a track for each front end's pump,
     fan-out and capture thread; ``to_us`` maps a ``perf_counter_ns`` time
     to the trace's microseconds. Each event's ``args`` name the block (and
-    a dispatch its step's device ms, where it was read)."""
+    a dispatch its step's device ms, where it was read, and on several
+    cards the fastest card's)."""
     events = [{"ph": "M", "name": "process_name", "pid": HOST_PID,
                "args": {"name": "webradio host"}}]
     for k, rec in enumerate(sorted(recorders().values(),
@@ -339,5 +360,8 @@ def chrome_events(t0_ns: int, t1_ns: int, to_us) -> list:
                         ev["s"] = "t"
                     if name == "dispatch" and row[COLUMN["step_ns"]]:
                         ev["args"]["step_ms"] = row[COLUMN["step_ns"]] / 1e6
+                        if row[COLUMN["step_min_ns"]]:
+                            ev["args"]["step_min_ms"] = (
+                                row[COLUMN["step_min_ns"]] / 1e6)
                     events.append(ev)
     return events

@@ -114,8 +114,9 @@ class StatusHandler(HttpRequestHandler):
                 "blocks": fe.block_count,
                 "dropped_blocks": fe.dropped_blocks,
                 # the step's device time a frame over the last blocks
-                # (trace.STATUS_BLOCKS), from the flight recorder; on the
-                # CPU its host time. throughput_factor is the served
+                # (trace.STATUS_BLOCKS), from the flight recorder (on
+                # several cards the slowest card's); on the CPU its host
+                # time. throughput_factor is the served
                 # signal time over wall time since start
                 "ns_per_frame": round(nspf, 1),
                 "realtime_factor": round(budget / nspf, 2) if nspf else None,
@@ -124,6 +125,10 @@ class StatusHandler(HttpRequestHandler):
                     if (tput := fe.throughput_factor()) is not None
                     else None),
                 "last_step_ms": round(fe.trace.latest("step_ns") / 1e6, 2),
+                # a sharded front end's step on each card, the last block
+                # read; empty on one card
+                "card_step_ms": [round(ns / 1e6, 2)
+                                 for ns in fe.card_steps_ns],
                 "step_samples": fe.step_samples,
                 # the host time of the last block's process_host
                 "last_dispatch_ms": round(
