@@ -36,7 +36,13 @@ from ..ops.demod import demodulate
 from ..ops.fir import fir_dispatch, overlap_save_decimate
 from ..ops.nco import PHASE_MASK, nco_advance, nco_mix
 from ..ops.spectrum import spectrum_accumulate, spectrum_db
-from ..pipeline.frontend import HostPipeline, squelch_scale
+from ..pipeline.frontend import (
+    HostPipeline,
+    behind,
+    copy_to_host,
+    row_index,
+    squelch_scale,
+)
 from ..pipeline.graph import CudaStepGraph, carry, fields, layout, same_shapes
 from ..pipeline.state import (
     ChainConfig,
@@ -128,30 +134,20 @@ def place_block(planes, mesh: Mesh, block_frames: int) -> dict:
     return out
 
 
-def _wait(devices) -> None:
-    for dev in {d for d in devices if d.type == "cuda"}:
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(dev))
-        event.synchronize()
-
-
-@functools.lru_cache(maxsize=256)
-def _row_index(rows: tuple, device: torch.device) -> torch.Tensor:
-    """``rows`` as an index on ``device``, copied from pinned memory
-    without a wait (kept: the subscribed rows change rarely)."""
-    idx = torch.tensor(rows, dtype=torch.int64)
-    if device.type != "cuda":
-        return idx
-    return idx.pin_memory().to(device, non_blocking=True)
-
-
 class SelectedRows:
     """Some channels of a :class:`ShardedAudio`, copied out of its pieces
-    on their devices (one ``index_select`` a piece, in stream order, so
-    the pieces may be rewritten after it); :meth:`to_host` brings them to
-    the host."""
+    on their devices (one ``index_select`` a piece), so the pieces may be
+    rewritten after it, and on the card queued for the host (one copy into
+    pinned memory a piece, then an event a card) without a wait;
+    :meth:`to_host` waits for them.
 
-    def __init__(self, audio: ShardedAudio, rows):
+    ``ready``: the block's :attr:`..pipeline.frontend.Outputs.ready`. Each
+    card named there gathers its pieces on its copy stream behind the
+    block's own step (:func:`..pipeline.frontend.behind`), and the copies
+    to the host follow on that stream; elsewhere both run on the current
+    stream, in its order."""
+
+    def __init__(self, audio: ShardedAudio, rows, ready=None):
         m = audio.mesh
         by_col: dict[int, list] = {}
         for k, r in enumerate(rows):
@@ -160,31 +156,46 @@ class SelectedRows:
         self.shape = (len(audio.blocks), len(rows),
                       len(m.local_rows) * audio.af_local)
         self.af_local = audio.af_local
+        pieces = [(b, i, picks, block[t * m.chan + c])
+                  for b, block in enumerate(audio.blocks)
+                  for i, t in enumerate(m.local_rows)
+                  for c, picks in by_col.items()]
+        #: the cards gathered behind their ready events: device -> (event,
+        #: copy stream)
+        self.ready = {}
+        #: each card's event after its copies to the host
+        self.copied = []
+        #: ``(block, time row, rows' places, the rows on the host)``
         self.picks = []
-        for b, pieces in enumerate(audio.blocks):
-            for i, t in enumerate(m.local_rows):
-                for c, picks in by_col.items():
-                    piece = pieces[t * m.chan + c]
-                    src = piece.T if audio.time_major else piece
-                    idx = _row_index(tuple(j for _, j in picks),
-                                     piece.device)
-                    self.picks.append((b, i, [k for k, _ in picks],
-                                       src.index_select(0, idx)))
+        for dev in dict.fromkeys(piece.device for *_, piece in pieces):
+            card = (ready or {}).get(dev)
+            stream = card[1] if card else None
+            on = [x for x in pieces if x[3].device == dev]
+            with behind(card, [piece for *_, piece in on]):
+                sels = [(piece.T if audio.time_major else piece).index_select(
+                    0, row_index(tuple(j for _, j in picks), dev, stream))
+                    for *_, picks, piece in on]
+            hosts, copied = copy_to_host(sels, dev, stream)
+            self.picks += [(b, i, [k for k, _ in picks], host)
+                           for (b, i, picks, _), host in zip(on, hosts)]
+            if copied is not None:
+                self.copied.append(copied)
+            if card:
+                self.ready[dev] = card
+
+    def is_ready(self) -> bool:
+        """Whether every card's step of the block had ended (a query, no
+        wait); True off the card."""
+        return all(event.query() for event, _ in self.ready.values())
 
     def to_host(self) -> np.ndarray:
-        """``[k, af]`` for one block, ``[blocks, k, af]`` for several: one
-        copy into pinned memory a piece, then one wait a device."""
+        """``[k, af]`` for one block, ``[blocks, k, af]`` for several, once
+        every card's copies have ended."""
+        for copied in self.copied:
+            copied.synchronize()
         out = np.empty(self.shape, np.float32)
-        copies, devs = [], []
-        for b, i, ks, sel in self.picks:
-            cuda = sel.device.type == "cuda"
-            host = torch.empty(sel.shape, dtype=sel.dtype, pin_memory=cuda)
-            host.copy_(sel, non_blocking=cuda)
-            copies.append((b, i, ks, host))
-            devs.append(sel.device)
-        _wait(devs)
         af = self.af_local
-        for b, i, ks, host in copies:
+        for b, i, ks, host in self.picks:
             out[b, ks, i * af:(i + 1) * af] = host.numpy()
         return out[0] if self.shape[0] == 1 else out
 
@@ -206,14 +217,15 @@ class ShardedAudio:
             piece.shape[::-1] if time_major else piece.shape)
         self.channels = self.c_local * mesh.chan
 
-    def select_rows(self, rows) -> SelectedRows:
-        """The channels ``rows``, copied on the devices."""
-        return SelectedRows(self, rows)
+    def select_rows(self, rows, ready=None) -> SelectedRows:
+        """The channels ``rows``, copied on the devices (behind the block's
+        ``ready`` events where given: :class:`SelectedRows`)."""
+        return SelectedRows(self, rows, ready)
 
-    def fetch_rows(self, rows) -> np.ndarray:
+    def fetch_rows(self, rows, ready=None) -> np.ndarray:
         """This rank's time shards of the channels ``rows`` on the host:
         ``[k, af]`` for one block, ``[blocks, k, af]`` for several."""
-        return self.select_rows(rows).to_host()
+        return self.select_rows(rows, ready).to_host()
 
     def write_into(self, out: torch.Tensor, block: int = 0) -> None:
         """Copy one block's audio, this rank's time shards, into ``out``
@@ -345,6 +357,9 @@ class ShardedPipeline(HostPipeline):
 
     def graph_kernels_per_block(self) -> int:
         return self._program.kernels_per_block if self._program else 0
+
+    def cards(self) -> list:
+        return [d for d in self.devices if d.type == "cuda"]
 
     @property
     def launched(self) -> tuple:

@@ -14,6 +14,9 @@ torch function of ``ops``.
 
 from __future__ import annotations
 
+import contextlib
+import functools
+
 import numpy as np
 import torch
 
@@ -94,6 +97,82 @@ def frontend_step_serving(
     return new_state, audio, spectrum_db(spectra[:, -1, :])
 
 
+class Outputs(tuple):
+    """One block's ``(audio, latest_db)`` as :meth:`HostPipeline.
+    process_host` hands it back, and in ``ready`` for each card its step ran
+    on ``(event, copy stream)``: an event recorded on the card's serving
+    stream just after the block's step, and the card's copy stream (empty
+    off the card). The fan-out reads the block's rows behind that event
+    (:func:`behind`), not behind whatever the serving stream queued since."""
+
+    def __new__(cls, audio, latest_db, ready=None):
+        out = super().__new__(cls, (audio, latest_db))
+        out.ready = ready or {}
+        return out
+
+
+@functools.lru_cache(maxsize=256)
+def row_index(rows: tuple, device: torch.device, stream=None) -> torch.Tensor:
+    """``rows`` as an index on ``device``, kept (the subscribed rows change
+    rarely): to the card from pinned memory on ``stream`` (the current one
+    where None; each stream that gathers keeps its own) without a wait (a
+    blocking copy would hold the calling thread until everything queued on
+    the stream has run)."""
+    idx = torch.tensor(rows, dtype=torch.int64)
+    if device.type != "cuda":
+        return idx
+    with torch.cuda.stream(stream):
+        return idx.pin_memory().to(device, non_blocking=True)
+
+
+def copy_to_host(tensors, device: torch.device, stream=None):
+    """Queue a copy of each of ``tensors`` (on ``device``) into pinned host
+    memory on ``stream`` (the device's current one where None), without a
+    wait: ``(the host tensors, an event recorded after the copies)``; off
+    the card the tensors themselves and None."""
+    if device.type != "cuda":
+        return list(tensors), None
+    stream = stream or torch.cuda.current_stream(device)
+    hosts = []
+    with torch.cuda.stream(stream):
+        for t in tensors:
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(t, non_blocking=True)
+            hosts.append(host)
+    copied = torch.cuda.Event()
+    copied.record(stream)
+    return hosts, copied
+
+
+@contextlib.contextmanager
+def behind(card, sources):
+    """Queue the body's reads of a block's outputs on the card's copy
+    stream, behind the block's own step and nothing later.
+
+    ``card``: the card's ``(event, copy stream)`` of :attr:`Outputs.ready`,
+    or None, where the body runs on the current stream in its order. The
+    copy stream waits on the event, not on the serving stream, which by
+    then holds the next block's step. ``sources`` (the outputs the body
+    reads, made on the serving stream) are kept from reuse until the copy
+    stream has read them. After the body, the serving stream waits on the
+    card for what the body queued before it runs anything queued later
+    (the replay that rewrites those outputs comes two blocks on); the
+    calling thread does not wait."""
+    if card is None:
+        yield
+        return
+    event, stream = card
+    serving = torch.cuda.current_stream(stream.device)
+    stream.wait_event(event)
+    for t in sources:
+        t.record_stream(stream)
+    with torch.cuda.stream(stream):
+        yield
+    read = torch.cuda.Event()
+    read.record(stream)
+    serving.wait_event(read)
+
+
 class HostPipeline:
     """The double-buffered host interface of both engines' pipelines.
 
@@ -101,7 +180,9 @@ class HostPipeline:
     pinned staging buffer to the device without blocking, runs the serving
     step on the current CUDA stream and returns the PREVIOUS call's
     ``(audio, latest_db [fft_size])`` as device tensors (None on the first
-    call); :meth:`flush` returns the last one. :meth:`process_host_many`
+    call), an :class:`Outputs` whose ``ready`` holds an event recorded just
+    after that call's step on each card, with the card's copy stream;
+    :meth:`flush` returns the last one. :meth:`process_host_many`
     does the same for a backlog ``[k, 2, N]`` (audio ``[k, C,
     audio_frames]``). Two staging buffers alternate, and a buffer is
     refilled only after the copy that last read it has finished. Not
@@ -149,6 +230,8 @@ class HostPipeline:
         #: the slot to fill next]
         self._staging: dict[tuple, list] = {}
         self._graphs: ServingGraphs | None = None
+        #: each card's copy stream (``_ready``), made at its first block
+        self._copy_streams: dict = {}
         self.graph_captures = 0
         self.graph_replays = 0
         self.graph_warms = 0
@@ -249,9 +332,31 @@ class HostPipeline:
         copied[slot] = event
         return iq
 
+    def cards(self) -> list:
+        """The CUDA devices a block's step runs on."""
+        return [self.device] if self.device.type == "cuda" else []
+
+    def _ready(self) -> dict:
+        """For each card, an event recorded on its current (serving) stream
+        after the step just queued there, with the card's copy stream. The
+        copy streams take the high priority, so that a block's small
+        gather runs among the next step's kernels as soon as the card has
+        room, and no capture stream of the graphs is ever one of them (those
+        come from the pool of the default priority)."""
+        ready = {}
+        for dev in self.cards():
+            stream = self._copy_streams.get(dev)
+            if stream is None:
+                stream = self._copy_streams[dev] = torch.cuda.Stream(
+                    dev, priority=-1)
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(dev))
+            ready[dev] = (event, stream)
+        return ready
+
     def _swap_pending(self, audio, latest_db):
         result = self._pending
-        self._pending = (audio, latest_db)
+        self._pending = Outputs(audio, latest_db, self._ready())
         return result
 
     def step_device(self, iq: torch.Tensor):

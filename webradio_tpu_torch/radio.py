@@ -17,20 +17,26 @@ channelized engine's slot scatter writes its tensors in place, so a write
 made from another thread while a step is being dispatched could give one
 block half old and half new parameters; the queue rules that out.
 
-Device work never waits on the pump thread for the whole device: the
-pump gathers the subscribed rows of each block's audio (one
-``index_select`` over an index it keeps on the device and copies there
-without a wait when the rows change) and a copy of its spectrum row on
-its stream as it
-publishes the block, so both are ordered before the replay that rewrites
-those outputs (each block is a CUDA graph replay into fixed outputs,
-``pipeline.graph``); audio leaves the card only in the fan-out thread (one
-copy of the gathered rows into pinned host memory, a wait on a CUDA event
-recorded after that copy); the step's device time is read from two timing
-events around it once they have completed (the pump polls them at its
-next blocks), and the spectrum row is copied to the host on HTTP demand.
-Everything runs on the current (default) CUDA stream, so each copy is
-ordered after the step that made its input.
+Device work never waits on the pump thread for the whole device. Each
+block's step runs on the card's current (serving) stream, a CUDA graph
+replay into fixed outputs (``pipeline.graph``), and the pipeline hands
+its outputs back one call later with an event recorded just after that
+step (``pipeline.frontend.Outputs``). As the pump publishes a block it
+copies the spectrum row on the serving stream, and gathers the
+subscribed rows of the audio (one ``index_select`` over an index kept on
+the device, copied there without a wait when the rows change) on the
+card's copy stream, which waits on the block's own event and not on the
+next block's step queued since; the serving stream then waits on the
+card for that gather before the replay that rewrites those outputs
+(``pipeline.frontend.behind``). One copy of the gathered rows into pinned
+host memory follows the gather on the same copy stream, and the fan-out
+thread waits on a CUDA event recorded after it. So a block's rows reach
+the host once its own step has ended. The step's
+device time is read from two timing events around it once they have
+completed (the pump polls them at its next blocks), and the spectrum row
+is copied to the host on HTTP demand. Off the card, and under multihost
+serving (whose gathers are collectives in lockstep), everything runs on
+the current stream in its order.
 
 Every block is stamped in the front end's flight recorder (``trace``), by
 its id from the ring on: the pump's spans around each call into the
@@ -51,6 +57,7 @@ import json
 import logging
 import threading
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -69,7 +76,12 @@ from .parallel import mesh as pmesh
 from .parallel import multihost as phost
 from .parallel.sharded import SelectedRows, ShardedAudio
 from .parallel.sharded_channelized import ShardedChannelizedFrontEnd
-from .pipeline.frontend import FrontEndPipeline
+from .pipeline.frontend import (
+    FrontEndPipeline,
+    behind,
+    copy_to_host,
+    row_index,
+)
 from .pipeline.state import ChainConfig, grow_state, make_receiver_params
 
 #: "auto" engine switches to the shared polyphase filterbank once the
@@ -119,53 +131,83 @@ def _to_planes(block: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(block.view(np.float32).reshape(-1, 2).T)
 
 
-def _row_index(rows, device: torch.device) -> torch.Tensor:
-    """``rows`` as an index on ``device``; to the card from pinned memory
-    without a wait (a blocking copy would hold the calling thread until
-    everything queued on the stream has run)."""
-    idx = torch.tensor(rows, dtype=torch.int64)
-    if device.type != "cuda":
-        return idx.to(device)
-    return idx.pin_memory().to(device, non_blocking=True)
+class GatheredRows(NamedTuple):
+    """A block's gathered rows from one card, on their way to the host:
+    ``host``, the pinned buffer a copy on the card's copy stream fills
+    behind the gather; ``copied``, an event recorded after that copy;
+    ``ready``, the block's own ready event."""
+
+    host: torch.Tensor
+    copied: torch.cuda.Event
+    ready: torch.cuda.Event
+
+    def is_ready(self) -> bool:
+        """Whether the block's step had ended (a query, no wait)."""
+        return self.ready.query()
+
+    def to_host(self) -> np.ndarray:
+        self.copied.synchronize()
+        return self.host.numpy()
 
 
 def _gather_rows(audio: torch.Tensor, rows, time_major: bool = False,
-                 idx: torch.Tensor | None = None) -> torch.Tensor:
+                 card=None):
     """ONE ``index_select`` of the subscribed receivers' rows on the
     device: ``[k, audio_frames]`` of one block, ``[blocks, k,
     audio_frames]`` of a catch-up's ``[blocks, C, audio_frames]``.
     ``time_major`` is the channelized serving layout (``[audio_frames,
-    C]``, channels are columns). ``idx`` is ``rows`` on the device where
-    the caller keeps it."""
-    if idx is None:
-        idx = _row_index(rows, audio.device)
-    src = audio.movedim(-1, -2) if time_major else audio
-    return src.index_select(-2, idx)
+    C]``, channels are columns), over the index ``row_index`` keeps on the
+    device for the stream that gathers. Without ``card``, a tensor
+    gathered on the current stream. ``card``: the block's ``(event, copy
+    stream)`` on the card (``Outputs.ready``); the gather then runs on the
+    copy stream behind the block's own step
+    (``pipeline.frontend.behind``), the copy of its rows to pinned host
+    memory is queued right behind it on the same stream (so no later
+    block's gather, queued there behind that block's step, comes between
+    the two), and the rows come back as :class:`GatheredRows`."""
+    with behind(card, [audio]):
+        idx = row_index(tuple(rows), audio.device, card and card[1])
+        src = audio.movedim(-1, -2) if time_major else audio
+        sel = src.index_select(-2, idx)
+    if card is None:
+        return sel
+    (host,), copied = copy_to_host([sel], audio.device, card[1])
+    return GatheredRows(host, copied, card[0])
 
 
 def _rows_to_host(sel) -> np.ndarray:
-    """Gathered rows on the host: ONE copy into pinned host memory, then a
-    wait on a CUDA event recorded after it, in the calling (fan-out)
-    thread. A sharded engine's rows
-    (:class:`.parallel.sharded.SelectedRows`) come from their devices."""
-    if isinstance(sel, SelectedRows):
+    """Gathered rows on the host, in the calling (fan-out) thread: a wait
+    on the event after their copy to pinned host memory, which the pump
+    queued behind the gather on the card's copy stream
+    (:class:`GatheredRows`; a sharded engine's
+    :class:`.parallel.sharded.SelectedRows`, from each of its cards). A
+    plain tensor is copied on the current stream, then waited for."""
+    if isinstance(sel, (GatheredRows, SelectedRows)):
         return sel.to_host()
-    if sel.device.type != "cuda":
-        return sel.numpy()
-    host = torch.empty(sel.shape, dtype=sel.dtype, pin_memory=True)
-    host.copy_(sel, non_blocking=True)
-    done = torch.cuda.Event()
-    done.record()
-    done.synchronize()
+    (host,), copied = copy_to_host([sel], sel.device)
+    if copied is not None:
+        copied.synchronize()
     return host.numpy()
 
 
-def _fetch_audio_rows(audio, rows, time_major: bool = False) -> np.ndarray:
+def _rows_ready(sel) -> bool:
+    """Whether the step of the block whose rows ``sel`` holds had ended
+    when asked, without a wait: True off the card, False on it where the
+    rows carry no event."""
+    if isinstance(sel, (GatheredRows, SelectedRows)):
+        return sel.is_ready()
+    return sel.device.type != "cuda"
+
+
+def _fetch_audio_rows(audio, rows, time_major: bool = False,
+                      ready=None) -> np.ndarray:
     """The subscribed receivers' audio rows on the host
-    (:func:`_gather_rows`, then :func:`_rows_to_host`)."""
+    (:func:`_gather_rows`, then :func:`_rows_to_host`); behind the block's
+    own step where ``ready`` (``Outputs.ready``) names its card."""
     if isinstance(audio, ShardedAudio):
-        return audio.fetch_rows(rows)
-    return _rows_to_host(_gather_rows(audio, rows, time_major))
+        return audio.fetch_rows(rows, ready)
+    card = (ready or {}).get(audio.device)
+    return _rows_to_host(_gather_rows(audio, rows, time_major, card=card))
 
 
 class CapacityError(RuntimeError):
@@ -473,9 +515,6 @@ class FrontEnd:
         self._pending_swap = None
         # graph counts of the pipelines swapped out by growth
         self._retired_graph_stats: dict[str, int] = {}
-        # the subscribed rows of the last publish, their device and their
-        # index there: made again only when they change
-        self._rows_on_device: tuple = ((), None, None)
         #: this front end's flight recorder (``trace``): every block, by id
         self.trace = trace.recorder(self.uuid)
         self.ring = BlockRing(self.ring_blocks, self.trace)
@@ -791,7 +830,8 @@ class FrontEnd:
             t0 = time.perf_counter()
             out = self.pipeline.process_host_sync(
                 np.zeros((2, self.cfg.block_frames), np.float32))
-            _fetch_audio_rows(out[0], [0], self.pipeline.audio_time_major)
+            _fetch_audio_rows(out[0], [0], self.pipeline.audio_time_major,
+                              getattr(out, "ready", None))
             self.pipeline.reset()
             log.info("front end %s: pipeline warm in %.1fs", self.uuid,
                      time.perf_counter() - t0)
@@ -1268,13 +1308,15 @@ class FrontEnd:
         return pairs
 
     def _publish(self, out) -> list:
-        """Hand (audio, spectrum) to HTTP readers, on the pump's stream
-        before the next block: the spectrum row is copied, and the rows of
+        """Hand (audio, spectrum) to HTTP readers before the next block:
+        the spectrum row is copied on the pump's stream, and the rows of
         the receivers with consumers are gathered from the audio (a graph
-        replay two blocks on rewrites both). Returns ``[(gathered, rows)]``
-        for the fan-out, empty with no consumer (the reference's
-        zero-consumer no-op, audiostream.cxx:67-68). A sharded engine's
-        rows are copied out of its pieces on their devices."""
+        replay two blocks on rewrites both), on the card's copy stream
+        behind the block's own step where ``out`` carries its ready events
+        (``pipeline.frontend.Outputs``). Returns ``[(gathered, rows)]`` for
+        the fan-out, empty with no consumer (the reference's zero-consumer
+        no-op, audiostream.cxx:67-68). A sharded engine's rows are copied
+        out of its pieces on their devices."""
         from .web.audiostream import AudioStreamManager
 
         audio, latest_db = out
@@ -1297,20 +1339,20 @@ class FrontEnd:
                  or rx.audio_sink is not None))
         if not rows:
             return []
+        ready = getattr(out, "ready", None)
         if isinstance(audio, ShardedAudio):
-            return [(audio.select_rows(rows), rows)]
-        if self._rows_on_device[:2] != (rows, audio.device):
-            self._rows_on_device = (rows, audio.device,
-                                    _row_index(rows, audio.device))
-        return [(_gather_rows(audio, rows, tm, self._rows_on_device[2]),
-                 rows)]
+            return [(audio.select_rows(rows, ready), rows)]
+        card = (ready or {}).get(audio.device)
+        return [(_gather_rows(audio, rows, tm, card), rows)]
 
     def _fanout_worker(self) -> None:
         """Audio fan-out off the pump thread (see _publish). Each block of
         a hand-off gets ``picked`` (the queue's get returned), ``fetch``
-        (the copy to the host and its wait, with the bytes copied) and
-        ``deliver`` (with the encode time, the consumers pushed, those
-        whose queue dropped it and the deepest queue after the push)."""
+        (the copy to the host and its wait, with the bytes copied, and
+        ``fetch_ready``: 1 where the block's step had ended as the fetch
+        began) and ``deliver`` (with the encode time, the consumers pushed,
+        those whose queue dropped it and the deepest queue after the
+        push)."""
         rec = self.trace
         while True:
             item = self._fanout.get(timeout=0.5)
@@ -1325,6 +1367,7 @@ class FrontEnd:
             for (gathered, rows), bid in zip(item, ids):
                 t0 = trace.now()
                 try:
+                    ready = _rows_ready(gathered)
                     sel = _rows_to_host(gathered)
                 except BaseException as e:
                     log.exception("front end %s: fan-out fetch failed",
@@ -1343,7 +1386,8 @@ class FrontEnd:
                 else:
                     self._deliver_rows(rows, sel)
                     delivery = self._delivery
-                rec.delivered(bid, picked, t0, t1, sel.nbytes, *delivery)
+                rec.delivered(bid, picked, t0, t1, sel.nbytes, *delivery,
+                              fetch_ready=int(ready))
 
     def _deliver_rows(self, rows, sel) -> None:
         """Push fetched audio rows to stream consumers and local sinks;

@@ -27,6 +27,10 @@ Spans are pairs of fields ``<name>0`` (start) and ``<name>1`` (end). A
 block's ``publish`` and ``handoff`` come one call of the pump after its own
 ``dispatch``: the pipeline hands back the previous block's outputs.
 
+``fetch_ready`` is 1 where the block's step had ended on every card as
+its fetch began (a query of the event recorded just after the step, no
+wait), and 0 where the fetch still waited on a card; off the card 1.
+
 On a sharded front end (``parallel``) ``step_ns`` is the slowest card's
 step and ``step_min_ns`` the fastest card's, and ``launch0`` / ``launch1``
 are the host's stamps of the first and the last card's graph launch of the
@@ -58,7 +62,7 @@ FIELDS = (
     "publish0", "publish1", "rows", "handoff0", "handoff1", "fanout_depth",
     # fan-out
     "picked", "fetch0", "fetch1", "d2h_bytes", "deliver0", "deliver1",
-    "encode_ns", "pushed", "consumer_drops", "deepest",
+    "encode_ns", "pushed", "consumer_drops", "deepest", "fetch_ready",
 )
 COLUMN = {name: i for i, name in enumerate(FIELDS)}
 
@@ -77,7 +81,8 @@ SPANS = (
 )
 #: the counters /status averages
 COUNTERS = ("ring_depth", "got_depth", "drained", "rows", "fanout_depth",
-            "d2h_bytes", "encode_ns", "pushed", "consumer_drops", "deepest")
+            "d2h_bytes", "encode_ns", "pushed", "consumer_drops", "deepest",
+            "fetch_ready")
 
 now = time.perf_counter_ns
 
@@ -178,9 +183,10 @@ class Recorder:
 
     def delivered(self, bid, picked: int, f0: int, f1: int, nbytes: int,
                   d0: int, d1: int, encode_ns: int, pushed: int, drops: int,
-                  deepest: int) -> None:
+                  deepest: int, fetch_ready: int = 0) -> None:
         """The fan-out's stamps of the block: its pick of the hand-off,
-        the fetch (``f0`` to ``f1``, ``nbytes`` copied), the delivery
+        the fetch (``f0`` to ``f1``, ``nbytes`` copied; ``fetch_ready`` 1
+        where the block's step had ended as it began), the delivery
         (``d0`` to ``d1``) and its counters."""
         base = self._row(bid) + _PICKED
         if base >= _PICKED:
@@ -189,6 +195,7 @@ class Recorder:
                                                               nbytes)
             f[base + 4], f[base + 5], f[base + 6] = d0, d1, encode_ns
             f[base + 7], f[base + 8], f[base + 9] = pushed, drops, deepest
+            f[base + 10] = fetch_ready
 
     # ---- readers ---------------------------------------------------------
     def rows(self, lo: int = 0, hi: int | None = None) -> np.ndarray:
@@ -262,7 +269,7 @@ _COUNTED_WITH = {"ring_depth": "put", "got_depth": "got", "drained": "got",
                  "rows": "publish1", "fanout_depth": "handoff0",
                  "d2h_bytes": "fetch1", "encode_ns": "deliver1",
                  "pushed": "deliver1", "consumer_drops": "deliver1",
-                 "deepest": "deliver1"}
+                 "deepest": "deliver1", "fetch_ready": "fetch1"}
 
 _lock = threading.Lock()
 _recorders: dict[str, Recorder] = {}
