@@ -3315,10 +3315,11 @@ def clock_gate(doc: dict) -> dict:
 def recorder_cost_us(consumers: int, n: int = 20_000, cards: int = 1) -> float:
     """The flight recorder's host microseconds a served block: the calls
     ``io.ring.BlockRing.put``, ``radio.FrontEnd.run_once`` (one block a
-    call, its timing events and ``radio.read_steps``: a pair on one card;
-    on ``cards`` cards of a sharded front end a pair a card, recorded on
-    each card's stream as ``parallel.graphs.BlockProgram.run`` does, and
-    the launch span) and ``_fanout_worker`` make
+    call, its timing events and ``radio.read_steps``: a pair on one card,
+    recorded around the block as ``HostPipeline.process_host`` does; on
+    ``cards`` cards of a sharded front end a pair a card, recorded on each
+    card's stream as ``parallel.graphs.BlockProgram.run`` does, and the
+    launch span) and ``_fanout_worker`` make
     into it for one block, and ``AudioStreamManager.publish``'s counters
     for ``consumers`` consumers (their clock reads, drop checks and queue
     depths), timed in a loop of ``n`` blocks on a recorder of its own."""
@@ -3344,17 +3345,14 @@ def recorder_cost_us(consumers: int, n: int = 20_000, cards: int = 1) -> float:
         pairs = free.pop() if free else [
             (stream, torch.cuda.Event(enable_timing=True),
              torch.cuda.Event(enable_timing=True)) for stream in streams]
-        if not sharded:
-            pairs[0][1].record(streams[0])
-        d0, d1 = now(), now()
+        d0 = now()
+        for k in (1, 2):  # before a card's first replay, after its last
+            for pair in pairs:
+                pair[k].record(pair[0])
+        d1 = now()
         rec.dispatched(bid, c0, c1, d0, d1)
         if sharded:
-            for k in (1, 2):  # before a card's first replay, after its last
-                for pair in pairs:
-                    pair[k].record(pair[0])
             rec.launched(bid, d0, d1)
-        else:
-            pairs[0][2].record(streams[0])
         pending.append((bid, pairs))
         read_steps(rec, pending, free, sharded)
         p0 = now()

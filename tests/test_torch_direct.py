@@ -255,7 +255,7 @@ def test_frontend_pipeline_host_contract():
                     ["AM", "FM", "USB", "LSB"])
     blocks = _blocks(3)
     pipe = tfe.FrontEndPipeline(cfg, pt)
-    assert not pipe.audio_time_major and pipe.device.type == "cpu"
+    assert not pipe.time_major and pipe.device.type == "cpu"
     assert pipe.process_host(blocks[0]) is None
     first = pipe.process_host_many(blocks[1:])
     last = pipe.flush()

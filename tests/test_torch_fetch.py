@@ -2,24 +2,28 @@
 
 On the card each block's outputs come back from the pipeline with an event
 recorded just after the block's own step (``pipeline.frontend.Outputs``),
-and the pump gathers the rows on the card's copy stream behind that event
-(``pipeline.frontend.behind``) and queues their copy to the host right
-behind on the same stream; the fan-out waits for that copy. Here:
+and the outputs' ``select_rows`` gathers the rows on the card's copy stream
+behind that event (``pipeline.frontend.behind``) and queues their copy to
+the host right behind on the same stream (``SelectedRows``); the fan-out
+waits for that copy. Here:
 
 - blocks with a retune between them, through ``run_once`` and the fan-out's
   own thread, on the channelized, direct and sharded engines: each publish
   carries the block dispatched one call before, the fan-out delivers the
   blocks in that order, and the rows are byte for byte those of the plain
-  path (each block's outputs fetched by ``radio._fetch_audio_rows`` on the
-  stream's own order as the pipeline hands them back); every fetch counts
-  ``fetch_ready`` (1 off the card) and ``/status`` shows its mean;
+  path (each block's outputs' rows fetched as the pipeline hands them
+  back); every fetch counts ``fetch_ready`` (1 off the card) and
+  ``/status`` shows its mean;
+- every engine's rows, of one block and of a backlog, against those rows
+  of the whole audio in channel-major layout;
 - :func:`behind` with stand-in streams and events: the copy stream waits on
   the block's event alone, reads the outputs after that, and the serving
   stream waits for the read on the card, with no wait on the host;
 - the ready events a pipeline records (one a card, on the card's serving
   stream, each card's copy stream made once at the high priority) with
   stand-ins for the CUDA calls, and none off the card;
-- the callers that pass a plain tensor or a plain tuple still work.
+- off the card, outputs with no ready event, whose rows are the gathered
+  tensors themselves.
 """
 
 import threading
@@ -90,13 +94,14 @@ def block(seed):
         np.float32) * 0.1
 
 
-def front_end(engine, monkeypatch):
+def front_end(engine, monkeypatch, positions=4):
     """A front end on the CPU with three listened FM receivers, each with
-    a sink; not started. The sharded engine runs over four CPU
+    a sink; not started. The sharded engine runs over ``positions`` CPU
     positions."""
     if engine == "sharded":
-        monkeypatch.setattr(pmesh, "visible_devices",
-                            lambda device=None: [torch.device("cpu")] * 4)
+        monkeypatch.setattr(
+            pmesh, "visible_devices",
+            lambda device=None: [torch.device("cpu")] * positions)
     capacity = 4 if engine == "direct" else 16
     fe = radio.FrontEnd(Tuner(IdleSource()), radio.ChainConfig(**CHAIN),
                         capacity=capacity, engine=engine, device="cpu")
@@ -175,8 +180,7 @@ def test_each_publish_carries_the_block_before_and_rows_match_the_plain_path(
             ref.apply_control()
             out = ref.pipeline.process_host(block(k))
             if out is not None:
-                ref._deliver_rows(rows, radio._fetch_audio_rows(
-                    out[0], rows, ref.pipeline.audio_time_major))
+                ref._deliver_rows(rows, out.select_rows(rows).to_host())
     finally:
         join()
     # a publish hands on the block dispatched one call before, one a call
@@ -197,25 +201,59 @@ def test_each_publish_carries_the_block_before_and_rows_match_the_plain_path(
             assert a.tobytes() == b.tobytes()
 
 
-def test_a_plain_tuple_and_a_plain_tensor_still_take_the_streams_order(
+def test_cpu_outputs_carry_no_ready_event_and_their_rows_are_the_tensors(
         clean, monkeypatch):
     fe, _, sinks = front_end("channelized", monkeypatch)
     pipe = fe.pipeline
     assert pipe.process_host(block(0)) is None
     out = pipe.process_host(block(1))
     assert isinstance(out, frontend.Outputs) and out.ready == {}
-    audio, latest_db = out
+    assert out.time_major and out.channels == 16
     rows = (0, 7, 15)
-    want = radio._fetch_audio_rows(audio, rows, pipe.audio_time_major)
-    for given in (out, (audio, latest_db)):
-        [(gathered, got_rows)] = fe._publish(given)
-        assert isinstance(gathered, torch.Tensor) and got_rows == rows
-        assert radio._rows_ready(gathered)
-        np.testing.assert_array_equal(radio._rows_to_host(gathered), want)
+    want = out[0].T[list(rows)].numpy()
+    [(gathered, got_rows)] = fe._publish(out)
+    assert isinstance(gathered, frontend.SelectedRows) and got_rows == rows
+    assert gathered.ready == {} and gathered.copied == []
+    assert gathered.is_ready()
+    np.testing.assert_array_equal(gathered.to_host(), want)
+    assert np.abs(want).max() > 0
     flushed = pipe.flush()
     assert isinstance(flushed, frontend.Outputs) and flushed.ready == {}
     synced = pipe.process_host_sync(block(2))
     assert isinstance(synced, frontend.Outputs)
+
+
+@pytest.mark.parametrize("backlog", [False, True], ids=["block", "backlog"])
+@pytest.mark.parametrize("engine", ["direct", "channelized", "sharded"])
+def test_every_engines_rows_are_those_of_the_whole_audio(
+        clean, monkeypatch, engine, backlog):
+    """``Outputs.select_rows(rows).to_host()`` of one block, and of a
+    ``process_host_many`` backlog of three, against those rows of the
+    whole audio in channel-major layout; the sharded engine on a (1, 2)
+    CPU mesh, its rows from both shards."""
+    fe, _, _ = front_end(engine, monkeypatch, positions=2)
+    pipe = fe.pipeline
+    c = fe.cfg.num_channels
+    if engine == "sharded":
+        assert pipe.mesh.shape == {"time": 1, "chan": 2}
+    if backlog:
+        assert pipe.process_host_many(np.stack(
+            [block(k) for k in range(3)])) is None
+        out = pipe.flush()
+    else:
+        out = pipe.process_host_sync(block(0))
+    assert out.channels == c
+    audio = out[0]
+    if engine == "sharded":
+        whole = audio.full().numpy()
+    else:
+        whole = (audio.movedim(-1, -2) if out.time_major else audio).numpy()
+    assert whole.shape[-2] == c
+    assert whole.ndim == (3 if backlog else 2)
+    rows = [c - 1, 0, c // 2 - 1, c // 2]  # the three listened, one muted
+    got = out.select_rows(rows).to_host()
+    np.testing.assert_array_equal(got, whole[..., rows, :])
+    assert np.abs(got[..., :3, :]).max() > 0
 
 
 # ---- stand-ins for the CUDA calls ----------------------------------------
@@ -349,6 +387,7 @@ def test_off_the_card_a_pipeline_records_no_event(clean, monkeypatch):
     assert fe.pipeline.process_host(block(0)) is None
     out = fe.pipeline.process_host(block(1))
     assert isinstance(out, frontend.Outputs) and out.ready == {}
-    sel = out[0].select_rows([0, 5], out.ready)
+    sel = out.select_rows([0, 5])
+    assert isinstance(sel, sharded.SelectedRows) and sel.copied == []
     assert sel.ready == {} and sel.is_ready()
     np.testing.assert_array_equal(sel.to_host(), out[0].fetch_rows([0, 5]))

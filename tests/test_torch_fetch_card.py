@@ -10,8 +10,9 @@ block's dispatch: the fetch of the block's rows (the pump's publish
 queues the gather and the copy, the fan-out waits) returns before the
 sleep ends, the pump's next call
 returns before it too (the pump waits on no card), and the rows equal
-those ``radio._fetch_audio_rows`` fetches alone from the same outputs on
-the serving stream's own order once the card is idle.
+those fetched alone from a copy of the same outputs with no ready event
+(``Outputs.select_rows``, on the serving stream's own order) once the card
+is idle.
 """
 
 import threading
@@ -24,6 +25,7 @@ from webradio_tpu_torch import radio, trace
 from webradio_tpu_torch.io.source import SampleSource
 from webradio_tpu_torch.io.tuner import Tuner
 from webradio_tpu_torch.parallel.sharded import ShardedAudio
+from webradio_tpu_torch.pipeline.frontend import Outputs
 from webradio_tpu_torch.web.audiostream import AudioStreamManager
 
 #: the sleep queued on each serving stream: about a second at the H100's
@@ -91,14 +93,17 @@ def listened_front_end(engine, capacity, slots):
     return fe
 
 
-def copied(audio):
-    """A copy of a block's audio, each piece on its own card's current
-    stream."""
+def copied(out):
+    """A copy of a block's outputs with no ready event, each piece of its
+    audio copied on its own card's current stream."""
+    audio = out[0]
     if isinstance(audio, ShardedAudio):
-        return ShardedAudio(audio.mesh, [
+        audio = ShardedAudio(audio.mesh, [
             {p: a.clone() for p, a in pieces.items()}
             for pieces in audio.blocks], audio.time_major)
-    return audio.clone()
+    else:
+        audio = audio.clone()
+    return Outputs(audio, out[1], time_major=out.time_major)
 
 
 def fetch_behind_a_sleep(fe):
@@ -121,7 +126,7 @@ def fetch_behind_a_sleep(fe):
         fe.ring.put(block(k))
         assert fe.run_once(timeout=30.0)
     for gathered, _ in fe._fanout.get(timeout=0):
-        radio._rows_to_host(gathered)
+        gathered.to_host()
     fe.ring.put(block(2))
     assert fe.run_once(timeout=30.0)
     slept = []
@@ -134,12 +139,12 @@ def fetch_behind_a_sleep(fe):
     item = fe._fanout.get(timeout=0)
     assert item.ids == [fe.trace.next_id - 2]
     [(gathered, rows)] = item
-    got = radio._rows_to_host(gathered)
+    got = gathered.to_host()
     fetched_first = not any(e.query() for e in slept)
-    assert radio._rows_ready(gathered)
+    assert gathered.is_ready()
     # block 1's outputs (handed back by block 2's call), copied on the
     # serving streams before block 3's replay rewrites them
-    audio = copied(outs[2][0])
+    alone = copied(outs[2])
     fe.ring.put(block(3))
     assert fe.run_once(timeout=30.0)
     pumped_first = not any(e.query() for e in slept)
@@ -147,7 +152,7 @@ def fetch_behind_a_sleep(fe):
         torch.cuda.synchronize(dev)
     assert fetched_first, "the fetch waited for the next block's step"
     assert pumped_first, "the pump waited on a card"
-    want = radio._fetch_audio_rows(audio, rows, pipe.audio_time_major)
+    want = alone.select_rows(rows).to_host()
     assert got.shape == (len(rows), want.shape[-1])
     assert got.tobytes() == want.tobytes()
     assert np.abs(got).max() > 0

@@ -274,7 +274,7 @@ def _front_end(graph_class=None, capacity=16):
 
 def _deliver(fe, item):
     for gathered, rows in item or ():
-        fe._deliver_rows(rows, tradio._rows_to_host(gathered))
+        fe._deliver_rows(rows, gathered.to_host())
 
 
 def test_a_published_blocks_rows_survive_the_replays_after_it():

@@ -5,8 +5,8 @@ Both packages' ``FrontEnd`` read the same file through their own
 ``FileTuner`` (a ``.cu8`` capture quantized from the tone source's AM and
 FM carriers plus noise, made from a seed); the test pushes each block into
 both front ends' rings, calls ``run_once``, and hands what each queued for
-its fan-out to its own ``_rows_to_host`` (the JAX package's
-``_fetch_audio_rows``) and ``_deliver_rows``. Every
+its fan-out to its own fetch (the port's ``SelectedRows.to_host``, the
+JAX package's ``_fetch_audio_rows``) and ``_deliver_rows``. Every
 receiver carries a capturing audio sink, so the rows compared are the rows
 a consumer gets. Bounds as in ``tests/test_torch_direct.py``: audio 1e-5
 (FM slots under the branch-cut flip rule), waterfall 1e-3 dB on bins within
@@ -106,7 +106,7 @@ def _pump(mod, fe, block):
     if item is not None and mod is tradio:
         # the port's pump hands on the rows it gathered, block by block
         for gathered, rows in item:
-            fe._deliver_rows(rows, tradio._rows_to_host(gathered))
+            fe._deliver_rows(rows, gathered.to_host())
     elif item is not None:
         audio, rows, tm = item
         fe._deliver_rows(rows, mod._fetch_audio_rows(audio, rows, tm))
@@ -329,8 +329,8 @@ def test_fetch_audio_rows_matches_jax():
     rows = (7, 0, 3)
     for audio, time_major in ((tm, True), (cm, False), (cm[0], False)):
         want = jradio._fetch_audio_rows(jnp.asarray(audio), rows, time_major)
-        got = tradio._fetch_audio_rows(torch.from_numpy(audio), rows,
-                                       time_major)
+        got = tfe.Outputs(torch.from_numpy(audio), None,
+                          time_major=time_major).select_rows(rows).to_host()
         np.testing.assert_array_equal(got, np.asarray(want))
 
 

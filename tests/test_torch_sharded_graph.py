@@ -217,7 +217,7 @@ def test_a_sharded_tuners_rows_survive_the_replays_after_them(
         tr._pump(tradio, ref, block)
     for item in items:
         for gathered, rows in item or ():
-            fe._deliver_rows(rows, tradio._rows_to_host(gathered))
+            fe._deliver_rows(rows, gathered.to_host())
     for got, want in zip(sinks, ref_sinks):
         assert len(got.rows) == len(want.rows) == 5
         for g, w in zip(got.rows, want.rows):

@@ -168,9 +168,12 @@ def test_each_cards_event_pair_gives_the_slowest_and_the_fastest_step(
     steps = [3_000_000, 7_000_000, 5_000_000]
     streams = [_Stream(ns) for ns in steps]
 
+    cards = [torch.device("cpu", k) for k in range(3)]
     monkeypatch.setattr(torch.cuda, "Event", _Event)
-    fe._step_streams = streams
-    fe.pipeline.devices = [torch.device("cpu", k) for k in range(3)]
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: streams[device.index])
+    monkeypatch.setattr(fe.pipeline, "cards", lambda: cards)
+    monkeypatch.setattr(fe.pipeline, "_ready", dict)  # no copy streams
     eager = graphs.BlockProgram._eager
 
     def stages(program, pipe, slot):
@@ -264,7 +267,7 @@ def test_each_cards_pair_is_recorded_around_its_own_replays(monkeypatch):
                      + [(d, False, True) for d in cards])
     program.outputs = [{}, {}]
     pipe = types.SimpleNamespace(
-        devices=cards, graph_replays=0, graph_kernels=0,
+        devices=cards, cards=lambda: cards, graph_replays=0, graph_kernels=0,
         step_events=[(f"s{k}", Mark("start", k), Mark("end", k))
                      for k in range(3)])
     monkeypatch.setattr(graphs, "Workspace", lambda fe, prog, slot: None)

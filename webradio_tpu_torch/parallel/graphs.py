@@ -223,12 +223,12 @@ class BlockProgram:
     def run(self, fe, slot: int) -> dict:
         """The block in the slot's inputs through the stages: the slot's
         outputs. Where the pipeline holds a timing-event pair for each of
-        its devices (``fe.step_events``, taken here), each card's pair is
+        its cards (``fe.step_events``, taken here), each card's pair is
         recorded on its stream around its own share of the block: on
         graphs just before its first replay and just after its last, so
         its step leaves out the other cards' launches before its own;
         around every stage otherwise."""
-        timed = dict(zip(fe.devices, fe.step_events or ()))
+        timed = dict(zip(fe.cards(), fe.step_events or ()))
         fe.step_events = None
         l0 = now()
         if self.rounds is None or not self.graphed:

@@ -27,8 +27,6 @@ positions that computed them (:class:`ShardedAudio`).
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
@@ -36,13 +34,7 @@ from ..ops.demod import demodulate
 from ..ops.fir import fir_dispatch, overlap_save_decimate
 from ..ops.nco import PHASE_MASK, nco_advance, nco_mix
 from ..ops.spectrum import spectrum_accumulate, spectrum_db
-from ..pipeline.frontend import (
-    HostPipeline,
-    behind,
-    copy_to_host,
-    row_index,
-    squelch_scale,
-)
+from ..pipeline.frontend import HostPipeline, SelectedRows, squelch_scale
 from ..pipeline.graph import CudaStepGraph, carry, fields, layout, same_shapes
 from ..pipeline.state import (
     ChainConfig,
@@ -134,72 +126,6 @@ def place_block(planes, mesh: Mesh, block_frames: int) -> dict:
     return out
 
 
-class SelectedRows:
-    """Some channels of a :class:`ShardedAudio`, copied out of its pieces
-    on their devices (one ``index_select`` a piece), so the pieces may be
-    rewritten after it, and on the card queued for the host (one copy into
-    pinned memory a piece, then an event a card) without a wait;
-    :meth:`to_host` waits for them.
-
-    ``ready``: the block's :attr:`..pipeline.frontend.Outputs.ready`. Each
-    card named there gathers its pieces on its copy stream behind the
-    block's own step (:func:`..pipeline.frontend.behind`), and the copies
-    to the host follow on that stream; elsewhere both run on the current
-    stream, in its order."""
-
-    def __init__(self, audio: ShardedAudio, rows, ready=None):
-        m = audio.mesh
-        by_col: dict[int, list] = {}
-        for k, r in enumerate(rows):
-            by_col.setdefault(r // audio.c_local, []).append(
-                (k, r % audio.c_local))
-        self.shape = (len(audio.blocks), len(rows),
-                      len(m.local_rows) * audio.af_local)
-        self.af_local = audio.af_local
-        pieces = [(b, i, picks, block[t * m.chan + c])
-                  for b, block in enumerate(audio.blocks)
-                  for i, t in enumerate(m.local_rows)
-                  for c, picks in by_col.items()]
-        #: the cards gathered behind their ready events: device -> (event,
-        #: copy stream)
-        self.ready = {}
-        #: each card's event after its copies to the host
-        self.copied = []
-        #: ``(block, time row, rows' places, the rows on the host)``
-        self.picks = []
-        for dev in dict.fromkeys(piece.device for *_, piece in pieces):
-            card = (ready or {}).get(dev)
-            stream = card[1] if card else None
-            on = [x for x in pieces if x[3].device == dev]
-            with behind(card, [piece for *_, piece in on]):
-                sels = [(piece.T if audio.time_major else piece).index_select(
-                    0, row_index(tuple(j for _, j in picks), dev, stream))
-                    for *_, picks, piece in on]
-            hosts, copied = copy_to_host(sels, dev, stream)
-            self.picks += [(b, i, [k for k, _ in picks], host)
-                           for (b, i, picks, _), host in zip(on, hosts)]
-            if copied is not None:
-                self.copied.append(copied)
-            if card:
-                self.ready[dev] = card
-
-    def is_ready(self) -> bool:
-        """Whether every card's step of the block had ended (a query, no
-        wait); True off the card."""
-        return all(event.query() for event, _ in self.ready.values())
-
-    def to_host(self) -> np.ndarray:
-        """``[k, af]`` for one block, ``[blocks, k, af]`` for several, once
-        every card's copies have ended."""
-        for copied in self.copied:
-            copied.synchronize()
-        out = np.empty(self.shape, np.float32)
-        af = self.af_local
-        for b, i, ks, host in self.picks:
-            out[b, ks, i * af:(i + 1) * af] = host.numpy()
-        return out[0] if self.shape[0] == 1 else out
-
-
 class ShardedAudio:
     """The audio of one block, or of a catch-up's blocks, as the shards
     made it: one piece per block and local position, on that position's
@@ -218,14 +144,36 @@ class ShardedAudio:
         self.channels = self.c_local * mesh.chan
 
     def select_rows(self, rows, ready=None) -> SelectedRows:
-        """The channels ``rows``, copied on the devices (behind the block's
-        ``ready`` events where given: :class:`SelectedRows`)."""
-        return SelectedRows(self, rows, ready)
+        """The channels ``rows``, copied out of the pieces on their devices
+        (behind the block's ``ready`` events where given, the
+        :attr:`..pipeline.frontend.Outputs.ready` of its cards:
+        :class:`..pipeline.frontend.SelectedRows`), each piece's rows
+        filling their places of this rank's time shards."""
+        m, af = self.mesh, self.af_local
+        by_col: dict[int, list] = {}
+        for k, r in enumerate(rows):
+            by_col.setdefault(r // self.c_local, []).append(
+                (k, r % self.c_local))
+        one = len(self.blocks) == 1
+        pieces = []
+        for b, block in enumerate(self.blocks):
+            for i, t in enumerate(m.local_rows):
+                for c, picks in by_col.items():
+                    place = ([k for k, _ in picks], slice(i * af,
+                                                          (i + 1) * af))
+                    pieces.append((block[t * m.chan + c],
+                                   [j for _, j in picks],
+                                   place if one else (b, *place)))
+        shape = (len(rows), len(m.local_rows) * af)
+        return SelectedRows(pieces, self.time_major,
+                            shape if one else (len(self.blocks), *shape),
+                            ready)
 
-    def fetch_rows(self, rows, ready=None) -> np.ndarray:
-        """This rank's time shards of the channels ``rows`` on the host:
-        ``[k, af]`` for one block, ``[blocks, k, af]`` for several."""
-        return self.select_rows(rows, ready).to_host()
+    def fetch_rows(self, rows) -> np.ndarray:
+        """This rank's time shards of the channels ``rows`` on the host,
+        gathered on the current streams: ``[k, af]`` for one block,
+        ``[blocks, k, af]`` for several."""
+        return self.select_rows(rows).to_host()
 
     def write_into(self, out: torch.Tensor, block: int = 0) -> None:
         """Copy one block's audio, this rank's time shards, into ``out``
@@ -276,7 +224,9 @@ class ShardedPipeline(HostPipeline):
     ``process_host_sync``, ``reset``, ``load_state``, ``update_params``),
     plus :meth:`process`. Per-block audio is a :class:`ShardedAudio`;
     ``latest_db`` is this rank's last time shard's last spectrum row.
-    ``device`` is the device of this rank's last position.
+    ``device`` is the device of this rank's last position. The block's
+    :attr:`step_events` are recorded by its run, each card's around its own
+    replays (:meth:`.graphs.BlockProgram.run`).
 
     The parameters and state are placed per position once and kept in
     those tensors: a parameter set of the same layout is copied into them
@@ -296,9 +246,6 @@ class ShardedPipeline(HostPipeline):
     over every device (one replay a block, its kernels summed over the
     round's graphs)."""
 
-    #: the body: time-major audio pieces ``[af_local, c_local]``
-    time_major = False
-
     def __init__(self, cfg, params, mesh: Mesh, comm: Comm | None = None,
                  graph: bool = True, _segmented: bool | None = None):
         self.mesh = mesh
@@ -311,11 +258,6 @@ class ShardedPipeline(HostPipeline):
                           if _segmented is None else _segmented)
         #: the distinct devices of this rank's positions, in order
         self.devices = sorted(devices, key=lambda d: (d.type, d.index or 0))
-        #: the next block's timing-event pairs, a ``(stream, start, end)``
-        #: for each of :attr:`devices`, set by the front end and recorded
-        #: by the block's run (:meth:`.graphs.BlockProgram.run`); None
-        #: leaves the block untimed
-        self.step_events = None
         self._streams: dict = {}
         self._program: BlockProgram | None = None
         self._last = mesh.local_rows[-1] * mesh.chan

@@ -429,6 +429,8 @@ class ShardedChannelizedFrontEnd(ShardedPipeline):
     c_local]``, else ``[c_local, af_local]``); it is decided per
     parameter set, as the JAX package decides per call."""
 
+    scatters_slots = True
+
     def __init__(self, cfg: ChannelizedConfig, params: ChannelizedParams,
                  mesh: Mesh, comm: Comm | None = None, graph: bool = True,
                  _segmented: bool | None = None):

@@ -701,7 +701,8 @@ class ChannelizedPipeline(HostPipeline):
     time-major tail), :meth:`update_params` converts the carried history
     (:func:`switch_hist_domain`)."""
 
-    audio_time_major = True
+    time_major = True
+    scatters_slots = True
 
     def __init__(self, cfg: ChannelizedConfig, params: ChannelizedParams,
                  graph: bool = True):
@@ -726,6 +727,17 @@ class ChannelizedPipeline(HostPipeline):
     def carries_raw(self) -> bool:
         """Whether the step carries the RAW history (:func:`carries_raw`)."""
         return carries_raw(self.cfg, self.params)
+
+    def carry_state_from(self, old) -> bool:
+        """:meth:`.frontend.HostPipeline.carry_state_from`: from a
+        channelized pipeline, in the history domain this step carries (the
+        slots added may move it between the per-channel kernel and the
+        time-major tail)."""
+        if not isinstance(old, ChannelizedPipeline):
+            return False
+        self.load_state(grow_channelized_state(old.state_for(self),
+                                               self.cfg.num_channels))
+        return True
 
     def state_for(self, other: "ChannelizedPipeline") -> ChannelizedState:
         """This pipeline's state with its history in the domain that

@@ -30,6 +30,7 @@ from .state import (
     FrontEndParams,
     FrontEndState,
     ReceiverState,
+    grow_state,
     init_state,
 )
 
@@ -102,13 +103,36 @@ class Outputs(tuple):
     process_host` hands it back, and in ``ready`` for each card its step ran
     on ``(event, copy stream)``: an event recorded on the card's serving
     stream just after the block's step, and the card's copy stream (empty
-    off the card). The fan-out reads the block's rows behind that event
-    (:func:`behind`), not behind whatever the serving stream queued since."""
+    off the card). ``time_major``: the audio's layout, as the pipeline that
+    made it says (a tensor ``[audio_frames, C]`` where True, else ``[C,
+    audio_frames]`` or a backlog's ``[blocks, C, audio_frames]``; a sharded
+    engine's :class:`..parallel.sharded.ShardedAudio` knows its own). The
+    fan-out reads the block's rows behind that event (:meth:`select_rows`),
+    not behind whatever the serving stream queued since."""
 
-    def __new__(cls, audio, latest_db, ready=None):
+    def __new__(cls, audio, latest_db, ready=None, time_major=False):
         out = super().__new__(cls, (audio, latest_db))
         out.ready = ready or {}
+        out.time_major = time_major
         return out
+
+    @property
+    def channels(self) -> int:
+        """The block's width."""
+        audio = self[0]
+        if not isinstance(audio, torch.Tensor):
+            return audio.channels
+        return audio.shape[-1] if self.time_major else audio.shape[-2]
+
+    def select_rows(self, rows) -> "SelectedRows":
+        """The channels ``rows`` of the block's audio on their way to the
+        host, gathered on each card behind the block's own step
+        (:class:`SelectedRows`)."""
+        audio = self[0]
+        if not isinstance(audio, torch.Tensor):
+            return audio.select_rows(rows, self.ready)
+        return SelectedRows([(audio, rows, None)], self.time_major,
+                            ready=self.ready)
 
 
 @functools.lru_cache(maxsize=256)
@@ -173,6 +197,70 @@ def behind(card, sources):
     serving.wait_event(read)
 
 
+class SelectedRows:
+    """Some channels of a block's audio, copied out of its pieces on their
+    devices (one ``index_select`` a piece), so the pieces may be rewritten
+    after it, and on the card queued for the host (one copy into pinned
+    memory a piece, then an event a card) without a wait; :meth:`to_host`
+    waits for them.
+
+    ``pieces``: ``(tensor, its rows to take, place)``, the channels on the
+    tensor's axis -2 (axis -1 where ``time_major``). ``place`` indexes the
+    host array of ``shape`` that the piece's rows fill; None for one piece
+    that is the whole answer (one card's audio), whose host rows
+    :meth:`to_host` returns as they are. ``ready``: the block's
+    :attr:`Outputs.ready`. Each card named there gathers its pieces on its
+    copy stream behind the block's own step (:func:`behind`), and the
+    copies to the host follow on that stream, so no later block's gather,
+    queued there behind that block's step, comes between the two;
+    elsewhere both run on the current stream, in its order. Off the card
+    the gathered tensors are the answer."""
+
+    def __init__(self, pieces, time_major: bool = False, shape=None,
+                 ready=None):
+        self.shape = shape
+        #: the cards gathered behind their ready events: device -> (event,
+        #: copy stream)
+        self.ready = {}
+        #: each card's event after its copies to the host
+        self.copied = []
+        #: ``(place, the rows on the host)``
+        self.picks = []
+        for dev in dict.fromkeys(t.device for t, _, _ in pieces):
+            card = (ready or {}).get(dev)
+            stream = card[1] if card else None
+            on = [x for x in pieces if x[0].device == dev]
+            with behind(card, [t for t, _, _ in on]):
+                sels = [(t.movedim(-1, -2) if time_major else t).index_select(
+                    -2, row_index(tuple(rows), dev, stream))
+                    for t, rows, _ in on]
+            hosts, copied = copy_to_host(sels, dev, stream)
+            self.picks += [(place, host)
+                           for (_, _, place), host in zip(on, hosts)]
+            if copied is not None:
+                self.copied.append(copied)
+            if card:
+                self.ready[dev] = card
+
+    def is_ready(self) -> bool:
+        """Whether every card's step of the block had ended (a query, no
+        wait); True where no card's ready event was given."""
+        return all(event.query() for event, _ in self.ready.values())
+
+    def to_host(self) -> np.ndarray:
+        """The rows on the host once every card's copies have ended:
+        ``[k, af]`` for one block, ``[blocks, k, af]`` for several."""
+        for copied in self.copied:
+            copied.synchronize()
+        if self.shape is None:
+            [(_, host)] = self.picks
+            return host.numpy()
+        out = np.empty(self.shape, np.float32)
+        for place, host in self.picks:
+            out[place] = host.numpy()
+        return out
+
+
 class HostPipeline:
     """The double-buffered host interface of both engines' pipelines.
 
@@ -181,12 +269,20 @@ class HostPipeline:
     step on the current CUDA stream and returns the PREVIOUS call's
     ``(audio, latest_db [fft_size])`` as device tensors (None on the first
     call), an :class:`Outputs` whose ``ready`` holds an event recorded just
-    after that call's step on each card, with the card's copy stream;
-    :meth:`flush` returns the last one. :meth:`process_host_many`
+    after that call's step on each card, with the card's copy stream, and
+    whose :meth:`Outputs.select_rows` takes listened rows to the host
+    behind it; :meth:`flush` returns the last one. :meth:`process_host_many`
     does the same for a backlog ``[k, 2, N]`` (audio ``[k, C,
     audio_frames]``). Two staging buffers alternate, and a buffer is
     refilled only after the copy that last read it has finished. Not
     thread-safe: one thread drives it.
+
+    A block is timed where the caller hands it a timing-event triple
+    ``(the card's current stream, start, end)`` for each of
+    :meth:`cards` in :attr:`step_events` before the call: the pipeline
+    records each card's pair around its own share of the block and takes
+    them (one card: the start before the block's H2D copy, the end after
+    its step).
 
     The state is carried in persistent buffers that every step writes in
     place (:meth:`_step_in_place`; the JAX package donates the state to its
@@ -214,9 +310,19 @@ class HostPipeline:
 
     #: per-block process_host audio orientation: ``[audio_frames, C]``
     #: when True, else ``[C, audio_frames]``
-    audio_time_major = False
+    time_major = False
     #: what a graph is made with (a test may put a stand-in here)
     graph_class = CudaStepGraph
+    #: on the card, why the tail runs plain where no option asks for it;
+    #: None where the kernels serve, on the CPU and on the direct engine
+    plain_tail = None
+    #: whether ``update_params_slots`` takes an incremental scatter of
+    #: the dirty slots' columns
+    scatters_slots = False
+    #: the host's stamps of the last block's first and last card's launch
+    #: where a block is a round over several cards; None where it is one
+    #: card's
+    launched = None
 
     def __init__(self, cfg, params, device: torch.device, graph: bool = True):
         self.cfg = cfg
@@ -232,6 +338,9 @@ class HostPipeline:
         self._graphs: ServingGraphs | None = None
         #: each card's copy stream (``_ready``), made at its first block
         self._copy_streams: dict = {}
+        #: the next block's timing-event triples, one a card of
+        #: :meth:`cards`, taken by the block; None leaves it untimed
+        self.step_events = None
         self.graph_captures = 0
         self.graph_replays = 0
         self.graph_warms = 0
@@ -354,10 +463,24 @@ class HostPipeline:
             ready[dev] = (event, stream)
         return ready
 
-    def _swap_pending(self, audio, latest_db):
+    def _swap_pending(self, audio, latest_db, time_major=False):
         result = self._pending
-        self._pending = Outputs(audio, latest_db, self._ready())
+        self._pending = Outputs(audio, latest_db, self._ready(), time_major)
         return result
+
+    def _timed(self):
+        """The block's timing events (:attr:`step_events`, taken), the start
+        recorded on the card's stream before anything of the block:
+        ``(stream, start, end)``, or None where it goes untimed. Like the
+        staging copies' events they are recorded outside
+        ``.graph.LAUNCH_LOCK``: only a graph launch deadlocked against a
+        profiler's stop."""
+        events, self.step_events = self.step_events, None
+        if not events:
+            return None
+        stream, start, _ = events[0]
+        start.record(stream)
+        return events[0]
 
     def step_device(self, iq: torch.Tensor):
         """One block already on the device, outside the host contract:
@@ -368,6 +491,7 @@ class HostPipeline:
         return self._step_in_place(iq)
 
     def process_host(self, iq_planes: np.ndarray):
+        timed = self._timed()
         if self.graphed():
             host = np.ascontiguousarray(iq_planes, dtype=np.float32)
             audio, _, latest_db = self._graphs_for(host.shape).serve(self,
@@ -375,7 +499,9 @@ class HostPipeline:
         else:
             audio, _, latest_db = self._step_in_place(
                 self._to_device(iq_planes))
-        return self._swap_pending(audio, latest_db)
+        if timed:
+            timed[2].record(timed[0])
+        return self._swap_pending(audio, latest_db, self.time_major)
 
     def step_blocks(self, iq: torch.Tensor):
         """``iq [k, 2, block_frames]`` on the device through
@@ -384,7 +510,7 @@ class HostPipeline:
         audio = None
         for j in range(iq.shape[0]):
             a, _, latest_db = self.step_device(iq[j])
-            if self.audio_time_major:
+            if self.time_major:
                 a = a.T
             if audio is None:
                 audio = a.new_empty((iq.shape[0],) + tuple(a.shape))
@@ -397,7 +523,11 @@ class HostPipeline:
         graphs, ``k`` replays of the serving graphs). Same double-buffered
         contract as :meth:`process_host`; the previous result handed back
         may hold per-block audio or ``[k, C, audio_frames]``."""
-        return self._swap_pending(*self.step_blocks(self._to_device(blocks)))
+        timed = self._timed()
+        out = self.step_blocks(self._to_device(blocks))
+        if timed:
+            timed[2].record(timed[0])
+        return self._swap_pending(*out)
 
     def flush(self):
         result = self._pending
@@ -413,6 +543,13 @@ class HostPipeline:
         self.load_state(self._init_state())
         self._pending = None
 
+    def carry_state_from(self, old) -> bool:
+        """Carry the DSP state of ``old``, the narrower pipeline a growth
+        replaces, into this one's buffers (new slots start from zeros, and
+        its graphs stay valid); whether it could. Here it cannot: the
+        state restarts fresh."""
+        return False
+
 
 class FrontEndPipeline(HostPipeline):
     """The direct engine's pipeline: :func:`frontend_step_serving` behind
@@ -424,6 +561,12 @@ class FrontEndPipeline(HostPipeline):
 
     def _init_state(self) -> FrontEndState:
         return init_state(self.cfg, self.device)
+
+    def carry_state_from(self, old) -> bool:
+        if not isinstance(old, FrontEndPipeline):
+            return False
+        self.load_state(grow_state(old.state, self.cfg.num_channels))
+        return True
 
     def _block(self, iq):
         return frontend_step(self.cfg, self.params, self.state, iq)

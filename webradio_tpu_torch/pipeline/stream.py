@@ -66,7 +66,7 @@ def _run(cfg, params, state, iq: torch.Tensor, graph: bool):
     for b in range(n_blocks):
         a, raw, _ = pipe.step_device(iq[:, b * bf:(b + 1) * bf])
         audio[:, b * af:(b + 1) * af].copy_(
-            a.T if pipe.audio_time_major else a)
+            a.T if pipe.time_major else a)
         latest[b].copy_(raw)
     final = clone_tree(pipe.state)
     KEPT.put(key, pipe)

@@ -22,17 +22,15 @@ block's step runs on the card's current (serving) stream, a CUDA graph
 replay into fixed outputs (``pipeline.graph``), and the pipeline hands
 its outputs back one call later with an event recorded just after that
 step (``pipeline.frontend.Outputs``). As the pump publishes a block it
-copies the spectrum row on the serving stream, and gathers the
-subscribed rows of the audio (one ``index_select`` over an index kept on
-the device, copied there without a wait when the rows change) on the
-card's copy stream, which waits on the block's own event and not on the
-next block's step queued since; the serving stream then waits on the
-card for that gather before the replay that rewrites those outputs
-(``pipeline.frontend.behind``). One copy of the gathered rows into pinned
-host memory follows the gather on the same copy stream, and the fan-out
-thread waits on a CUDA event recorded after it. So a block's rows reach
-the host once its own step has ended. The step's
-device time is read from two timing events around it once they have
+copies the spectrum row on the serving stream and asks the outputs for
+the subscribed rows of the audio (``Outputs.select_rows``): each card
+gathers them on its copy stream behind the block's own event, not behind
+the next block's step queued since, and copies them into pinned host
+memory right behind on the same stream, and the fan-out thread waits for
+that copy (``pipeline.frontend.SelectedRows``). So a block's rows reach
+the host once its own step has ended. The pump hands each block's step a
+timing-event pair a card, which the pipeline records around its own share
+of the block; the step's device time is read from them once they have
 completed (the pump polls them at its next blocks), and the spectrum row
 is copied to the host on HTTP demand. Off the card, and under multihost
 serving (whose gathers are collectives in lockstep), everything runs on
@@ -57,7 +55,6 @@ import json
 import logging
 import threading
 import time
-from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -69,20 +66,13 @@ from .ops.demod import MODES
 from .pipeline.channelized import (
     ChannelizedConfig,
     ChannelizedPipeline,
-    grow_channelized_state,
     make_channelized_params,
 )
 from .parallel import mesh as pmesh
 from .parallel import multihost as phost
-from .parallel.sharded import SelectedRows, ShardedAudio
 from .parallel.sharded_channelized import ShardedChannelizedFrontEnd
-from .pipeline.frontend import (
-    FrontEndPipeline,
-    behind,
-    copy_to_host,
-    row_index,
-)
-from .pipeline.state import ChainConfig, grow_state, make_receiver_params
+from .pipeline.frontend import FrontEndPipeline, HostPipeline
+from .pipeline.state import ChainConfig, make_receiver_params
 
 #: "auto" engine switches to the shared polyphase filterbank once the
 #: channel batch is wide enough that per-channel wideband mixing dominates
@@ -129,85 +119,6 @@ def _to_planes(block: np.ndarray) -> np.ndarray:
         return native.convert_planes(block)
     # complex64 is interleaved (re, im) float32 in memory
     return np.ascontiguousarray(block.view(np.float32).reshape(-1, 2).T)
-
-
-class GatheredRows(NamedTuple):
-    """A block's gathered rows from one card, on their way to the host:
-    ``host``, the pinned buffer a copy on the card's copy stream fills
-    behind the gather; ``copied``, an event recorded after that copy;
-    ``ready``, the block's own ready event."""
-
-    host: torch.Tensor
-    copied: torch.cuda.Event
-    ready: torch.cuda.Event
-
-    def is_ready(self) -> bool:
-        """Whether the block's step had ended (a query, no wait)."""
-        return self.ready.query()
-
-    def to_host(self) -> np.ndarray:
-        self.copied.synchronize()
-        return self.host.numpy()
-
-
-def _gather_rows(audio: torch.Tensor, rows, time_major: bool = False,
-                 card=None):
-    """ONE ``index_select`` of the subscribed receivers' rows on the
-    device: ``[k, audio_frames]`` of one block, ``[blocks, k,
-    audio_frames]`` of a catch-up's ``[blocks, C, audio_frames]``.
-    ``time_major`` is the channelized serving layout (``[audio_frames,
-    C]``, channels are columns), over the index ``row_index`` keeps on the
-    device for the stream that gathers. Without ``card``, a tensor
-    gathered on the current stream. ``card``: the block's ``(event, copy
-    stream)`` on the card (``Outputs.ready``); the gather then runs on the
-    copy stream behind the block's own step
-    (``pipeline.frontend.behind``), the copy of its rows to pinned host
-    memory is queued right behind it on the same stream (so no later
-    block's gather, queued there behind that block's step, comes between
-    the two), and the rows come back as :class:`GatheredRows`."""
-    with behind(card, [audio]):
-        idx = row_index(tuple(rows), audio.device, card and card[1])
-        src = audio.movedim(-1, -2) if time_major else audio
-        sel = src.index_select(-2, idx)
-    if card is None:
-        return sel
-    (host,), copied = copy_to_host([sel], audio.device, card[1])
-    return GatheredRows(host, copied, card[0])
-
-
-def _rows_to_host(sel) -> np.ndarray:
-    """Gathered rows on the host, in the calling (fan-out) thread: a wait
-    on the event after their copy to pinned host memory, which the pump
-    queued behind the gather on the card's copy stream
-    (:class:`GatheredRows`; a sharded engine's
-    :class:`.parallel.sharded.SelectedRows`, from each of its cards). A
-    plain tensor is copied on the current stream, then waited for."""
-    if isinstance(sel, (GatheredRows, SelectedRows)):
-        return sel.to_host()
-    (host,), copied = copy_to_host([sel], sel.device)
-    if copied is not None:
-        copied.synchronize()
-    return host.numpy()
-
-
-def _rows_ready(sel) -> bool:
-    """Whether the step of the block whose rows ``sel`` holds had ended
-    when asked, without a wait: True off the card, False on it where the
-    rows carry no event."""
-    if isinstance(sel, (GatheredRows, SelectedRows)):
-        return sel.is_ready()
-    return sel.device.type != "cuda"
-
-
-def _fetch_audio_rows(audio, rows, time_major: bool = False,
-                      ready=None) -> np.ndarray:
-    """The subscribed receivers' audio rows on the host
-    (:func:`_gather_rows`, then :func:`_rows_to_host`); behind the block's
-    own step where ``ready`` (``Outputs.ready``) names its card."""
-    if isinstance(audio, ShardedAudio):
-        return audio.fetch_rows(rows, ready)
-    card = (ready or {}).get(audio.device)
-    return _rows_to_host(_gather_rows(audio, rows, time_major, card=card))
 
 
 class CapacityError(RuntimeError):
@@ -494,13 +405,17 @@ class FrontEnd:
         self.engine = engine
         self.fir_precision = fir_precision
         self.pfb_precision = pfb_precision
+        # the sharded engine's parameters are made on the host, and it
+        # cuts them onto its positions
+        self._params_device = (torch.device("cpu") if engine == "sharded"
+                               else self.device)
         base = cfg or ChainConfig()
         self.cfg = dataclasses.replace(base, num_channels=capacity)
         # the rate the device actually runs at (rtlsdrtuner.cxx:226-228):
         # the DSP grid stays on the nominal rates, NCO/bin plans follow it
         self.actual_sample_rate = self.cfg.sample_rate
         self._slots: list[Receiver | None] = [None] * capacity
-        self.pipeline: FrontEndPipeline | ChannelizedPipeline | None = None
+        self.pipeline: HostPipeline | None = None
         # control writes: designed under _ctrl_lock (one writer at a time,
         # so they queue in the order their settings were made), queued
         # under _queue_lock, and applied by the pump at the top of run_once
@@ -520,14 +435,14 @@ class FrontEnd:
         self.ring = BlockRing(self.ring_blocks, self.trace)
         # the block whose outputs the pipeline holds (it hands them back
         # at the next call); the step timing events not yet read (a pair
-        # a card), and those free for another block; the cards' streams
-        # (None until the first block)
+        # a card), and those free for another block; the pipeline timed
+        # last and its cards' streams
         self._inflight_id = None
         self._step_events: collections.deque = collections.deque()
         self._free_events: list = []
-        self._step_streams: list | None = None
+        self._step_streams: tuple = (None, [])
         #: the last read block's step device time on each card, ns (a
-        #: sharded front end's; empty otherwise)
+        #: front end whose blocks are rounds over cards; empty otherwise)
         self.card_steps_ns: list = []
         # what the last _deliver_rows did, for the fan-out's recorder row:
         # its start and end, encode ns, consumers pushed, consumers whose
@@ -681,13 +596,13 @@ class FrontEnd:
     def _make_params(self, width: int, settings=None):
         """Parameters for a ``width``-channel pipeline of the engine that
         width selects, on the front end's device (on the host for the
-        sharded engine, which cuts them onto its positions)."""
+        sharded engine)."""
         settings = settings or self._slot_settings(width)
         if self._use_channelized(width):
             return make_channelized_params(
                 self._channelized_cfg(width), *settings,
                 actual_sample_rate=self.actual_sample_rate,
-                device="cpu" if self.engine == "sharded" else self.device)
+                device=self._params_device)
         return make_receiver_params(
             dataclasses.replace(self.cfg, num_channels=width), *settings,
             actual_sample_rate=self.actual_sample_rate, device=self.device)
@@ -750,9 +665,7 @@ class FrontEnd:
                 self._mh_dirty.update(range(width) if slots is None
                                       else (s for s in slots if s < width))
                 return
-            if (slots
-                    and isinstance(pipe, (ChannelizedPipeline,
-                                          ShardedChannelizedFrontEnd))
+            if (slots and pipe.scatters_slots
                     and all(0 <= s < width for s in slots)
                     and self._shared_bw is not None):
                 settings = self._slot_settings(width)
@@ -830,8 +743,7 @@ class FrontEnd:
             t0 = time.perf_counter()
             out = self.pipeline.process_host_sync(
                 np.zeros((2, self.cfg.block_frames), np.float32))
-            _fetch_audio_rows(out[0], [0], self.pipeline.audio_time_major,
-                              getattr(out, "ready", None))
+            out.select_rows([0]).to_host()
             self.pipeline.reset()
             log.info("front end %s: pipeline warm in %.1fs", self.uuid,
                      time.perf_counter() - t0)
@@ -1021,13 +933,7 @@ class FrontEnd:
         bid = self.block_count
         self.trace.begin(bid)
         self.trace.got(bid, trace.now(), 0, 1)
-        events = self._step_begin()
-        d0 = trace.now()
-        out = self.pipeline.process_host(planes)
-        d1 = trace.now()
-        self.trace.dispatched(bid, c0, c1, d0, d1)
-        self._step_end(bid, events, d0, d1)
-        self.block_count += 1
+        out = self._dispatch(bid, planes, c0, c1)
         if out is not None:
             self._publish_multihost(out, ctl["rows"], ctl["want_spectrum"])
         return True
@@ -1039,7 +945,7 @@ class FrontEnd:
             spec = phost.gather_to_host(latest_db[None])[-1]
             with self._spec_lock:
                 self._spectrum_db = torch.from_numpy(spec)
-        rows = [r for r in rows if r < audio.channels]
+        rows = [r for r in rows if r < out.channels]
         if not rows:
             return
         sel = phost.gather_to_host(audio.fetch_rows(rows), dim=-1)
@@ -1103,26 +1009,15 @@ class FrontEnd:
                     else self._publish_block(leftover, self._inflight_id))
         self._inflight_id = None
         width = new_pipe.cfg.num_channels
-        # into the grown pipeline's own buffers: its graphs stay valid
-        if isinstance(old, ChannelizedPipeline) and isinstance(
-                new_pipe, ChannelizedPipeline):
-            # in the history domain the grown step carries (the slots
-            # added may move it between the per-channel kernel and the
-            # time-major tail)
-            new_pipe.load_state(grow_channelized_state(
-                old.state_for(new_pipe), width))
-        elif isinstance(old, FrontEndPipeline) and isinstance(
-                new_pipe, FrontEndPipeline):
-            new_pipe.load_state(grow_state(old.state, width))
-        else:
+        if not new_pipe.carry_state_from(old):
             # engine flip (direct -> channelized past the auto threshold),
             # or the sharded engine (its mesh may change with the width;
             # the JAX package restarts it too): the carries do not carry
             # over; existing channels see one FIR-length transient
-            log.info("front end %s: %s across growth; state restarts fresh",
-                     self.uuid, "sharded engine" if self.engine == "sharded"
-                     else "engine changed")
-        for name, n in self._graph_stats_of(old).items():
+            log.info("front end %s: %s takes no state from %s across "
+                     "growth; state restarts fresh", self.uuid,
+                     type(new_pipe).__name__, type(old).__name__)
+        for name, n in old.graph_stats().items():
             self._retired_graph_stats[name] = (
                 self._retired_graph_stats.get(name, 0) + n)
         with self._ctrl_lock:
@@ -1138,21 +1033,17 @@ class FrontEnd:
                 self.rebuild_params(slots=moved)
         return gathered
 
-    @staticmethod
-    def _graph_stats_of(pipe) -> dict[str, int]:
-        stats = getattr(pipe, "graph_stats", None)
-        return stats() if stats is not None else {}
-
     def plain_tail(self) -> str | None:
         """On the card, why the serving pipeline's tail runs plain where
-        no option asks for it (``ChannelizedPipeline.plain_tail``); None
-        where the kernels serve, on the CPU and on the direct engine."""
-        return getattr(self.pipeline, "plain_tail", None)
+        no option asks for it (``HostPipeline.plain_tail``); None where
+        the kernels serve, on the CPU, on the direct engine and before a
+        pipeline is built."""
+        return None if self.pipeline is None else self.pipeline.plain_tail
 
     def graph_kernels_per_block(self) -> int:
         """The kernel nodes one served block's graph holds (0 without)."""
-        per_block = getattr(self.pipeline, "graph_kernels_per_block", None)
-        return per_block() if per_block is not None else 0
+        pipe = self.pipeline
+        return 0 if pipe is None else pipe.graph_kernels_per_block()
 
     def graph_stats(self) -> dict[str, int]:
         """The CUDA graphs' counts over this front end's pipelines
@@ -1160,7 +1051,7 @@ class FrontEnd:
         ``captures``, ``replays``, ``warms`` (eager blocks before a
         capture) and ``kernels`` (the kernel nodes of every replayed graph,
         summed)."""
-        now = self._graph_stats_of(self.pipeline)
+        now = {} if self.pipeline is None else self.pipeline.graph_stats()
         return {name: self._retired_graph_stats.get(name, 0) + now.get(name, 0)
                 for name in ("captures", "replays", "warms", "kernels")}
 
@@ -1227,14 +1118,7 @@ class FrontEnd:
             c0 = trace.now()
             self.apply_control()
             c1 = trace.now()
-            iq_planes = _to_planes(blk)
-            events = self._step_begin()
-            d0 = trace.now()
-            out = self.pipeline.process_host(iq_planes)
-            d1 = trace.now()
-            rec.dispatched(bid, c0, c1, d0, d1)
-            self._step_end(bid, events, d0, d1)
-            self.block_count += 1
+            out = self._dispatch(bid, _to_planes(blk), c0, c1)
             out_id, self._inflight_id = self._inflight_id, bid
             if out is not None:  # None: pipeline priming
                 handoff.add(out_id, self._publish_block(out, out_id))
@@ -1247,57 +1131,58 @@ class FrontEnd:
                 rec.handed(bid, h0, h1, depth)
         return True
 
-    def _step_begin(self):
-        """A timing-event pair for each card the next block's step runs
-        on, each as ``(the card's stream, start, end)``; None off the card.
-        On one card the start is recorded on its current stream before the
-        block's H2D copy; a sharded pipeline records each card's pair
-        around that card's own replays (``parallel.graphs.BlockProgram.
-        run``). Like the staging copies' events, they are recorded outside
-        ``pipeline.graph.LAUNCH_LOCK``: only a graph launch deadlocked
-        against a profiler's stop."""
-        streams = self._step_streams
-        if streams is None:
-            pipe = self.pipeline
-            devs = (pipe.devices if self.engine == "sharded"
-                    else [getattr(pipe, "device", self.device)])
-            # each card's current stream, where process_host queues its
-            # copies and replays (a lookup costs the host microseconds)
-            streams = self._step_streams = [
-                torch.cuda.current_stream(d) for d in devs
-                if d.type == "cuda"]
+    def _dispatch(self, bid, planes, c0: int, c1: int):
+        """Block ``bid``'s ``process_host`` (the control writes before it
+        took ``c0`` to ``c1``), stamped, with a timing-event pair for each
+        card of its step handed to the pipeline, which records them around
+        its own share of the block (:attr:`.pipeline.frontend.HostPipeline.
+        step_events`); then the device time of every earlier step whose
+        events have all completed is stored, without a wait
+        (:func:`read_steps`). Off the card the step ran inside
+        ``process_host``: its host time is its time. Where a block is a
+        round over several cards (the pipeline's ``launched``), the
+        round's launch span, its fastest card's step and each card's are
+        stored too."""
+        pipe, rec = self.pipeline, self.trace
+        pairs = pipe.step_events = self._timing_events(pipe)
+        d0 = trace.now()
+        out = pipe.process_host(planes)
+        d1 = trace.now()
+        rec.dispatched(bid, c0, c1, d0, d1)
+        self.block_count += 1
+        launched = pipe.launched
+        rounds = launched is not None
+        if rounds:
+            rec.launched(bid, *launched)
+        if pairs is None:
+            ns = d1 - d0
+            rec.step(bid, ns, ns if rounds else 0)
+            return out
+        self._step_events.append((bid, pairs))
+        ns = read_steps(rec, self._step_events, self._free_events, rounds)
+        if ns and rounds:
+            self.card_steps_ns = ns
+        return out
+
+    def _timing_events(self, pipe):
+        """A ``(stream, start, end)`` timing-event triple for each card of
+        ``pipe`` (:meth:`.pipeline.frontend.HostPipeline.cards`), the
+        stream the card's current one, where ``process_host`` queues its
+        copies and replays (looked up once a pipeline: a lookup costs the
+        host microseconds); None off the card."""
+        if self._step_streams[0] is not pipe:
+            self._step_streams = (pipe, [torch.cuda.current_stream(d)
+                                         for d in pipe.cards()])
+        streams = self._step_streams[1]
         if not streams:
             return None
-        pairs = self._free_events.pop() if self._free_events else [
-            (stream, torch.cuda.Event(enable_timing=True),
-             torch.cuda.Event(enable_timing=True)) for stream in streams]
-        if self.engine == "sharded":
-            self.pipeline.step_events = pairs
-        else:
-            pairs[0][1].record(streams[0])
+        pairs = self._free_events.pop() if self._free_events else None
+        if pairs is None or [s for s, _, _ in pairs] != streams:
+            # none free, or made for the cards of a pipeline since swapped
+            pairs = [(stream, torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                     for stream in streams]
         return pairs
-
-    def _step_end(self, bid, events, d0: int, d1: int) -> None:
-        """After block ``bid``'s ``process_host``: on one card record the
-        second event after its replay, then store the device time of
-        every earlier step whose events have all completed, without a wait
-        (:func:`read_steps`). Off the card the step ran inside
-        ``process_host``: its host time is its time. A sharded front end
-        also stores its round's launch span."""
-        rec = self.trace
-        sharded = self.engine == "sharded"
-        if sharded:
-            rec.launched(bid, *self.pipeline.launched)
-        if events is None:
-            ns = d1 - d0
-            rec.step(bid, ns, ns if sharded else 0)
-            return
-        if not sharded:
-            events[0][2].record(self._step_streams[0])
-        self._step_events.append((bid, events))
-        ns = read_steps(rec, self._step_events, self._free_events, sharded)
-        if ns and sharded:
-            self.card_steps_ns = ns
 
     def _publish_block(self, out, bid) -> list:
         """:meth:`_publish` of block ``bid``'s outputs, stamped."""
@@ -1311,39 +1196,23 @@ class FrontEnd:
         """Hand (audio, spectrum) to HTTP readers before the next block:
         the spectrum row is copied on the pump's stream, and the rows of
         the receivers with consumers are gathered from the audio (a graph
-        replay two blocks on rewrites both), on the card's copy stream
-        behind the block's own step where ``out`` carries its ready events
-        (``pipeline.frontend.Outputs``). Returns ``[(gathered, rows)]`` for
-        the fan-out, empty with no consumer (the reference's zero-consumer
-        no-op, audiostream.cxx:67-68). A sharded engine's rows are copied
-        out of its pieces on their devices."""
+        replay two blocks on rewrites both) behind the block's own step
+        (``pipeline.frontend.Outputs.select_rows``). Returns ``[(gathered,
+        rows)]`` for the fan-out, empty with no consumer (the reference's
+        zero-consumer no-op, audiostream.cxx:67-68)."""
         from .web.audiostream import AudioStreamManager
 
-        audio, latest_db = out
-        latest_db = latest_db.clone()
+        latest_db = out[1].clone()
         with self._spec_lock:
             self._spectrum_db = latest_db
-        # per-block channelized serving audio is time-major [af, C]; the
-        # direct engine's is channel-major; the sharded engine's pieces
-        # know their own layout
-        if isinstance(audio, ShardedAudio):
-            tm, width = False, audio.channels
-        else:
-            tm = audio.ndim == 2 and self.pipeline.audio_time_major
-            width = (audio.shape[1] if (tm or audio.ndim == 3)
-                     else audio.shape[0])
         rows = tuple(
-            i for i, rx in enumerate(self._slots[:width])
+            i for i, rx in enumerate(self._slots[:out.channels])
             if rx is not None
             and (AudioStreamManager.has_consumers(rx.uuid)
                  or rx.audio_sink is not None))
         if not rows:
             return []
-        ready = getattr(out, "ready", None)
-        if isinstance(audio, ShardedAudio):
-            return [(audio.select_rows(rows, ready), rows)]
-        card = (ready or {}).get(audio.device)
-        return [(_gather_rows(audio, rows, tm, card), rows)]
+        return [(out.select_rows(rows), rows)]
 
     def _fanout_worker(self) -> None:
         """Audio fan-out off the pump thread (see _publish). Each block of
@@ -1367,8 +1236,8 @@ class FrontEnd:
             for (gathered, rows), bid in zip(item, ids):
                 t0 = trace.now()
                 try:
-                    ready = _rows_ready(gathered)
-                    sel = _rows_to_host(gathered)
+                    ready = gathered.is_ready()
+                    sel = gathered.to_host()
                 except BaseException as e:
                     log.exception("front end %s: fan-out fetch failed",
                                   self.uuid)
